@@ -1,0 +1,103 @@
+"""Typed configuration for deva_tpu_torch.
+
+Same fields and defaults as deva_tpu/config.py, so command-line flags and
+`flat_config` match between the two packages. The one difference is how the
+'auto' dtypes resolve: here they are float32 on every backend, because this
+port is held to deva_tpu's f32 results (bf16 compute comes later, with the
+drift budgets of tests/test_amp.py).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def resolve_dtype(name: str) -> str:
+    """'auto' -> 'float32' (every backend); other names pass through."""
+    return "float32" if name == "auto" else name
+
+
+def _torch_dtype(name: str) -> torch.dtype:
+    name = resolve_dtype(name)
+    if name != "float32":
+        raise NotImplementedError(
+            f"dtype {name!r}: only float32 is implemented in deva_tpu_torch "
+            "so far")
+    return torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyperparameters (deva_tpu/config.py:ModelConfig)."""
+    pix_feat_dim: int = 512
+    key_dim: int = 64
+    value_dim: int = 512
+    dtype: str = "auto"
+
+    def __post_init__(self):
+        _torch_dtype(self.dtype)  # raises for a dtype the port lacks
+
+
+@dataclasses.dataclass(frozen=True)
+class InferenceConfig:
+    """Inference-time knobs (deva_tpu/config.py:InferenceConfig)."""
+    mem_every: int = 5
+    top_k: int = 30
+    # long-term memory (XMem-style)
+    enable_long_term: bool = True
+    enable_long_term_count_usage: bool = False
+    max_mid_term_frames: int = 10    # T_max
+    min_mid_term_frames: int = 5     # T_min
+    num_prototypes: int = 128        # P
+    max_long_term_elements: int = 10000  # LT_max
+
+    # image sizing: resize shorter side to `size` (-1 keeps original)
+    size: int = 480
+
+    # detection-fusion knobs (kept for flat_config parity; detection fusion
+    # is not ported yet)
+    max_missed_detection_count: int = 10
+    max_num_objects: int = -1
+    detection_every: int = 5
+    num_voting_frames: int = 3
+
+    # Kept so that flat_config matches deva_tpu. The port has one attention
+    # route: exact top-k, through the CUDA kernels on a CUDA device and the
+    # plain PyTorch functions on the CPU.
+    use_pallas_attention: object = "auto"
+    topk_method: str = "auto"
+    preencode_blocks: bool = False
+    ring_dtype: str = "auto"
+
+    obj_pad_buckets: tuple = (1, 2, 3, 4, 8, 16, 32, 64, 128, 256)
+
+    def resolve_topk_method(self) -> str:
+        """'auto' and 'exact' -> 'exact'. The threshold-approx method needs
+        the two kernels that are not ported yet (ROADMAP items B3/B4)."""
+        if self.topk_method in ("auto", "exact"):
+            return "exact"
+        if self.topk_method == "approx":
+            raise NotImplementedError(
+                "topk_method='approx' needs the threshold kernels "
+                "_segmax_kernel and _denom_readout_kernel, which are not "
+                "ported yet (ROADMAP items B3/B4); use 'exact'")
+        raise ValueError(f"unknown topk_method {self.topk_method!r}")
+
+    @property
+    def ring_torch_dtype(self) -> torch.dtype:
+        return _torch_dtype(self.ring_dtype)
+
+    def pad_objects(self, n: int) -> int:
+        for b in self.obj_pad_buckets:
+            if n <= b:
+                return b
+        return n  # beyond the largest bucket: exact (rare)
+
+
+def flat_config(model: ModelConfig = ModelConfig(),
+                infer: InferenceConfig = InferenceConfig()) -> dict:
+    """A reference-style flat dict view of both configs."""
+    d = dataclasses.asdict(model)
+    d.update(dataclasses.asdict(infer))
+    return d

@@ -1,0 +1,245 @@
+"""Fused exact top-k memory attention: similarity + masked top-k, softmax over
+the k values, sparse readout, usage. No dense [Q, N] matrix is built.
+
+Port of the exact path of deva_tpu/ops/pallas_attention.py (`sim_topk`,
+`topk_readout`, `attend_pallas`). Each function has its plain PyTorch twin
+here (`*_plain`), with the same semantics:
+
+- `sim_topk` -> (values [Q, K] descending, indices [Q, K] int32). Ties go to
+  the lowest index. Invalid slots are -inf; in a row with fewer valid tokens
+  than K the -inf slots carry the lowest invalid indices, so every index is
+  in range.
+- `topk_readout` -> out[q] = sum_k w[q, k] * V[idx[q, k]], [Q, C] f32.
+- `attend_topk` -> the composite of `attend_pallas`: out [O, Q, Cv] and,
+  optionally, per-token usage [N] (the scatter-add of the weights).
+
+Dispatch is by device only. Tensors on the CPU take the plain version.
+Tensors on a CUDA device launch the hand-written kernels of
+deva_tpu_torch/csrc (built by cuda_build at first use) or raise: there is no
+fallback. Each launch of a kernel adds one to its entry in `LAUNCHES`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from deva_tpu_torch.ops import memory_attention as ma
+
+# launches of each kernel since the last reset_launch_counts()
+LAUNCHES = {"sim_topk": 0, "topk_readout": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_cuda(*tensors) -> bool:
+    """True if every given tensor is on a CUDA device, False if every one is
+    on the CPU; raises for a mix or another device."""
+    kinds = {t.device.type for t in tensors if t is not None}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"tensors on mixed or unsupported devices: {kinds}")
+
+
+def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(device: torch.device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+# --------------------------------------------------------------------------
+# sim_topk
+# --------------------------------------------------------------------------
+
+def sim_topk_plain(qk, qe, mk, ms, valid, top_k: int):
+    """Plain twin of sim_topk: the dense similarity and a stable sort."""
+    sim = ma.mask_invalid(ma.get_similarity(mk, ms, qk, qe), valid)
+    values, indices = ma.topk_sorted(sim, top_k)
+    return values, indices.to(torch.int32)
+
+
+@functools.lru_cache(maxsize=1)
+def _sim_topk_limits():
+    from deva_tpu_torch.ops import cuda_build
+    vals = [ctypes.c_int() for _ in range(5)]
+    cuda_build.load().deva_sim_topk_limits(*[ctypes.byref(v) for v in vals])
+    return [v.value for v in vals]  # qt, nt, ck_max, k_max, max_splits
+
+
+def _sim_topk_cuda(qk, qe, mk, ms, valid, top_k: int):
+    """Launches csrc/sim_topk.cu, the port of the Pallas `_sim_topk_kernel`
+    and its candidate merge (deva_tpu/ops/pallas_attention.py:177-242). It
+    is bound by the f32 FFMA rate and shared-memory traffic (2*Q*N*Ck FFMAs,
+    no TF32); it keeps a running top-k per query in shared memory instead
+    of writing [Q, N] similarities, and splits the token axis across blocks
+    to fill the SMs (see the source note)."""
+    from deva_tpu_torch.ops import cuda_build
+    lib = cuda_build.load()
+    qt, nt, ck_max, k_max, max_splits = _sim_topk_limits()
+    q, ck = qk.shape
+    n = mk.shape[0]
+    if ck > ck_max:
+        raise ValueError(f"sim_topk: key dim {ck} > {ck_max}")
+    if not 1 <= top_k <= k_max:
+        raise ValueError(f"sim_topk: top_k={top_k} outside [1, {k_max}]")
+    if n < top_k:
+        raise ValueError(f"sim_topk: {n} tokens < top_k={top_k}")
+    dev = qk.device
+    f32 = torch.float32
+    _require(qk, "qk", f32, (q, ck))
+    _require(mk, "mk", f32, (n, ck))
+    if qe is not None:
+        _require(qe, "qe", f32, (q, ck))
+    if ms is not None:
+        _require(ms, "ms", f32, (n,))
+    if valid is not None:
+        _require(valid, "valid", torch.bool, (n,))
+
+    # per-row and per-token terms, as in pallas_attention._prep_inputs
+    if qe is not None:
+        qkqe = (qk * qe).contiguous()
+        bsq = torch.sum(qe * qk * qk, dim=-1).contiguous()
+        msq = None
+    else:
+        qkqe = qk
+        bsq = torch.zeros((q,), dtype=f32, device=dev)
+        msq = torch.sum(mk * mk, dim=-1).contiguous()
+    # divided, not multiplied by a reciprocal: the same rounding as the plain
+    # path's sim * (ms / sqrt(ck))
+    msv = (ms / math.sqrt(ck)).contiguous() if ms is not None else \
+        torch.full((n,), 1.0 / math.sqrt(ck), dtype=f32, device=dev)
+    valid_u8 = valid.view(torch.uint8) if valid is not None else None
+
+    # split the token axis so that about two blocks per SM are in flight
+    n_tiles = -(-n // nt)
+    q_tiles = -(-q // qt)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = max(1, min(max_splits, n_tiles, -(-2 * sms // q_tiles)))
+    split_len = -(-n_tiles // splits) * nt
+    splits = -(-n // split_len)
+
+    cand_v = torch.empty((splits, q, top_k), dtype=f32, device=dev)
+    cand_i = torch.empty((splits, q, top_k), dtype=torch.int32, device=dev)
+    out_v = torch.empty((q, top_k), dtype=f32, device=dev)
+    out_i = torch.empty((q, top_k), dtype=torch.int32, device=dev)
+    err = lib.deva_sim_topk(
+        _ptr(qkqe), _ptr(qe), _ptr(bsq), _ptr(mk), _ptr(msq), _ptr(msv),
+        _ptr(valid_u8), q, n, ck, top_k, splits, split_len, _ptr(cand_v),
+        _ptr(cand_i), _ptr(out_v), _ptr(out_i), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"sim_topk kernel launch failed: CUDA error {err}")
+    LAUNCHES["sim_topk"] += 1
+    return out_v, out_i
+
+
+def sim_topk(qk: torch.Tensor, qe: Optional[torch.Tensor], mk: torch.Tensor,
+             ms: Optional[torch.Tensor], valid: Optional[torch.Tensor],
+             top_k: int):
+    """Exact masked top-k of the (never materialized) similarity.
+    qk/qe: [Q, Ck]; mk: [N, Ck]; ms: [N] or None; valid: [N] bool or None.
+    Returns (values [Q, K] sorted descending, indices [Q, K] int32)."""
+    if _on_cuda(qk, qe, mk, ms, valid):
+        return _sim_topk_cuda(qk, qe, mk, ms, valid, top_k)
+    return sim_topk_plain(qk, qe, mk, ms, valid, top_k)
+
+
+# --------------------------------------------------------------------------
+# topk_readout
+# --------------------------------------------------------------------------
+
+def topk_readout_plain(indices, weights, values2d):
+    """Plain twin of topk_readout: gather the k rows and sum."""
+    rows = values2d.float()[indices.long()]  # [Q, K, C]
+    return torch.einsum("qk,qkc->qc", weights.float(), rows)
+
+
+def _topk_readout_cuda(indices, weights, values2d):
+    """Launches csrc/topk_readout.cu, the port of the Pallas
+    `_readout_kernel` (deva_tpu/ops/pallas_attention.py:249-305). It is
+    bound by the bytes of the gathered value rows (Q*k*C*4); it gathers the
+    k rows per query with 16-byte loads instead of rebuilding a dense
+    affinity tile for a matrix unit (see the source note)."""
+    from deva_tpu_torch.ops import cuda_build
+    lib = cuda_build.load()
+    q, k = indices.shape
+    n, c = values2d.shape
+    _require(indices, "indices", torch.int32, (q, k))
+    _require(weights, "weights", torch.float32, (q, k))
+    _require(values2d, "values", torch.float32, (n, c))
+    out = torch.empty((q, c), dtype=torch.float32, device=values2d.device)
+    vec4 = c % 4 == 0 and values2d.data_ptr() % 16 == 0
+    err = lib.deva_topk_readout(_ptr(indices), _ptr(weights), _ptr(values2d),
+                                q, n, k, c, int(vec4), _ptr(out),
+                                _stream(values2d.device))
+    if err != 0:
+        raise RuntimeError(
+            f"topk_readout kernel launch failed: CUDA error {err}")
+    LAUNCHES["topk_readout"] += 1
+    return out
+
+
+def topk_readout(indices: torch.Tensor, weights: torch.Tensor,
+                 values2d: torch.Tensor) -> torch.Tensor:
+    """indices/weights: [Q, K] (token ids and weights); values2d: [N, C]
+    (token-major, C = O*Cv). Returns [Q, C] f32."""
+    if _on_cuda(indices, weights, values2d):
+        return _topk_readout_cuda(indices, weights, values2d)
+    return topk_readout_plain(indices, weights, values2d)
+
+
+# --------------------------------------------------------------------------
+# the composite
+# --------------------------------------------------------------------------
+
+def _attend(select, read, mk, ms, values, qk, qe, top_k, valid,
+            return_usage):
+    n, o, cv = values.shape
+    q = qk.shape[0]
+    gv, gi = select(qk, qe, mk, ms, valid, top_k)
+    w = ma.softmax_topk_values(gv)
+    out = read(gi, w, values.reshape(n, o * cv))
+    out = out.reshape(q, o, cv).transpose(0, 1)
+    if return_usage:
+        usage = torch.zeros((n,), dtype=torch.float32, device=values.device)
+        usage.index_add_(0, gi.reshape(-1).long(), w.reshape(-1))
+        return out, usage
+    return out
+
+
+def attend_topk_plain(mk, ms, values, qk, qe, top_k: int, valid=None,
+                      return_usage: bool = False):
+    """Plain twin of attend_topk."""
+    return _attend(sim_topk_plain, topk_readout_plain, mk, ms, values, qk, qe,
+                   top_k, valid, return_usage)
+
+
+def attend_topk(mk: torch.Tensor, ms: Optional[torch.Tensor],
+                values: torch.Tensor, qk: torch.Tensor,
+                qe: Optional[torch.Tensor], top_k: int,
+                valid: Optional[torch.Tensor] = None,
+                return_usage: bool = False):
+    """Exact top-k attention with no dense [Q, N] affinity (the composite of
+    pallas_attention.attend_pallas). values: [N, O, Cv] token-major.
+    Returns out [O, Q, Cv] (f32) and optionally the per-token usage [N]."""
+    return _attend(sim_topk, topk_readout, mk, ms, values, qk, qe, top_k,
+                   valid, return_usage)

@@ -1,0 +1,130 @@
+"""Memory-attention math: anisotropic L2 similarity, top-k softmax, readout.
+
+Port of deva_tpu/ops/memory_attention.py, exact top-k only, with the same
+tokens-major layouts: keys [N, Ck], values [O, N, Cv], output [O, Q, Cv].
+These are the plain dense functions; the fused form that never builds the
+dense [Q, N] matrix is deva_tpu_torch/ops/attention_kernels.py.
+
+Similarity (XMem appendix): for memory key a (with shrinkage s) and query key
+b with per-channel selection e:
+    sim(a, b) = -s * sum_c e_c (a_c - b_c)^2 / sqrt(Ck)
+expanded into two matmuls:  -a^2·e + 2 a·(b e) - sum(e b^2).
+
+Matmuls run in true f32: on a CUDA device PyTorch leaves TF32 off for
+matmuls unless told otherwise, and a top-k over the similarity is sensitive
+to near-tie rounding.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+
+def get_similarity(mk: torch.Tensor, ms: Optional[torch.Tensor],
+                   qk: torch.Tensor, qe: Optional[torch.Tensor]
+                   ) -> torch.Tensor:
+    """mk [N, Ck], ms [N] or None, qk [Q, Ck], qe [Q, Ck] or None
+    -> sim [Q, N] (query-major: the top-k reduces the last axis)."""
+    ck = mk.shape[-1]
+    mk = mk.float()
+    qk = qk.float()
+    if qe is not None:
+        qe = qe.float()
+        a_sq = qe @ (mk * mk).T
+        two_ab = 2.0 * ((qk * qe) @ mk.T)
+        b_sq = torch.sum(qe * qk * qk, dim=-1, keepdim=True)
+        sim = -a_sq + two_ab - b_sq
+    else:
+        a_sq = torch.sum(mk * mk, dim=-1)[None, :]
+        two_ab = 2.0 * (qk @ mk.T)
+        sim = -a_sq + two_ab
+    if ms is not None:
+        return sim * (ms.float()[None, :] / math.sqrt(ck))
+    return sim / math.sqrt(ck)
+
+
+def mask_invalid(sim: torch.Tensor, valid: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    """-inf on the token slots where valid [N] is False."""
+    if valid is None:
+        return sim
+    return sim.masked_fill(~valid[None, :], float("-inf"))
+
+
+def topk_sorted(x: torch.Tensor, k: int):
+    """Top-k along the last axis, values descending and ties to the lowest
+    index (lax.top_k's order). torch.topk promises no order among equal
+    values; a stable descending sort does."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def softmax_topk_values(values: torch.Tensor) -> torch.Tensor:
+    """Softmax over the k selected similarities [Q, K]. Shifting by the row
+    max is the reference's unshifted exp up to rounding, without its
+    all-underflow NaN; the max is clamped to 0 when the row holds no finite
+    value (memory_attention.py:161-164 in deva_tpu). A row with no valid
+    token at all still gives 0/0 = NaN, as in deva_tpu."""
+    row_max = values[..., :1]
+    row_max = torch.where(torch.isfinite(row_max), row_max,
+                          torch.zeros_like(row_max))
+    x_exp = torch.exp(values - row_max)
+    return x_exp / torch.sum(x_exp, dim=-1, keepdim=True)
+
+
+def topk_softmax(sim: torch.Tensor, top_k: int,
+                 valid: Optional[torch.Tensor] = None,
+                 return_usage: bool = False, method: Optional[str] = "auto"):
+    """Exact top-k-restricted softmax over the token axis of sim [Q, N],
+    scattered back to a dense [Q, N] affinity. usage (if requested) is the
+    affinity summed over queries, per token: [N]."""
+    _check_method(method)
+    sim = mask_invalid(sim, valid)
+    q, n = sim.shape
+    values, indices = topk_sorted(sim, top_k)
+    weights = softmax_topk_values(values)
+    affinity = torch.zeros((q, n), dtype=weights.dtype, device=sim.device)
+    affinity.scatter_add_(1, indices, weights)
+    if return_usage:
+        return affinity, affinity.sum(dim=0)
+    return affinity
+
+
+def full_softmax(sim: torch.Tensor,
+                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dense softmax over the token axis (consolidation / training path)."""
+    sim = mask_invalid(sim, valid)
+    maxes = torch.max(sim, dim=-1, keepdim=True).values
+    x_exp = torch.exp(sim - maxes)
+    return x_exp / torch.sum(x_exp, dim=-1, keepdim=True)
+
+
+def readout(affinity: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """affinity [Q, N]; values [..., N, Cv] -> out [..., Q, Cv] (f32)."""
+    return torch.matmul(affinity.float(), values.float())
+
+
+def attend(mk: torch.Tensor, ms: Optional[torch.Tensor], values: torch.Tensor,
+           qk: torch.Tensor, qe: Optional[torch.Tensor], top_k: int,
+           valid: Optional[torch.Tensor] = None, return_usage: bool = False,
+           method: Optional[str] = "auto"):
+    """similarity -> top-k softmax -> readout, in one call.
+    mk [N, Ck], ms [N], values [O, N, Cv], qk [Q, Ck], qe [Q, Ck]
+    -> out [O, Q, Cv] (f32) and optionally usage [N]."""
+    sim = get_similarity(mk, ms, qk, qe)
+    if return_usage:
+        affinity, usage = topk_softmax(sim, top_k, valid, return_usage=True,
+                                       method=method)
+        return readout(affinity, values), usage
+    return readout(topk_softmax(sim, top_k, valid, method=method), values)
+
+
+def _check_method(method: Optional[str]) -> None:
+    if method == "approx":
+        raise NotImplementedError(
+            "topk_method='approx' needs the threshold kernels, which are not "
+            "ported yet (ROADMAP items B3/B4); use 'exact'")
+    if method not in (None, "auto", "exact"):
+        raise ValueError(f"unknown top-k method {method!r}")

@@ -1,0 +1,120 @@
+"""Where the time of deva_tpu_torch's 480p propagation step goes, on a CUDA
+device.
+
+Runs the main path (InferenceCore.step at the default InferenceConfig, two
+objects, seeded weights, smooth-noise 854x480 frames like chip_smoke.py)
+for --frames frames, prints every frame's wall time, and traces the last
+--window frames with torch.profiler: device time per layer (the model's four
+modes and the memory readout, as profiler ranges), device time per kernel,
+and the device's busy share of the window's wall time.
+
+    python -m deva_tpu_torch.profile_step --frames 60 --window 10 \
+        --trace step_trace.json
+"""
+from __future__ import annotations
+
+import argparse
+import functools
+import os
+import statistics
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from deva_tpu_torch.config import InferenceConfig
+from deva_tpu_torch.inference.core import InferenceCore
+from deva_tpu_torch.models.network import DEVANetwork, init_weights
+
+
+LAYERS = ("encode_image", "transform_key", "encode_mask", "segment",
+          "match_memory")
+
+
+def _labeled(fn, name):
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with record_function(name):
+            return fn(*args, **kwargs)
+    return run
+
+
+def _device_us(evt) -> float:
+    return getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=60)
+    ap.add_argument("--window", type=int, default=10)
+    ap.add_argument("--trace", default=None,
+                    help="write a chrome trace of the window here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    rng = np.random.default_rng(11)
+    h, w = 480, 854
+    base = rng.standard_normal((h // 8, -(-w // 8), 3)).astype(np.float32)
+    frames = [torch.from_numpy((base + 0.1 * rng.standard_normal(base.shape))
+                               .repeat(8, 0).repeat(8, 1)[:h, :w]
+                               .astype(np.float32)).to(dev)
+              for _ in range(args.frames)]
+    mask = np.zeros((h, w), np.int64)
+    mask[60:300, 330:520] = 1
+    mask[260:450, 250:620] = 2
+
+    net = init_weights(DEVANetwork(), seed=0).to(dev).eval()
+    for mode in LAYERS[:4]:
+        setattr(net, mode, _labeled(getattr(net, mode), mode))
+    core = InferenceCore(net, InferenceConfig())
+
+    step_ms = []
+    start_window = args.frames - args.window
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    for ti, img in enumerate(frames):
+        if ti == start_window:
+            prof.start()
+            window_t0 = time.perf_counter()
+        if ti == 1:
+            core.memory.match_memory = _labeled(core.memory.match_memory,
+                                                "match_memory")
+        t0 = time.perf_counter()
+        core.step(img, *((mask, [1, 2]) if ti == 0 else ()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1000)
+    window_s = time.perf_counter() - window_t0
+    prof.stop()
+
+    print("frame wall ms:", " ".join(f"{t:.1f}" for t in step_ms))
+    print(f"median frames 10+: {statistics.median(step_ms[10:]):.3f} ms")
+    events = prof.key_averages()
+    # on the device timeline, the layer ranges appear as annotations
+    # spanning their kernels; keep them apart from the kernels themselves
+    on_device = [e for e in events if e.device_type.name == "CUDA"]
+    layers = {e.key: _device_us(e) for e in on_device if e.key in LAYERS}
+    kernels = [e for e in on_device if e.key not in LAYERS]
+    busy_us = sum(_device_us(e) for e in kernels)
+    print(f"window: {args.window} frames, wall {window_s * 1000:.1f} ms, "
+          f"device busy {busy_us / 1000:.1f} ms "
+          f"({busy_us / (window_s * 1e6):.1%}), idle "
+          f"{1 - busy_us / (window_s * 1e6):.1%}")
+    for name, us in sorted(layers.items(), key=lambda kv: -kv[1]):
+        print(f"layer {name}: {us / 1000 / args.window:.3f} ms/frame on the "
+              f"device timeline ({us / (window_s * 1e6):.1%} of the wall)")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:25]:
+        print(f"kernel {_device_us(e) / 1000 / args.window:8.3f} ms/frame "
+              f"x{e.count / args.window:5.1f}  {e.key[:110]}")
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
+                    exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,226 @@
+"""Semi-supervised VOS evaluation with deva_tpu_torch (PyTorch + CUDA).
+
+The port's counterpart of evaluation/eval_vos.py, for the generic (G) and
+DAVIS (D16/D17) layouts: the same flags, the same palette PNG output, the
+same FPS report. Steps are timed with CUDA events on a CUDA device.
+
+Usage (the example clip, on the card):
+  python evaluation/eval_vos_torch.py --dataset G \
+      --generic_path ./example/vos --output ./out_torch
+
+--model takes an upstream DEVA .pth state dict or a deva_tpu .npz export;
+given neither, the weights are a seeded random init. --device defaults to
+cuda and fails when CUDA is absent; pass --device cpu explicitly to run the
+plain PyTorch path on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+import time
+from argparse import ArgumentParser
+from os import path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, path.dirname(path.dirname(path.abspath(__file__))))
+
+from deva_tpu_torch.config import InferenceConfig, ModelConfig
+from deva_tpu_torch.data.transforms import resize_prob_to
+from deva_tpu_torch.data.vos_test_datasets import (DAVISTestDataset,
+                                                   GeneralVOSTestDataset)
+from deva_tpu_torch.inference.core import InferenceCore
+from deva_tpu_torch.models.convert import variables_to_state_dict
+from deva_tpu_torch.models.network import DEVANetwork, init_weights
+
+
+def get_args(argv=None):
+    parser = ArgumentParser()
+    parser.add_argument("--d16_path", default="../DAVIS/2016")
+    parser.add_argument("--d17_path", default="../DAVIS/2017")
+    parser.add_argument("--generic_path", default="./example/vos")
+    parser.add_argument("--dataset", help="D16/D17/G", default="D17")
+    parser.add_argument("--split", help="val/test", default="val")
+    parser.add_argument("--use_all_masks", action="store_true")
+    parser.add_argument("--model", default="./saves/DEVA-propagation.pth")
+    parser.add_argument("--output", default=None)
+    parser.add_argument("--save_all", action="store_true",
+                        help="Save all frames")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default; fails without CUDA) or cpu")
+    # model dims
+    parser.add_argument("--key_dim", type=int, default=64)
+    parser.add_argument("--value_dim", type=int, default=512)
+    parser.add_argument("--pix_feat_dim", type=int, default=512)
+    # long-term memory
+    parser.add_argument("--disable_long_term", action="store_true")
+    parser.add_argument("--max_mid_term_frames", type=int, default=10,
+                        help="T_max in XMem, decrease to save memory")
+    parser.add_argument("--min_mid_term_frames", type=int, default=5,
+                        help="T_min in XMem, decrease to save memory")
+    parser.add_argument("--max_long_term_elements", type=int, default=10000,
+                        help="LT_max in XMem")
+    parser.add_argument("--num_prototypes", type=int, default=128,
+                        help="P in XMem")
+    parser.add_argument("--top_k", type=int, default=30)
+    parser.add_argument("--mem_every", type=int, default=5,
+                        help="r in XMem; increase to improve speed")
+    parser.add_argument("--size", type=int, default=480,
+                        help="Resize shorter side to this; -1 keeps original")
+    return parser.parse_args(argv)
+
+
+def load_model(args, device: torch.device) -> DEVANetwork:
+    """Weights from an upstream .pth or a deva_tpu .npz; else random init."""
+    mc = ModelConfig(pix_feat_dim=args.pix_feat_dim, key_dim=args.key_dim,
+                     value_dim=args.value_dim)
+    model = DEVANetwork(mc)
+    if args.model and path.exists(args.model):
+        if args.model.endswith(".npz"):
+            with np.load(args.model) as npz:
+                sd = variables_to_state_dict(dict(npz))
+        else:
+            sd = torch.load(args.model, map_location="cpu", weights_only=True)
+        model.load_state_dict(sd, strict=True)
+    else:
+        print(f"No model loaded ({args.model!r} not found); "
+              "using random init.")
+        init_weights(model, seed=42)
+    return model.to(device).eval()
+
+
+def make_dataset(args):
+    if args.dataset == "G":
+        return GeneralVOSTestDataset(args.generic_path, size=args.size,
+                                     use_all_masks=args.use_all_masks)
+    if args.dataset == "D16":
+        return DAVISTestDataset(
+            args.d16_path, imset="../../2017/trainval/ImageSets/2016/val.txt",
+            size=args.size)
+    if args.dataset == "D17":
+        if args.split == "val":
+            return DAVISTestDataset(path.join(args.d17_path, "trainval"),
+                                    imset="2017/val.txt", size=args.size)
+        return DAVISTestDataset(path.join(args.d17_path, "test-dev"),
+                                imset="2017/test-dev.txt", size=args.size)
+    raise NotImplementedError(args.dataset)
+
+
+def save_mask(out_mask: np.ndarray, palette, out_dir: str, frame: str):
+    from PIL import Image
+    os.makedirs(out_dir, exist_ok=True)
+    img = Image.fromarray(out_mask.astype(np.uint8))
+    if palette is not None:
+        img.putpalette(palette)
+    img.save(path.join(out_dir, frame[:-4] + ".png"))
+
+
+class StepTimer:
+    """Device time of the timed steps: CUDA events on a CUDA device (summed
+    after one synchronize per step), the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.total_s = 0.0
+        self.frames = 0
+
+    def __enter__(self):
+        if self.cuda:
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._end = torch.cuda.Event(enable_timing=True)
+            self._start.record()
+        else:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.cuda:
+            self._end.record()
+            self._end.synchronize()
+            self.total_s += self._start.elapsed_time(self._end) / 1000.0
+        else:
+            self.total_s += time.perf_counter() - self._t0
+        self.frames += 1
+        return False
+
+
+def main(argv=None):
+    args = get_args(argv)
+    args.dataset = args.dataset.upper()
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda but CUDA is not available "
+                         "(pass --device cpu to run on the CPU)")
+    if device.type == "cuda":
+        # parity with deva_tpu's f32 needs true f32 convs and matmuls
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    model = load_model(args, device)
+    if args.output is None:
+        args.output = f"../output/{args.dataset}_{args.split}"
+        print(f"Output path not provided. Defaulting to {args.output}")
+    meta_dataset = make_dataset(args)
+    if args.dataset == "G" and not args.save_all:
+        args.save_all = True
+        print("save_all is forced to be true in generic mode.")
+
+    base_cfg = InferenceConfig(
+        mem_every=args.mem_every, top_k=args.top_k,
+        enable_long_term=not args.disable_long_term,
+        max_mid_term_frames=args.max_mid_term_frames,
+        min_mid_term_frames=args.min_mid_term_frames,
+        num_prototypes=args.num_prototypes,
+        max_long_term_elements=args.max_long_term_elements, size=args.size)
+    timer = StepTimer(device)
+
+    for vid_reader in meta_dataset.get_datasets():
+        vid_name = vid_reader.vid_name
+        vid_length = len(vid_reader)
+        # count long-term usage only when the video can fill long-term memory
+        count_usage = base_cfg.enable_long_term and (
+            vid_length / (base_cfg.max_mid_term_frames -
+                          base_cfg.min_mid_term_frames) *
+            base_cfg.num_prototypes) >= base_cfg.max_long_term_elements
+        cfg = dataclasses.replace(base_cfg,
+                                  enable_long_term_count_usage=count_usage)
+        processor = InferenceCore(model, cfg, device=device)
+        first_mask_loaded = False
+        print(f"{vid_name} ({vid_length} frames)")
+
+        for ti in range(vid_length):
+            data = vid_reader[ti]
+            mask = data.get("mask")
+            if not first_mask_loaded:
+                if mask is None:
+                    continue
+                first_mask_loaded = True
+            labels = data.get("valid_labels")
+            labels = None if labels is None else [int(v) for v in labels]
+
+            with timer:
+                prob = processor.step(data["rgb"], mask, labels,
+                                      end=(ti == vid_length - 1))
+
+            info = data["info"]
+            prob = prob.cpu().numpy()
+            if info["need_resize"]:
+                prob = resize_prob_to(prob, tuple(info["shape"]))
+            out_mask = processor.object_manager.tmp_cls_to_obj_cls(
+                np.argmax(prob, axis=0))
+            if args.save_all or info["save"]:
+                save_mask(out_mask, vid_reader.get_palette(),
+                          path.join(args.output, vid_name), info["frame"])
+
+    print(f"Total processing time: {timer.total_s}")
+    print(f"Total processed frames: {timer.frames}")
+    if timer.total_s > 0:
+        print(f"FPS: {timer.frames / timer.total_s}")
+    if device.type == "cuda":
+        print("Max allocated memory (MB): "
+              f"{torch.cuda.max_memory_allocated(device) / 2 ** 20:.1f}")
+
+
+if __name__ == "__main__":
+    main()

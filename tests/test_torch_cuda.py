@@ -1,0 +1,115 @@
+"""The CUDA kernels of deva_tpu_torch against their plain PyTorch twins, on
+the card. Every test here needs a CUDA device and skips without one; on a
+machine with a card run them with
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+The file imports nothing of JAX, so it also runs where JAX is not installed.
+Tolerances: similarity values 1e-5 and < 0.1% index mismatches (the bounds of
+tests/test_pallas_attention.py: the kernel sums in another order than the
+matmul of the plain version, so near-ties may swap); readout and usage 1e-4
+(f32 sums of k terms in another order).
+"""
+import numpy as np
+import pytest
+import torch
+
+from deva_tpu_torch.ops import attention_kernels as ak
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(dev, seed, n, q, ck=64, n_valid=None, with_qe=True,
+            with_ms=True):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    mk = t(rng.standard_normal((n, ck)))
+    ms = t(rng.uniform(1, 4, (n,))) if with_ms else None
+    qk = t(rng.standard_normal((q, ck)))
+    qe = t(rng.uniform(0, 1, (q, ck))) if with_qe else None
+    valid = None if n_valid is None else \
+        torch.arange(n, device=dev) < n_valid
+    return qk, qe, mk, ms, valid
+
+
+@pytest.mark.parametrize("n,q,k", [(700, 130, 12), (2000, 300, 30),
+                                   (150, 40, 30), (16712, 1620, 30)])
+def test_sim_topk_kernel_matches_plain(dev, n, q, k):
+    qk, qe, mk, ms, valid = _inputs(dev, 2, n, q, n_valid=n - n // 8)
+    ref_v, ref_i = ak.sim_topk_plain(qk, qe, mk, ms, valid, k)
+    gv, gi = ak.sim_topk(qk, qe, mk, ms, valid, k)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(gv, ref_v, rtol=1e-5, atol=1e-5)
+    mism = (gi != ref_i).float().mean().item()
+    assert mism < 1e-3, f"index mismatch share {mism}"
+
+
+def test_sim_topk_kernel_ties_resolve_to_lowest_index(dev):
+    rng = np.random.default_rng(3)
+    base = rng.standard_normal((10, 16)).astype(np.float32)
+    mk = torch.from_numpy(np.tile(base, (300, 1))).to(dev)  # 3000 tokens
+    qk = torch.from_numpy(
+        rng.standard_normal((70, 16)).astype(np.float32)).to(dev)
+    ref_v, ref_i = ak.sim_topk_plain(qk, None, mk, None, None, 20)
+    gv, gi = ak.sim_topk(qk, None, mk, None, None, 20)
+    torch.testing.assert_close(gv, ref_v, rtol=1e-6, atol=1e-6)
+    assert torch.equal(gi, ref_i)
+
+
+def test_sim_topk_kernel_fewer_valid_than_k(dev):
+    qk, qe, mk, ms, valid = _inputs(dev, 4, 256, 64, ck=32, n_valid=5)
+    ref_v, ref_i = ak.sim_topk_plain(qk, qe, mk, ms, valid, 12)
+    gv, gi = ak.sim_topk(qk, qe, mk, ms, valid, 12)
+    torch.testing.assert_close(gv, ref_v, rtol=1e-5, atol=1e-5)
+    assert torch.isinf(gv[:, 5:]).all()
+    assert torch.equal(gi, ref_i)  # -inf slots: lowest invalid indices
+    assert int(gi.max()) < 256
+
+
+@pytest.mark.parametrize("q,n,c,k", [(256, 512, 128, 16), (1620, 16712,
+                                                           1024, 30),
+                                     (33, 100, 30, 7)])
+def test_topk_readout_kernel_matches_plain(dev, q, n, c, k):
+    rng = np.random.default_rng(0)
+    idx = torch.from_numpy(
+        rng.integers(0, n, (q, k)).astype(np.int32)).to(dev)
+    w = rng.uniform(0, 1, (q, k)).astype(np.float32)
+    w = torch.from_numpy(w / w.sum(-1, keepdims=True)).to(dev)
+    values = torch.from_numpy(
+        rng.standard_normal((n, c)).astype(np.float32)).to(dev)
+    out = ak.topk_readout(idx, w, values)
+    torch.testing.assert_close(out, ak.topk_readout_plain(idx, w, values),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_attend_topk_kernels_match_plain(dev):
+    qk, qe, mk, ms, valid = _inputs(dev, 1, 700, 300, n_valid=600)
+    rng = np.random.default_rng(5)
+    values = torch.from_numpy(
+        rng.standard_normal((700, 3, 32)).astype(np.float32)).to(dev)
+    ak.reset_launch_counts()
+    out, usage = ak.attend_topk(mk, ms, values, qk, qe, 12, valid,
+                                return_usage=True)
+    assert ak.LAUNCHES == {"sim_topk": 1, "topk_readout": 1}
+    ref, ref_usage = ak.attend_topk_plain(mk, ms, values, qk, qe, 12, valid,
+                                          return_usage=True)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(usage, ref_usage, rtol=1e-4, atol=1e-5)
+
+
+def test_kernels_reject_what_they_do_not_take(dev):
+    qk, qe, mk, ms, valid = _inputs(dev, 6, 300, 10)
+    with pytest.raises(ValueError):
+        ak.sim_topk(qk, qe, mk, ms, valid, 65)  # k above the kernel bound
+    with pytest.raises(ValueError):
+        ak.sim_topk(qk, qe, mk.cpu(), ms, valid, 8)  # mixed devices
+    with pytest.raises(TypeError):
+        ak.sim_topk(qk.double(), qe, mk, ms, valid, 8)

@@ -1,0 +1,119 @@
+"""deva_tpu_torch's VOS driver against deva_tpu's, end to end on
+example/vos, and the port's independence from JAX and PIL.
+
+Both drivers load the same .npz weights (deva_tpu's export format, made
+here from a seeded port model through deva_tpu's converter) and write
+palette PNGs for the clip at --size 120. Budget: at least 99% of the pixel
+labels agree (the two differ by f32 summation order only; a near-tie pixel
+may flip).
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from deva_tpu.models.convert import convert_torch_statedict
+
+from deva_tpu_torch.models.network import DEVANetwork, init_weights
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CLIP = os.path.join(ROOT, "example", "vos")
+
+
+def _env():
+    env = dict(os.environ, PYTHONPATH=ROOT, JAX_PLATFORMS="cpu",
+               OMP_NUM_THREADS="2")
+    return env
+
+
+def _run(script, *args):
+    cmd = [sys.executable, os.path.join(ROOT, "evaluation", script), *args]
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=_env(),
+                          cwd=ROOT, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return proc.stdout
+
+
+def _read_pngs(out_dir):
+    from PIL import Image
+    vid = os.path.join(out_dir, "bmx-trees")
+    names = sorted(os.listdir(vid))
+    return names, [np.asarray(Image.open(os.path.join(vid, n)))
+                   for n in names]
+
+
+def test_eval_vos_torch_matches_eval_vos(tmp_path):
+    net = init_weights(DEVANetwork(), seed=3)
+    variables = convert_torch_statedict(
+        {k: v.numpy() for k, v in net.state_dict().items()})
+    flat = {}
+
+    def flatten(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                flatten(v, prefix + (k,))
+            else:
+                flat["/".join(prefix + (k,))] = np.asarray(v)
+
+    flatten(variables, ())
+    weights = str(tmp_path / "weights.npz")
+    np.savez(weights, **flat)
+
+    common = ["--dataset", "G", "--generic_path", CLIP, "--size", "120",
+              "--model", weights]
+    _run("eval_vos.py", *common, "--output", str(tmp_path / "jax"))
+    out = _run("eval_vos_torch.py", *common, "--output",
+               str(tmp_path / "torch"), "--device", "cpu")
+    assert "FPS:" in out
+
+    names_j, masks_j = _read_pngs(tmp_path / "jax")
+    names_t, masks_t = _read_pngs(tmp_path / "torch")
+    assert names_t == names_j == ["00000.png", "00001.png", "00002.png",
+                                  "00003.png"]
+    for mj, mt in zip(masks_j, masks_t):
+        assert mt.shape == mj.shape == (480, 854)
+        assert set(np.unique(mt)) <= {0, 1, 2}
+        agree = (mj == mt).mean()
+        assert agree >= 0.99, f"label agreement {agree}"
+
+
+def test_eval_vos_torch_refuses_missing_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    cmd = [sys.executable, os.path.join(ROOT, "evaluation",
+                                        "eval_vos_torch.py"),
+           "--dataset", "G", "--generic_path", CLIP, "--model", "",
+           "--output", str(tmp_path)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=_env(),
+                          cwd=ROOT, timeout=300)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+
+
+def test_port_imports_without_jax_or_pil():
+    """The port runs where neither jax nor PIL is installed: importing every
+    module of deva_tpu_torch with both blocked must work."""
+    code = """
+import sys
+sys.modules['jax'] = None
+sys.modules['PIL'] = None
+import importlib, pkgutil
+import deva_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(deva_tpu_torch.__path__,
+                                                'deva_tpu_torch.')]
+for name in names:
+    importlib.import_module(name)
+assert not any(m == 'deva_tpu' or m.startswith(('deva_tpu.', 'jax', 'flax'))
+               for m in sys.modules if sys.modules[m] is not None), \\
+    sorted(m for m in sys.modules if m.startswith(('deva_tpu.', 'jax')))
+print(len(names))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=_env(), cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 20
