@@ -1,28 +1,49 @@
 """Smoke test of deva_tpu_torch on one NVIDIA GPU: builds the CUDA kernels from
-this checkout and drives the port's main path (semi-supervised VOS
-propagation through InferenceCore.step) on the card.
+this checkout and drives the port's main paths (semi-supervised VOS
+propagation through InferenceCore.step with exact top-k, and through
+InferenceCore.step_chunk with threshold-approx top-k) on the card.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-1. Each kernel against its plain PyTorch twin on the card, at the 480p
-   main-path shapes (Q=1620 queries, Ck=64, k=30, C=2*512 value columns,
-   N in {1620, 8100, 16200+512} ring tokens with partial validity masks,
-   plus a ring of duplicated tokens for tie order), with times from CUDA
-   events.
-2. The slice on the card against the slice on the CPU (the plain
-   reference): seeded weights, the 8-frame 64x96 synthetic video of
-   tests/test_inference_parity.py, its config with long-term memory on;
-   probabilities within 5e-3; both kernels must have launched.
-3. The 480p main path: the full-width model on 60 seeded synthetic 854x480
-   frames with a two-object first-frame mask at the default InferenceConfig,
-   so the working memory saturates and long-term consolidation and
-   [long-term ; working] attention run. Checks finite probabilities and the
-   kernels' launch counts; prints ms/frame, FPS and peak device memory.
+1. Each of the four kernels against its plain PyTorch twin on the card, at
+   the 480p main-path shapes (Q=1620 queries, Ck=64, k=30, C=2*512 value
+   columns, N in {1620, 8100, 512+16200} ring tokens with partial validity
+   masks), with times from CUDA events. Exact pair: plus a ring of
+   duplicated tokens for tie order. Approx pair: plus a ring of duplicated
+   tokens whose tied group maxima admit more than 4k entries, rows with
+   fewer valid tokens than k and with none, and a check that every row's
+   support contains the exact top-k of sim_topk.
+2. The slice on the card against the slice on the CPU (the plain twins),
+   seeded weights, long-term memory on, probabilities within 5e-3: with
+   exact top-k on 8 frames of the 64x96 synthetic video of
+   tests/test_inference_parity.py through step; with approx top-k on 10
+   frames of 128x192, whose [long-term ; working] ring exceeds 512 tokens so
+   that groups of 4 occur, through step and through step_chunk. The
+   kernels of each method must have launched. Then, for each method, a
+   third object appears: its mask frame and the next frame run the composed
+   path (MemoryEngine.match_memory over two buckets) on the card, within
+   5e-3 of the CPU; with exact top-k both exact kernels launch inside it,
+   with approx it takes the dense threshold form, as deva_tpu does.
+3. The exact 480p main path: the full-width model on 60 seeded synthetic
+   854x480 frames with a two-object first-frame mask at the default
+   InferenceConfig, through step (the fused step), so the working memory
+   saturates and long-term consolidation and [long-term ; working]
+   attention run. Checks finite probabilities that sum to 1 and that both
+   exact kernels launched on every propagated frame; prints ms/frame, FPS
+   and peak device memory.
+4. The approx 480p main path: the same, with topk_method='approx', the
+   first frame through step and the other 59 through step_chunk in chunks
+   of 5 (as eval_vos_torch.py --chunk 5 drives it); both approx kernels
+   must launch on every propagated frame. Then again with the pre-encoded
+   block body (preencode_blocks=True: a block's frames encoded as one
+   batch, one attention per block), held to the per-frame body's
+   probabilities within tests/test_step_chunk.py's budget for it.
 
 The second-to-last line of output is a JSON object with each kernel's
-launches (phase 3), largest error against its plain twin and times; the last
-line is {"ok": true, "device": {...}}. Exits non-zero without CUDA.
+launches (phase 3 for the exact pair, phase 4 for the approx pair), largest
+error against its plain twin and times at N=16712; the last line is
+{"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
 from __future__ import annotations
 
@@ -44,7 +65,21 @@ KERNELS = {
                  "deva_tpu/ops/pallas_attention.py:177"),
     "topk_readout": ("deva_tpu_torch/csrc/topk_readout.cu",
                      "deva_tpu/ops/pallas_attention.py:249"),
+    "segmax": ("deva_tpu_torch/csrc/segmax.cu",
+               "deva_tpu/ops/pallas_attention.py:451"),
+    "denom_readout": ("deva_tpu_torch/csrc/denom_readout.cu",
+                      "deva_tpu/ops/pallas_attention.py:491"),
 }
+RING_CASES = (1620, 8100, 16712)  # ring tokens of phase 1
+
+
+def ring_validity(n, dev):
+    """Validity of each phase-1 ring, as the memory engine lays them out."""
+    ar = lambda m: torch.arange(m, device=dev)
+    return {1620: ar(1620) < 1620,                  # one memory frame
+            8100: ar(8100) < 6480,                  # working ring, 4/5 full
+            16712: torch.cat([ar(512) < 128,        # [long-term ; working]
+                              ar(16200) < 9720])}[n]
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
@@ -71,16 +106,10 @@ def phase_kernels(ak, dev) -> dict:
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
     rand = lambda *s: torch.rand(s, generator=gen, device=dev)
     qk, qe = randn(q, ck), rand(q, ck)
-    ar = lambda n: torch.arange(n, device=dev)
-    cases = {  # ring tokens -> validity, as the memory engine lays them out
-        1620: ar(1620) < 1620,                     # one memory frame
-        8100: ar(8100) < 6480,                     # working ring, 4/5 full
-        16712: torch.cat([ar(512) < 128,           # [long-term ; working]
-                          ar(16200) < 9720]),
-    }
     err = {"sim_topk": 0.0, "topk_readout": 0.0}
     times = {}
-    for n, valid in cases.items():
+    for n in RING_CASES:
+        valid = ring_validity(n, dev)
         mk, ms = randn(n, ck), 1 + 3 * rand(n)
         values = randn(n, 2, 512)
         gv, gi = ak.sim_topk(qk, qe, mk, ms, valid, k)
@@ -144,6 +173,150 @@ def phase_kernels(ak, dev) -> dict:
     return {"err": err, "times": times}
 
 
+def check_composite(apx, rings, qk, qe, k, eps: float, label: str):
+    """attend_approx_multi against its plain twin. Rows may differ only
+    where a similarity lies within eps of the row's threshold: the two sum
+    the similarity in another order, so such an entry can fall on either
+    side. Returns the kernel's result."""
+    out, us = apx.attend_approx_multi(rings, qk, qe, k, return_usage=True)
+    ref, rus = apx.attend_approx_multi_plain(rings, qk, qe, k,
+                                             return_usage=True)
+    usage, ref_usage = torch.cat(us), torch.cat(rus)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()), f"{label}: non-finite readout"
+    row_err = (out - ref).abs().amax(dim=(0, 2))
+    moved = row_err > 1e-4 + 1e-4 * ref.abs().amax(dim=(0, 2))
+    if bool(moved.any()):
+        mk, ms, _, valid = apx._concat_rings(rings)
+        ops = apx.prep2(qk, qe, mk, ms, valid)
+        seg = apx.segmax_plain(ops, apx.Geometry.of(
+            mk.shape[0], apx.default_n_tile(out.shape[0] * out.shape[2], 4)))
+        _, th = apx.threshold(seg, k)
+        near = ((apx.similarity2_plain(ops) - th).abs() <= eps).any(-1)
+        assert bool(near[moved].all()), \
+            f"{label}: rows differ with no similarity near the threshold"
+        assert float((usage - ref_usage).abs().sum()) <= \
+            2 * int(moved.sum()) + 1e-2, f"{label}: usage moved too far"
+    else:
+        torch.testing.assert_close(usage, ref_usage, rtol=1e-4, atol=1e-4)
+    print(f"phase 1 {label}: attend_approx_multi max row err "
+          f"{row_err.max().item():.3g}, {int(moved.sum())} near-threshold "
+          f"rows of {out.shape[1]}", flush=True)
+    return out
+
+
+def support_check(ak, apx, mk, ms, valid, qk, qe, k, n_tile=512):
+    """The kernels' support contains the exact top-k: at every exact top-k
+    token of sim_topk, the pair's similarity (the float the kernels compare)
+    is at least the kernel threshold. Returns the support sizes per row of
+    the plain twin, for the record."""
+    ops = apx.prep2(qk, qe, mk, ms, valid)
+    geom = apx.Geometry.of(mk.shape[0], n_tile)
+    _, th = apx.threshold(apx.segmax(ops, geom), k)
+    _, gi = ak.sim_topk(qk, qe, mk, ms, valid, k)
+    at = apx.sim2_at(ops, gi)
+    torch.cuda.synchronize()
+    miss = int((at < th).sum())
+    assert miss == 0, f"{miss} exact top-k entries outside the support"
+    _, th_plain = apx.threshold(apx.segmax_plain(ops, geom), k)
+    return (apx.similarity2_plain(ops) >= th_plain).sum(-1)
+
+
+def phase_approx_kernels(ak, apx, dev) -> dict:
+    """segmax, denom_readout and attend_approx_multi against their twins."""
+    q, ck, k, o, cv = 1620, 64, 30, 2, 512
+    n_tile = apx.default_n_tile(o * cv, 4)
+    assert n_tile == 512
+    gen = torch.Generator(device=dev).manual_seed(1)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    rand = lambda *s: torch.rand(s, generator=gen, device=dev)
+    qk, qe = randn(q, ck), rand(q, ck)
+    eps = 1e-3  # well above the kernel-vs-matmul rounding of sim (~1e-5)
+    err = {"segmax": 0.0, "denom_readout": 0.0}
+    times = {}
+    for n in RING_CASES:
+        valid = ring_validity(n, dev)
+        mk, ms, values = randn(n, ck), 1 + 3 * rand(n), randn(n, o, cv)
+        v2 = values.reshape(n, o * cv)
+        ops = apx.prep2(qk, qe, mk, ms, valid)
+        geom = apx.Geometry.of(n, n_tile)
+        assert geom.group == 4 and geom.width == 128
+
+        seg = apx.segmax(ops, geom)
+        seg_ref = apx.segmax_plain(ops, geom)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isfinite(seg), torch.isfinite(seg_ref))
+        fin = torch.isfinite(seg_ref)
+        torch.testing.assert_close(seg[fin], seg_ref[fin], rtol=1e-5,
+                                   atol=1e-5)
+        err["segmax"] = max(err["segmax"],
+                            (seg[fin] - seg_ref[fin]).abs().max().item())
+
+        rmax, th = apx.threshold(seg, k)
+        th_gap = apx.gap_threshold(apx.similarity2_plain(ops), th, eps)
+        out, usage = apx.denom_readout(ops, geom, seg, rmax, th_gap, v2)
+        ref, ref_usage = apx.denom_readout_plain(ops, geom, seg, rmax,
+                                                 th_gap, v2)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(usage, ref_usage, rtol=1e-4, atol=1e-4)
+        err["denom_readout"] = max(err["denom_readout"],
+                                   (out - ref).abs().max().item(),
+                                   (usage - ref_usage).abs().max().item())
+
+        rings = [(mk, ms, values, valid)] if n != 16712 else \
+            [(mk[:512], ms[:512], values[:512], valid[:512]),
+             (mk[512:], ms[512:], values[512:], valid[512:])]
+        check_composite(apx, rings, qk, qe, k, eps, f"N={n}")
+        sizes = support_check(ak, apx, mk, ms, valid, qk, qe, k)
+
+        t = {
+            "segmax": cuda_ms(lambda: apx.segmax(ops, geom)),
+            "segmax_plain": cuda_ms(lambda: apx.segmax_plain(ops, geom)),
+            "denom_readout": cuda_ms(lambda: apx.denom_readout(
+                ops, geom, seg, rmax, th, v2)),
+            "denom_readout_plain": cuda_ms(lambda: apx.denom_readout_plain(
+                ops, geom, seg, rmax, th, v2)),
+            "attend_approx_multi": cuda_ms(lambda: apx.attend_approx_multi(
+                rings, qk, qe, k, return_usage=True)),
+            "attend_approx_multi_plain": cuda_ms(
+                lambda: apx.attend_approx_multi_plain(
+                    rings, qk, qe, k, return_usage=True)),
+        }
+        times[n] = t
+        print(f"phase 1 N={n}: segmax err {err['segmax']:.3g}; "
+              f"denom_readout err {err['denom_readout']:.3g}; support "
+              f"min/median/max {int(sizes.min())}/"
+              f"{int(sizes.median())}/{int(sizes.max())} (k={k}) holds "
+              f"the exact top-k; ms " +
+              ", ".join(f"{name} {v:.4f}" for name, v in t.items()),
+              flush=True)
+
+    # ties: 54 base tokens, 300 copies each; the tied group maxima admit
+    # every copy of a row's best base token (> 4k entries)
+    base = 54
+    mk = randn(base, ck).repeat(300, 1)
+    ms = (1 + 3 * rand(base)).repeat(300)
+    values = randn(base * 300, o, cv)
+    sizes = support_check(ak, apx, mk, ms, None, qk, qe, k)
+    assert int(sizes.min()) > 4 * k, int(sizes.min())
+    check_composite(apx, [(mk, ms, values, None)], qk, qe, k, eps,
+                    "duplicated ring")
+    print(f"phase 1 ties: support of {int(sizes.min())}-{int(sizes.max())} "
+          f"tied entries per row holds the exact top-k", flush=True)
+
+    # rows with fewer valid tokens than k (th = -inf), and with none
+    for n_valid in (20, 0):
+        n = 1620
+        valid = torch.arange(n, device=dev) < n_valid
+        ring = [(randn(n, ck), 1 + 3 * rand(n), randn(n, o, cv), valid)]
+        out = check_composite(apx, ring, qk, qe, k, eps,
+                              f"{n_valid} valid tokens")
+        if n_valid == 0:
+            assert not bool(out.abs().gt(0).any()), "empty rows must be 0"
+    return {"err": err, "times": times}
+
+
 # --------------------------------------------------------------------------
 # phase 2: the slice on the card against the slice on the CPU
 # --------------------------------------------------------------------------
@@ -167,6 +340,45 @@ def two_object_mask(h, w, rows1, cols1, rows2, cols2):
     return mask
 
 
+def composed_frames(ak, cpu_core, gpu_core, frames, rows, cols,
+                    label: str):
+    """A third object appears mid-stream: its mask frame and the next frame
+    take the composed path (MemoryEngine.match_memory; the next frame over
+    two buckets) on the card, against the CPU within 5e-3. Returns a
+    summary and, per match_memory call, the kernel launches made inside
+    it."""
+    h, w = frames[0].shape[:2]
+    mask = np.zeros((h, w), np.int64)
+    mask[slice(*rows), slice(*cols)] = 3
+    real = gpu_core.memory.match_memory
+    calls = []
+
+    def counted(*args):
+        before = dict(ak.LAUNCHES)
+        out = real(*args)
+        assert out.device == gpu_core.device, "match_memory ran elsewhere"
+        calls.append({k: ak.LAUNCHES[k] - before[k] for k in before})
+        return out
+
+    gpu_core.memory.match_memory = counted
+    worst = 0.0
+    for i, img in enumerate(frames):
+        args = (mask, [3]) if i == 0 else ()
+        ran = len(calls)
+        p_cpu = cpu_core.step(img, *args)
+        p_gpu = gpu_core.step(img, *args).cpu()
+        assert len(calls) > ran, f"{label} frame {i}: no composed path"
+        assert p_gpu.shape == p_cpu.shape == (4, h, w), p_gpu.shape
+        diff = (p_gpu - p_cpu).abs().max().item()
+        worst = max(worst, diff)
+        assert diff <= 5e-3, f"{label} composed frame {i}: |card - cpu| = " \
+            f"{diff}"
+    assert len(gpu_core.memory.buckets) == 2
+    return (f"new object: {len(calls)} match_memory calls on the card over "
+            f"its mask frame and the next, max |dprob| {worst:.3g}; launches "
+            f"inside them {calls}"), calls
+
+
 def phase_slice_parity(ak, net_cpu, dev):
     from deva_tpu_torch.config import InferenceConfig
     from deva_tpu_torch.inference.core import InferenceCore
@@ -174,14 +386,14 @@ def phase_slice_parity(ak, net_cpu, dev):
                           enable_long_term_count_usage=True,
                           max_mid_term_frames=3, min_mid_term_frames=1,
                           num_prototypes=16, max_long_term_elements=96)
-    frames = synthetic_video(np.random.default_rng(7), 64, 96, 8)
+    frames = synthetic_video(np.random.default_rng(7), 64, 96, 10)
     mask = two_object_mask(64, 96, (8, 28), (10, 40), (36, 60), (50, 90))
     net_gpu = copy.deepcopy(net_cpu).to(dev)
     cpu_core = InferenceCore(net_cpu, cfg)
     gpu_core = InferenceCore(net_gpu, cfg)
     ak.reset_launch_counts()
     worst = 0.0
-    for ti, img in enumerate(frames):
+    for ti, img in enumerate(frames[:8]):
         args = (mask, [1, 2]) if ti == 0 else ()
         p_cpu = cpu_core.step(img, *args)
         p_gpu = gpu_core.step(img, *args).cpu()
@@ -190,28 +402,114 @@ def phase_slice_parity(ak, net_cpu, dev):
         worst = max(worst, diff)
         assert diff <= 5e-3, f"frame {ti}: |card - cpu| = {diff}"
     launches = dict(ak.LAUNCHES)
-    assert all(v > 0 for v in launches.values()), launches
+    assert launches["sim_topk"] > 0 and launches["topk_readout"] > 0, \
+        launches
     lt = gpu_core.memory.long_buckets.get(0)
     assert lt is not None and lt.size > 0, "long-term memory never engaged"
-    print(f"phase 2: card vs cpu slice max |dprob| {worst:.3g} over 8 frames "
-          f"(bound 5e-3); launches {launches}; long-term tokens {lt.size}",
-          flush=True)
+    composed, calls = composed_frames(ak, cpu_core, gpu_core, frames[8:],
+                                      (4, 20), (60, 88), "exact")
+    assert all(c["sim_topk"] > 0 and c["topk_readout"] > 0
+               for c in calls), f"exact kernels not in match_memory: {calls}"
+    print(f"phase 2 exact: card vs cpu slice max |dprob| {worst:.3g} over 8 "
+          f"frames "
+          f"(bound 5e-3); launches {launches}; long-term tokens {lt.size}; "
+          f"{composed}", flush=True)
+
+
+def phase_slice_parity_approx(ak, apx, net_cpu, dev):
+    """The approx slice, card against CPU, through step and step_chunk:
+    128x192 frames (96 tokens), a memory frame every frame and long-term
+    memory consolidating at 7 frames, so the [long-term ; working] ring
+    holds 64 + 672 tokens: groups of 4."""
+    from deva_tpu_torch.config import InferenceConfig
+    from deva_tpu_torch.inference.core import InferenceCore
+    h, w = 128, 192
+    cfg = InferenceConfig(mem_every=1, top_k=30, enable_long_term=True,
+                          enable_long_term_count_usage=True,
+                          max_mid_term_frames=7, min_mid_term_frames=2,
+                          num_prototypes=16, max_long_term_elements=96,
+                          topk_method="approx")
+    frames = synthetic_video(np.random.default_rng(21), h, w, 12)
+    mask = two_object_mask(h, w, (16, 56), (20, 80), (72, 120), (100, 180))
+    net_gpu = copy.deepcopy(net_cpu).to(dev)
+    cpu_core = InferenceCore(net_cpu, cfg)
+    p_cpu = [cpu_core.step(frames[0], mask, [1, 2])]
+    p_cpu += [cpu_core.step(f) for f in frames[1:10]]
+    ak.reset_launch_counts()
+    step_core = InferenceCore(net_gpu, cfg)
+    p_step = [step_core.step(frames[0], mask, [1, 2])]
+    p_step += [step_core.step(f) for f in frames[1:10]]
+    chunk_core = InferenceCore(net_gpu, cfg)
+    p_chunk = [chunk_core.step(frames[0], mask, [1, 2])]
+    p_chunk += chunk_core.step_chunk(frames[1:10])
+    launches = dict(ak.LAUNCHES)
+    worst = {}
+    for name, probs in (("step", p_step), ("step_chunk", p_chunk)):
+        diff = max((g.cpu() - c).abs().max().item()
+                   for g, c in zip(probs, p_cpu))
+        assert diff <= 5e-3, f"approx {name}: |card - cpu| = {diff}"
+        worst[name] = diff
+    assert launches["segmax"] >= 18 and launches["denom_readout"] >= 18, \
+        launches
+    for core in (step_core, chunk_core):
+        lt, work = core.memory.long_buckets[0], core.memory.buckets[0]
+        geom = apx.Geometry.of(lt.cap + work.cap, apx.default_n_tile(
+            work.value.shape[1] * work.value.shape[2], 4))
+        assert lt.size > 0 and geom.group == 4, (lt.cap, work.cap, geom)
+    composed, calls = composed_frames(ak, cpu_core, step_core, frames[10:],
+                                      (8, 48), (110, 180), "approx")
+    # the composed path takes the dense threshold form, as deva_tpu does
+    assert not any(any(c.values()) for c in calls), calls
+    print(f"phase 2 approx: card vs cpu slice max |dprob| step "
+          f"{worst['step']:.3g}, step_chunk {worst['step_chunk']:.3g} over "
+          f"10 frames of {h}x{w} (bound 5e-3); [long-term ; working] ring "
+          f"{lt.cap}+{work.cap} tokens in groups of {geom.group}; launches "
+          f"{launches}; {composed}", flush=True)
 
 
 # --------------------------------------------------------------------------
 # phase 3: the 480p main path
 # --------------------------------------------------------------------------
 
-def phase_main_path(ak, net_cpu, dev, n_frames: int = 60) -> dict:
-    from deva_tpu_torch.config import InferenceConfig
-    from deva_tpu_torch.inference.core import InferenceCore
+def main_path_setup(net_cpu, dev, n_frames):
     frames = synthetic_video(np.random.default_rng(11), H480, W480,
                              n_frames)
     # a rider above a bike, as in bmx-trees
     mask = two_object_mask(H480, W480, (60, 300), (330, 520), (260, 450),
                            (250, 620))
     frames = [torch.from_numpy(f).to(dev) for f in frames]  # set-up
-    net = copy.deepcopy(net_cpu).to(dev)
+    return frames, mask, copy.deepcopy(net_cpu).to(dev)
+
+
+def check_prob(prob, ti):
+    assert prob.shape == (3, H480, W480), tuple(prob.shape)
+    assert bool(torch.isfinite(prob).all()), f"frame {ti}: non-finite"
+    torch.testing.assert_close(prob.sum(0), torch.ones_like(prob[0]),
+                               rtol=0, atol=1e-4)
+
+
+def report_main_path(label, core, step_ms, launches, dev, n_frames):
+    lt = core.memory.long_buckets.get(0)
+    assert lt is not None and lt.size > 0, "long-term memory never engaged"
+    work = core.memory.buckets[0]
+    steady = step_ms[10:]
+    med = statistics.median(steady)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"{label}: {n_frames} frames, 2 objects: launches {launches}; "
+          f"long-term tokens {lt.size}/{lt.cap}, working tokens "
+          f"{work.size}/{work.cap}", flush=True)
+    print(f"{label}: ms/frame median {med:.3f} (frames 10-{n_frames-1};"
+          f" mean {statistics.mean(steady):.3f}, min {min(steady):.3f}, max "
+          f"{max(steady):.3f}); FPS {1000 / med:.2f}; first frame "
+          f"{step_ms[0]:.1f} ms; peak allocated {peak / 2**20:.1f} MiB",
+          flush=True)
+
+
+def phase_main_path(ak, net_cpu, dev, n_frames: int = 60) -> dict:
+    """Phase 3: exact top-k through step (the fused step) at 480p."""
+    from deva_tpu_torch.config import InferenceConfig
+    from deva_tpu_torch.inference.core import InferenceCore
+    frames, mask, net = main_path_setup(net_cpu, dev, n_frames)
     core = InferenceCore(net, InferenceConfig())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -224,30 +522,80 @@ def phase_main_path(ak, net_cpu, dev, n_frames: int = 60) -> dict:
         prob = core.step(img, *args, end=(ti == n_frames - 1))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1000)
-        assert prob.shape == (3, H480, W480), tuple(prob.shape)
-        assert bool(torch.isfinite(prob).all()), f"frame {ti}: non-finite"
-        torch.testing.assert_close(prob.sum(0), torch.ones_like(prob[0]),
-                                   rtol=0, atol=1e-4)
+        check_prob(prob, ti)
     launches = dict(ak.LAUNCHES)
 
     propagated = n_frames - 1
-    assert all(v >= propagated for v in launches.values()), launches
-    lt = core.memory.long_buckets.get(0)
-    assert lt is not None and lt.size > 0, "long-term memory never engaged"
-    work = core.memory.buckets[0]
-    steady = step_ms[10:]
-    med = statistics.median(steady)
-    peak = torch.cuda.max_memory_allocated(dev)
-    print(f"phase 3: 480p main path, {n_frames} frames, 2 objects, default "
-          f"InferenceConfig: launches {launches}; long-term tokens "
-          f"{lt.size}/{lt.cap}, working tokens {work.size}/{work.cap}",
-          flush=True)
-    print(f"phase 3: step ms/frame median {med:.3f} (frames 10-{n_frames-1};"
-          f" mean {statistics.mean(steady):.3f}, min {min(steady):.3f}, max "
-          f"{max(steady):.3f}); FPS {1000 / med:.2f}; first frame "
-          f"{step_ms[0]:.1f} ms; peak allocated {peak / 2**20:.1f} MiB",
-          flush=True)
+    assert launches["sim_topk"] >= propagated and \
+        launches["topk_readout"] >= propagated, launches
+    report_main_path("phase 3 exact, step", core, step_ms, launches, dev,
+                     n_frames)
     return launches
+
+
+def phase_main_path_approx(ak, net_cpu, dev, n_frames: int = 60,
+                           chunk: int = 5, preencode: bool = False):
+    """Phase 4: approx top-k at 480p, the first frame through step and the
+    rest through step_chunk in chunks of `chunk` (the last one ending the
+    video), as eval_vos_torch.py --chunk buffers them. A chunk's time is
+    shared equally by its frames. preencode: the pre-encoded block body
+    (InferenceConfig.preencode_blocks), one attention per block. Returns
+    the launch counts and the probabilities."""
+    from deva_tpu_torch.config import InferenceConfig
+    from deva_tpu_torch.inference.core import InferenceCore
+    frames, mask, net = main_path_setup(net_cpu, dev, n_frames)
+    core = InferenceCore(net, InferenceConfig(topk_method="approx",
+                                              preencode_blocks=preencode))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    ak.reset_launch_counts()
+    t0 = time.perf_counter()
+    prob = core.step(frames[0], mask, [1, 2])
+    torch.cuda.synchronize()
+    step_ms = [(time.perf_counter() - t0) * 1000]
+    check_prob(prob, 0)
+    out = [prob.cpu()]  # kept on the host, out of the peak device memory
+    for start in range(1, n_frames, chunk):
+        block = frames[start:start + chunk]
+        t0 = time.perf_counter()
+        probs = core.step_chunk(block,
+                                end=start + len(block) == n_frames)
+        torch.cuda.synchronize()
+        step_ms += [(time.perf_counter() - t0) * 1000 / len(block)] * \
+            len(block)
+        assert len(probs) == len(block)
+        for i, prob in enumerate(probs):
+            check_prob(prob, start + i)
+        out += [prob.cpu() for prob in probs]
+    launches = dict(ak.LAUNCHES)
+
+    # per frame, or (pre-encoded) per block and the end frame
+    calls = -(-(n_frames - 1) // chunk) + 1 if preencode else n_frames - 1
+    assert launches["segmax"] >= calls and \
+        launches["denom_readout"] >= calls, launches
+    body = ", pre-encoded blocks" if preencode else ""
+    report_main_path(f"phase 4 approx, step_chunk by {chunk}{body}", core,
+                     step_ms, launches, dev, n_frames)
+    return launches, out
+
+
+def compare_preencoded(per_frame, preencoded):
+    """The pre-encoded block body against the per-frame one at 480p, with
+    the budget of tests/test_step_chunk.py for it: batched convolutions
+    round differently, so per frame at most 2% of the pixels may move by
+    more than 5e-3 and at most 2% may change their argmax."""
+    worst = moved = flips = 0.0
+    for ti, (a, b) in enumerate(zip(per_frame, preencoded)):
+        diff = (a - b).abs()
+        worst = max(worst, diff.max().item())
+        m = (diff > 5e-3).any(0).float().mean().item()
+        f = (a.argmax(0) != b.argmax(0)).float().mean().item()
+        assert m <= 0.02 and f <= 0.02, (ti, m, f)
+        moved, flips = max(moved, m), max(flips, f)
+    print(f"phase 4 pre-encoded vs per-frame body: max |dprob| {worst:.3g}, "
+          f"pixels moved > 5e-3 at most {moved:.2%}, argmax changed at most "
+          f"{flips:.2%} of a frame (budget 2%)", flush=True)
 
 
 def main() -> int:
@@ -256,6 +604,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from deva_tpu_torch.models.network import DEVANetwork, init_weights
+    from deva_tpu_torch.ops import approx_kernels as apx
     from deva_tpu_torch.ops import attention_kernels as ak
     from deva_tpu_torch.ops import cuda_build
 
@@ -269,22 +618,34 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     lib = cuda_build.build()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: "
           f"{os.path.relpath(lib, ROOT)}", flush=True)
 
-    k = phase_kernels(ak, dev)
+    exact = phase_kernels(ak, dev)
+    approx = phase_approx_kernels(ak, apx, dev)
     net_cpu = init_weights(DEVANetwork(), seed=0).eval()
     phase_slice_parity(ak, net_cpu, dev)
+    phase_slice_parity_approx(ak, apx, net_cpu, dev)
     launches = phase_main_path(ak, net_cpu, dev)
+    launches_approx, probs = phase_main_path_approx(ak, net_cpu, dev)
+    compare_preencoded(probs, phase_main_path_approx(ak, net_cpu, dev,
+                                                     preencode=True)[1])
+    del probs
 
-    main_shape = k["times"][16712]
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[name], "max_abs_err": k["err"][name],
-         "ms": main_shape[name], "plain_ms": main_shape[name + "_plain"]}
-        for name, (src, tpu) in KERNELS.items()]}))
+    rows = []
+    for name, (src, tpu) in KERNELS.items():
+        res, runs = (exact, launches) if name in exact["err"] else \
+            (approx, launches_approx)
+        main_shape = res["times"][16712]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": tpu, "launches": runs[name],
+                     "max_abs_err": res["err"][name], "ms": main_shape[name],
+                     "plain_ms": main_shape[name + "_plain"]})
+    print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,7 +10,19 @@ from __future__ import annotations
 
 import dataclasses
 
+from typing import Optional
+
 import torch
+
+
+def resolve_topk_method(method: Optional[str]) -> str:
+    """None/'auto'/'exact' -> 'exact'; 'approx' -> 'approx'; else raise.
+    The top-k dispatch rule of the whole port (InferenceConfig's comment)."""
+    if method in (None, "auto", "exact"):
+        return "exact"
+    if method == "approx":
+        return "approx"
+    raise ValueError(f"unknown top-k method {method!r}")
 
 
 def resolve_dtype(name: str) -> str:
@@ -62,27 +74,33 @@ class InferenceConfig:
     detection_every: int = 5
     num_voting_frames: int = 3
 
-    # Kept so that flat_config matches deva_tpu. The port has one attention
-    # route: exact top-k, through the CUDA kernels on a CUDA device and the
-    # plain PyTorch functions on the CPU.
+    # Attention dispatch, one rule for the whole port:
+    # - topk_method: 'auto' and 'exact' resolve to exact top-k on every
+    #   device; 'approx' is deva_tpu's threshold method (the support
+    #   {sim >= t} contains the exact top-k).
+    # - The fused step (inference/fused_step.py) has one attention route per
+    #   method, deva_tpu's FusedStepper(use_pallas=True): exact goes to
+    #   ops/attention_kernels.attend_topk, approx to
+    #   ops/approx_kernels.attend_approx{,_multi}. A CUDA tensor launches the
+    #   hand-written kernels of deva_tpu_torch/csrc, a CPU tensor takes their
+    #   plain PyTorch twins. So use_pallas_attention is kept for flat_config
+    #   and command-line parity and changes nothing here; deva_tpu's v5e
+    #   shape policy (FusedStepper.PALLAS_MIN_TOKENS) is not ported.
+    # - The composed path (MemoryEngine.match_memory) follows deva_tpu's
+    #   memory.py: exact through attend_topk, approx through the dense
+    #   threshold form of ops/memory_attention.topk_softmax.
     use_pallas_attention: object = "auto"
     topk_method: str = "auto"
+    # InferenceCore.step_chunk: encode a block's frames as one batch and
+    # attend with all their query rows at once (FusedStepper._run_preenc)
     preencode_blocks: bool = False
     ring_dtype: str = "auto"
 
     obj_pad_buckets: tuple = (1, 2, 3, 4, 8, 16, 32, 64, 128, 256)
 
     def resolve_topk_method(self) -> str:
-        """'auto' and 'exact' -> 'exact'. The threshold-approx method needs
-        the two kernels that are not ported yet (ROADMAP items B3/B4)."""
-        if self.topk_method in ("auto", "exact"):
-            return "exact"
-        if self.topk_method == "approx":
-            raise NotImplementedError(
-                "topk_method='approx' needs the threshold kernels "
-                "_segmax_kernel and _denom_readout_kernel, which are not "
-                "ported yet (ROADMAP items B3/B4); use 'exact'")
-        raise ValueError(f"unknown topk_method {self.topk_method!r}")
+        """'auto' and 'exact' -> 'exact'; 'approx' -> 'approx'."""
+        return resolve_topk_method(self.topk_method)
 
     @property
     def ring_torch_dtype(self) -> torch.dtype:

@@ -9,10 +9,10 @@ orchestration around the model's four modes and the memory engine:
     attention runs through the CUDA kernels on a CUDA device;
   - probabilities returned to the caller are sliced back to 1+num_obj.
 
-`step` always takes deva_tpu's composed path; its results are those of
-deva_tpu's fused single-program step, which computes the same sub-functions
-(deva_tpu/inference/fused_step.py:14-16). Not ported yet: block stepping
-(`step_chunk`), object-axis sharding and detection fusion.
+`step` takes the fused step (inference/fused_step.py) for a plain
+propagation frame, under deva_tpu's eligibility rules, and the composed path
+otherwise; `step_chunk` steps a memory period per call through the fused
+block body. Not ported yet: object-axis sharding and detection fusion.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from deva_tpu_torch.config import InferenceConfig
 from deva_tpu_torch.inference.feature_store import ImageFeatureStore
+from deva_tpu_torch.inference.fused_step import FusedStepper
 from deva_tpu_torch.inference.memory import MemoryEngine
 from deva_tpu_torch.inference.object_manager import ObjectManager
 from deva_tpu_torch.models.network import DEVANetwork
@@ -55,6 +56,9 @@ class InferenceCore:
             self.model.encode_image, self.model.transform_key)
         self.last_mask: Optional[torch.Tensor] = None  # [O_cap, H, W] probs
         self.pad: Tuple[int, int, int, int] = (0, 0, 0, 0)
+        self._fused = FusedStepper(self.model, config.top_k,
+                                   topk_method=config.topk_method,
+                                   preencode_blocks=config.preencode_blocks)
 
     # -- object-slot management -------------------------------------------
 
@@ -160,8 +164,13 @@ class InferenceCore:
                         or (mask is not None)) and (not end)
 
         image = torch.as_tensor(image, dtype=torch.float32,
-                                device=self.device).permute(2, 0, 1)
-        image, self.pad = pad_divide_by(image, 16, -2, -1)
+                                device=self.device)
+        fused = self._try_fused_step(image, mask, is_mem_frame, end,
+                                     image_ti_override, delete_buffer)
+        if fused is not None:
+            return fused
+
+        image, self.pad = pad_divide_by(image.permute(2, 0, 1), 16, -2, -1)
         image = image[None]
 
         need_segment = (mask is None) or (
@@ -198,6 +207,124 @@ class InferenceCore:
             self.image_feature_store.delete(image_ti)
 
         return unpad(pred_prob_with_bg[:n + 1], self.pad, -2, -1)
+
+    def _fused_bucket(self):
+        """(bucket, long-term bucket | None) when the fused path applies to
+        the memory as it stands (one bucket in identity object order, and a
+        long-term ring only for that bucket), else None."""
+        if self.memory is None or not self.memory.engaged or \
+                self.last_mask is None or len(self.memory.buckets) != 1:
+            return None
+        (bid, bucket), = self.memory.buckets.items()
+        if bucket.obj_ids != self.object_manager.all_obj_ids or \
+                bucket.o_cap != self.o_cap:
+            return None
+        lt = self.memory.long_buckets.get(bid)
+        if self.memory.long_buckets and lt is None:
+            return None
+        return bucket, lt
+
+    def _max_work(self) -> Optional[int]:
+        return self.memory.max_work_tokens if self.memory.use_long_term \
+            else None
+
+    def _try_fused_step(self, image, mask, is_mem_frame: bool, end: bool,
+                        image_ti_override, delete_buffer: bool):
+        """The fused path for a plain propagation frame (no input mask, no
+        feature-store bookkeeping). image [H, W, 3] on the device. Returns
+        the probabilities [1 + num_obj, H, W], or None when the composed
+        path must run."""
+        if mask is not None or image_ti_override is not None or \
+                not delete_buffer:
+            return None
+        found = self._fused_bucket()
+        if found is None:
+            return None
+        bucket, lt = found
+        h, w = image.shape[:2]
+        hw_tokens = (-(-h // 16)) * (-(-w // 16))
+        if is_mem_frame:
+            bucket.ensure_capacity(hw_tokens, hw_tokens,
+                                   limit=self._max_work())
+        prob, sensory, self.last_mask = self._fused(
+            image, self.object_manager.num_obj, bucket, lt,
+            self.memory.get_sensory(), self.last_mask,
+            mem_write=is_mem_frame, update_sensory=not end,
+            work_usage=self.memory.use_long_term,
+            count_lt_usage=self.memory.count_long_term_usage)
+        self.memory.update_sensory(sensory)
+        if is_mem_frame:
+            self.last_mem_ti = self.curr_ti
+            self.memory.maybe_consolidate()
+        return prob
+
+    @torch.no_grad()
+    def step_chunk(self, images, *, end: bool = False) -> List[torch.Tensor]:
+        """Propagate several maskless frames, a memory period per call of
+        the fused block body: the chunk is cut into blocks of read-only
+        frames plus one trailing memory-write frame, ending before a
+        consolidation would trigger and leaving an end frame to step().
+        The same results as step() per frame; falls back to step() when the
+        fused path does not apply. images: [H, W, 3] frames. Returns a list
+        of [1 + num_obj, H, W] probabilities."""
+        images = list(images)
+        if not images:
+            return []
+        found = self._fused_bucket()
+        if found is None:
+            return [self.step(img, end=end and i == len(images) - 1)
+                    for i, img in enumerate(images)]
+        bucket, lt = found
+        bid, = self.memory.buckets
+        h, w = images[0].shape[:2]
+        hw_tokens = (-(-h // 16)) * (-(-w // 16))
+        max_work = self._max_work()
+
+        out = []
+        i = 0
+        while i < len(images):
+            # the longest run that fits, ends where a consolidation must
+            # run, and leaves the end frame to step()
+            writes = []
+            size, last_mem = bucket.size, self.last_mem_ti
+            for j in range(i, len(images)):
+                if end and j == len(images) - 1:
+                    break
+                ti = self.curr_ti + 1 + (j - i)
+                write = ti - last_mem >= self.mem_every
+                writes.append(write)
+                if write:
+                    last_mem = ti
+                    size += hw_tokens
+                    if max_work is not None and size >= max_work:
+                        break
+            if not writes:
+                out.append(self.step(images[i], end=True))
+                i += 1
+                continue
+
+            k = len(writes)
+            n_writes = sum(writes)
+            if n_writes:
+                bucket.ensure_capacity(n_writes * hw_tokens, hw_tokens,
+                                       limit=max_work)
+            frames = torch.stack([
+                torch.as_tensor(im, dtype=torch.float32, device=self.device)
+                for im in images[i:i + k]])
+            probs, sensory, self.last_mask = self._fused.run_chunk(
+                frames, writes, self.object_manager.num_obj, bucket, lt,
+                self.memory.get_sensory(), self.last_mask,
+                work_usage=self.memory.use_long_term,
+                count_lt_usage=self.memory.count_long_term_usage)
+            self.memory.update_sensory(sensory)
+            self.curr_ti += k
+            if n_writes:
+                self.last_mem_ti = last_mem
+                self.memory.maybe_consolidate()
+                lt = self.memory.long_buckets.get(bid)
+            out.extend(probs)
+            i += k
+        return out
 
     def _merge_input_mask(self, mask, objects, hard_mask: bool,
                           need_segment: bool, pred_prob_with_bg):

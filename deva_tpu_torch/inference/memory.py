@@ -18,9 +18,13 @@ top-k prototypes + a dense-softmax potentiation readout) triggers at
 size == max_work_tokens; eviction of obsolete long-term tokens keeps
 survivors in order.
 
-Every readout of `match_memory` goes through attention_kernels.attend_topk
-(single ring, or [long-term ; working] concatenated), so on a CUDA device
-both attention kernels run on every frame.
+`match_memory` is the composed path of deva_tpu's memory.py:94-123. With the
+exact method every readout goes through attention_kernels.attend_topk (single
+ring, or [long-term ; working] concatenated), so on a CUDA device both exact
+kernels run; with the approx method it takes the dense threshold form of
+memory_attention.topk_softmax, as deva_tpu does (XLA code there, not a
+kernel). The fused step (inference/fused_step.py) reads and writes the same
+rings in place.
 """
 from __future__ import annotations
 
@@ -114,6 +118,24 @@ class Bucket:
                                        self.size + extra))
         self.map_rings(lambda arr: _grow(arr, new_cap))
 
+    def append(self, key: torch.Tensor, shrinkage: torch.Tensor,
+               value: torch.Tensor,
+               selection: Optional[torch.Tensor] = None) -> None:
+        """Write n tokens at the cursor, in place (capacity ensured by the
+        caller): key [n, Ck], shrinkage [n], value [n, o_cap, Cv], selection
+        [n, Ck]; the new slots start with use_cnt 0 and life_cnt 1e-7."""
+        n = key.shape[0]
+        at = slice(self.size, self.size + n)
+        self.key[at] = key
+        self.shrinkage[at] = shrinkage
+        if self.selection is not None:
+            self.selection[at] = selection
+        if self.use_cnt is not None:
+            self.use_cnt[at] = 0.0
+            self.life_cnt[at] = 1e-7
+        self.value[at] = value
+        self.size += n
+
     def keep_objects(self, keep: List[int]) -> None:
         """Drop the value columns of objects not in `keep` (order kept)."""
         new_ids = [o for o in self.obj_ids if o in keep]
@@ -134,13 +156,16 @@ class LongTermBucket(Bucket):
                          save_usage=save_usage, dtype=dtype, device=device)
 
 
-def _append(ring: torch.Tensor, size: int, new: torch.Tensor) -> None:
-    """Write tokens at the cursor, in place."""
-    ring[size:size + new.shape[0]] = new.to(ring.dtype)
-
-
-def _valid(cap: int, size: int, device) -> torch.Tensor:
+def valid_mask(cap: int, size: int, device) -> torch.Tensor:
     return torch.arange(cap, device=device) < size
+
+
+def count_usage(b: Bucket, usage: torch.Tensor, valid: torch.Tensor,
+                lives: float = 1.0) -> None:
+    """Add one step's usage [cap] to the valid slots, in place, and `lives`
+    frames to their life counts."""
+    b.use_cnt += torch.where(valid, usage, 0.0)
+    b.life_cnt += valid.float() * lives
 
 
 class MemoryEngine:
@@ -150,8 +175,8 @@ class MemoryEngine:
     def __init__(self, config: InferenceConfig, sensory_dim: int,
                  key_dim: int, value_dim: int, o_cap: int,
                  device: torch.device):
-        config.resolve_topk_method()  # only exact top-k is ported
         self.cfg = config
+        self.approx = config.resolve_topk_method() == "approx"
         self.sensory_dim = sensory_dim
         self.ck = key_dim
         self.cv = value_dim
@@ -226,15 +251,7 @@ class MemoryEngine:
             rows = [row_of[o] for o in b.obj_ids]
             rows += [0] * (b.o_cap - len(rows))  # padded columns: harmless
             vals = value[rows].transpose(0, 1)   # [HW, o_cap_b, Cv]
-            _append(b.key, b.size, key)
-            _append(b.shrinkage, b.size, shrinkage)
-            if b.selection is not None:
-                _append(b.selection, b.size, selection)
-            if b.use_cnt is not None:
-                b.use_cnt[b.size:b.size + hw] = 0.0
-                b.life_cnt[b.size:b.size + hw] = 1e-7
-            _append(b.value, b.size, vals)
-            b.size += hw
+            b.append(key, shrinkage, vals, selection)
 
         self.maybe_consolidate()
 
@@ -296,13 +313,7 @@ class MemoryEngine:
                           max_cap)
             lt.map_rings(lambda arr: _grow(arr, new_cap))
         lt.obj_ids = list(b.obj_ids)
-        _append(lt.key, lt.size, proto_key)
-        _append(lt.shrinkage, lt.size, proto_shr)
-        _append(lt.value, lt.size, proto_value)
-        if lt.use_cnt is not None:
-            lt.use_cnt[lt.size:lt.size + p] = 0.0
-            lt.life_cnt[lt.size:lt.size + p] = 1e-7
-        lt.size += p
+        lt.append(proto_key, proto_shr, proto_value)
 
     def _evict_obsolete(self, bid: int, max_size: int) -> None:
         """Remove least-used long-term tokens until size <= max_size, keeping
@@ -327,6 +338,16 @@ class MemoryEngine:
         lt.map_rings(lambda arr: arr[idx])
         lt.size = int(survived.sum())
 
+    def _attend(self, mk, ms, values, qk, qe, top_k: int, valid,
+                return_usage: bool = False):
+        """The composed path's attention (see the module docstring). values
+        [N, O, Cv] token-major -> [O, Q, Cv] (and usage [N])."""
+        if self.approx:
+            return ma.attend(mk, ms, values.transpose(0, 1), qk, qe, top_k,
+                             valid, return_usage, method="approx")
+        return attend_topk(mk, ms, values, qk, qe, top_k, valid,
+                           return_usage)
+
     def match_memory(self, qk: torch.Tensor, qe: torch.Tensor,
                      obj_rows: Dict[int, int]) -> torch.Tensor:
         """qk/qe: [HW, Ck]. obj_rows: obj id -> global tmp row.
@@ -334,35 +355,29 @@ class MemoryEngine:
         out = torch.zeros((self.o_cap, qk.shape[0], self.cv),
                           dtype=torch.float32, device=self.device)
         for bid, b in self.buckets.items():
-            valid = _valid(b.cap, b.size, self.device)
+            valid = valid_mask(b.cap, b.size, self.device)
             lt = self.long_buckets.get(bid)
             if self.use_long_term and lt is not None and lt.size > 0:
-                lt_valid = _valid(lt.cap, lt.size, self.device)
-                rd, usage = attend_topk(
+                lt_valid = valid_mask(lt.cap, lt.size, self.device)
+                rd, usage = self._attend(
                     torch.cat([lt.key, b.key]),
                     torch.cat([lt.shrinkage, b.shrinkage]),
                     torch.cat([lt.value, b.value]), qk, qe, self.top_k,
                     valid=torch.cat([lt_valid, valid]), return_usage=True)
-                self._count_usage(b, usage[lt.cap:], valid)
+                count_usage(b, usage[lt.cap:], valid)
                 if self.count_long_term_usage:
-                    self._count_usage(lt, usage[:lt.cap], lt_valid)
+                    count_usage(lt, usage[:lt.cap], lt_valid)
             elif self.use_long_term:
-                rd, usage = attend_topk(b.key, b.shrinkage, b.value, qk, qe,
-                                        self.top_k, valid=valid,
-                                        return_usage=True)
-                self._count_usage(b, usage, valid)
+                rd, usage = self._attend(b.key, b.shrinkage, b.value, qk, qe,
+                                         self.top_k, valid=valid,
+                                         return_usage=True)
+                count_usage(b, usage, valid)
             else:
-                rd = attend_topk(b.key, b.shrinkage, b.value, qk, qe,
-                                 self.top_k, valid=valid)
+                rd = self._attend(b.key, b.shrinkage, b.value, qk, qe,
+                                  self.top_k, valid=valid)
             rows = [obj_rows[o] for o in b.obj_ids]
             out[rows] = rd[:len(rows)]
         return out
-
-    @staticmethod
-    def _count_usage(b: Bucket, usage: torch.Tensor,
-                     valid: torch.Tensor) -> None:
-        b.use_cnt += torch.where(valid, usage, 0.0)
-        b.life_cnt += valid.float()
 
     def purge_except(self, keep_obj_ids: List[int]) -> None:
         keep = set(keep_obj_ids)

@@ -1,0 +1,379 @@
+"""Fused threshold-approx memory attention: group maxima of the similarity,
+a threshold, then the softmax and readout over the threshold's support. No
+dense [Q, N] matrix is built on a CUDA device.
+
+Port of the approx half of deva_tpu/ops/pallas_attention.py (`_prep2`,
+`_segmax_pass`, `_denom_readout_pass`, `attend_pallas_approx_multi`,
+`attend_pallas_approx`). Semantics:
+
+- The similarity takes the one-product form
+  (qcat . mcat - sub) * msv with qcat = [2*qk*qe ; -qe], mcat = [mk ; mk^2]
+  and sub = sum(qe*qk^2), or qcat = 2*qk, mcat = mk, sub = sum(mk^2) without
+  a selection (`prep2`); invalid and padded slots are -inf.
+- `segmax`: the token axis is cut into tiles of `n_tile` tokens, and group g
+  of a tile is {g, g+W, g+2W, ...} with W = n_tile >> folds (`Geometry`).
+  The result [Q, nseg] holds each group's max.
+- Between the kernels: rmax = the row max of the group maxima (0 if not
+  finite), th = the min(k, nseg)-th largest group max (`threshold`), exact,
+  as deva_tpu's interpret mode takes it. On a TPU deva_tpu takes it with
+  approx_max_k, which can only lower it.
+- `denom_readout`: e = exp(sim - rmax) where sim >= th, aff = e / max(sum e,
+  1e-30), out = aff @ V, usage = aff summed over queries. The support
+  contains the exact top-k; a row with fewer than k valid tokens keeps all of
+  them, and a row with none gives zeros.
+
+Dispatch is by device only, as in attention_kernels.py: CPU tensors take the
+plain twins (`*_plain`), CUDA tensors launch csrc/segmax.cu and
+csrc/denom_readout.cu or raise. Launches count in attention_kernels.LAUNCHES.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Sequence
+
+import torch
+
+from deva_tpu_torch.ops import memory_attention as ma
+from deva_tpu_torch.ops.attention_kernels import (LAUNCHES, _on_cuda, _ptr,
+                                                  _require, _stream)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+class Geometry(NamedTuple):
+    """The group partition of the token axis (pallas_attention.py:380-386,
+    464-475)."""
+    n: int          # ring tokens
+    n_tile: int     # tokens per tile
+    folds: int      # a group holds 2**folds tokens, W apart
+
+    @classmethod
+    def of(cls, n: int, n_tile: int) -> "Geometry":
+        """Rings shorter than n_tile use one tile of round_up(max(n, 128),
+        128); folds is the largest of 2 or 1 that leaves W a multiple of
+        128, else 0."""
+        if n < n_tile:
+            n_tile = _round_up(max(n, 128), 128)
+        folds = next((f for f in (2, 1) if (n_tile >> f) % 128 == 0), 0)
+        return cls(n, n_tile, folds)
+
+    @property
+    def width(self) -> int:
+        return self.n_tile >> self.folds
+
+    @property
+    def group(self) -> int:
+        return 1 << self.folds
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.n // self.n_tile)
+
+    @property
+    def nseg(self) -> int:
+        return self.tiles * self.width
+
+
+def default_n_tile(c: int, itemsize: int) -> int:
+    """The adaptive tile width of attend_pallas_approx_multi: 1024 tokens
+    when a value row (round_up(C, 128) * itemsize bytes) takes at most 3072
+    bytes, else 512."""
+    return 1024 if _round_up(c, 128) * itemsize <= 3072 else 512
+
+
+class Operands(NamedTuple):
+    """`prep2`'s operands, unpadded: qcat [Q, Kc], mcat [N, Kc], bsq [Q]
+    (with a selection) or msq [N] (without one), msv [N], valid [N] bool or
+    None."""
+    qcat: torch.Tensor
+    mcat: torch.Tensor
+    bsq: Optional[torch.Tensor]
+    msq: Optional[torch.Tensor]
+    msv: torch.Tensor
+    valid: Optional[torch.Tensor]
+
+
+def prep2(qk, qe, mk, ms, valid) -> Operands:
+    """The operands of the one-product similarity (pallas_attention.py:
+    380-415), in the same operation order."""
+    ck = qk.shape[1]
+    qk = qk.float()
+    mk = mk.float()
+    if qe is not None:
+        qe = qe.float()
+        qcat = torch.cat([2.0 * qk * qe, -qe], dim=-1)
+        mcat = torch.cat([mk, mk * mk], dim=-1)
+        bsq = torch.sum(qe * qk * qk, dim=-1)
+        msq = None
+    else:
+        qcat = (2.0 * qk).contiguous()
+        mcat = mk.contiguous()
+        bsq = None
+        msq = torch.sum(mk * mk, dim=-1)
+    msv = ms.float() / math.sqrt(ck) if ms is not None else \
+        torch.full((mk.shape[0],), 1.0 / math.sqrt(ck), device=mk.device)
+    return Operands(qcat, mcat, bsq, msq, msv.contiguous(), valid)
+
+
+def similarity2_plain(ops: Operands) -> torch.Tensor:
+    """The dense [Q, N] similarity of the pair, -inf on invalid slots."""
+    sim = ops.qcat @ ops.mcat.T
+    sub = ops.bsq[:, None] if ops.bsq is not None else ops.msq[None, :]
+    return ma.mask_invalid((sim - sub) * ops.msv[None, :], ops.valid)
+
+
+def _check_cuda_operands(ops: Operands, kernel: str) -> None:
+    q, kc = ops.qcat.shape
+    n = ops.mcat.shape[0]
+    if kc > 128 or kc % 4:
+        raise ValueError(f"{kernel}: operand width {kc} must be a multiple "
+                         "of 4 and at most 128")
+    f32 = torch.float32
+    _require(ops.qcat, "qcat", f32, (q, kc))
+    _require(ops.mcat, "mcat", f32, (n, kc))
+    _require(ops.msv, "msv", f32, (n,))
+    if ops.bsq is not None:
+        _require(ops.bsq, "bsq", f32, (q,))
+    else:
+        _require(ops.msq, "msq", f32, (n,))
+    if ops.valid is not None:
+        _require(ops.valid, "valid", torch.bool, (n,))
+
+
+def _valid_u8(ops: Operands):
+    return None if ops.valid is None else ops.valid.view(torch.uint8)
+
+
+# --------------------------------------------------------------------------
+# segmax
+# --------------------------------------------------------------------------
+
+def segmax_plain(ops: Operands, geom: Geometry) -> torch.Tensor:
+    """Plain twin of segmax: the dense similarity, padded with -inf to whole
+    tiles and reduced over each tile's strided groups."""
+    sim = similarity2_plain(ops)
+    q = sim.shape[0]
+    pad = geom.tiles * geom.n_tile - geom.n
+    sim = torch.nn.functional.pad(sim, (0, pad), value=float("-inf"))
+    return sim.reshape(q, geom.tiles, geom.group, geom.width).amax(2) \
+              .reshape(q, geom.nseg)
+
+
+def _segmax_cuda(ops: Operands, geom: Geometry) -> torch.Tensor:
+    """Launches csrc/segmax.cu, the port of the Pallas `_segmax_kernel`
+    (deva_tpu/ops/pallas_attention.py:451-488). It is bound by the f32 FFMA
+    rate (Q*N*Kc FFMAs, no TF32); it folds each tile to its group maxima in
+    registers, so only [Q, nseg] reaches device memory (see the source
+    note)."""
+    from deva_tpu_torch.ops import cuda_build
+    _check_cuda_operands(ops, "segmax")
+    q, kc = ops.qcat.shape
+    out = torch.empty((q, geom.nseg), dtype=torch.float32,
+                      device=ops.qcat.device)
+    err = cuda_build.load().deva_segmax(
+        _ptr(ops.qcat), _ptr(ops.mcat), _ptr(ops.bsq), _ptr(ops.msq),
+        _ptr(ops.msv), _ptr(_valid_u8(ops)), q, geom.n, kc, geom.n_tile,
+        geom.folds, _ptr(out), _stream(out.device))
+    if err != 0:
+        raise RuntimeError(f"segmax kernel launch failed: CUDA error {err}")
+    LAUNCHES["segmax"] += 1
+    return out
+
+
+def segmax(ops: Operands, geom: Geometry) -> torch.Tensor:
+    """Group maxima of the similarity: [Q, geom.nseg] f32."""
+    if _on_cuda(*ops):
+        return _segmax_cuda(ops, geom)
+    return segmax_plain(ops, geom)
+
+
+def threshold(seg: torch.Tensor, top_k: int):
+    """-> (rmax [Q, 1], th [Q, 1]) from the group maxima: the row max,
+    clamped to 0 when not finite, and the min(k, nseg)-th largest group max
+    (pallas_attention.py:627-643, its exact branch)."""
+    rmax = seg.amax(dim=-1, keepdim=True)
+    rmax = torch.where(torch.isfinite(rmax), rmax, torch.zeros_like(rmax))
+    kk = min(top_k, seg.shape[-1])
+    th = torch.topk(seg, kk, dim=-1).values[:, -1:]
+    return rmax.contiguous(), th.contiguous()
+
+
+# --------------------------------------------------------------------------
+# denom_readout
+# --------------------------------------------------------------------------
+
+def _support_weights(sim, rmax, th):
+    """aff [Q, N] of the threshold softmax over the dense similarity."""
+    e = torch.where(sim >= th, torch.exp(sim - rmax), torch.zeros_like(sim))
+    den = e.sum(dim=-1, keepdim=True)
+    return e * (1.0 / torch.clamp(den, min=1e-30))
+
+
+def denom_readout_plain(ops: Operands, geom: Geometry, seg, rmax, th,
+                        values2d):
+    """Plain twin of denom_readout: the dense e, denominator, aff @ V and
+    aff.sum(0). (seg and geom are what the kernel reads to find the
+    support; the dense form needs neither.)"""
+    aff = _support_weights(similarity2_plain(ops), rmax, th)
+    return aff @ values2d.float(), aff.sum(dim=0)
+
+
+def gap_threshold(sim: torch.Tensor, th: torch.Tensor,
+                  eps: float = 1e-3) -> torch.Tensor:
+    """For checking denom_readout against its twin: per row, a threshold at
+    or below th [Q, 1] that lies in a gap wider than 2*eps between two of
+    the row's similarities sim [Q, N] (th itself where there is none). Which
+    entries reach it does not depend on how a similarity was rounded, so the
+    kernel and the twin keep the same support."""
+    s = sim.sort(dim=-1, descending=True).values
+    ok = (s[:, :-1] <= th) & (s[:, :-1] - s[:, 1:] > 2 * eps)
+    first = ok.float().argmax(dim=-1, keepdim=True)
+    mid = (s.gather(1, first) + s.gather(1, first + 1)) / 2
+    return torch.where(ok.any(-1, keepdim=True), mid, th)
+
+
+def _denom_readout_cuda(ops: Operands, geom: Geometry, seg, rmax, th,
+                        values2d):
+    """Launches csrc/denom_readout.cu, the port of the Pallas
+    `_denom_readout_kernel` (deva_tpu/ops/pallas_attention.py:491-575). It
+    is bound by the gathered value rows of the support (Q*|support|*C*4
+    bytes); instead of the TPU's dense affinity-times-values product it
+    finds each row's support from the group maxima, recomputes those
+    similarities with segmax's device function and gathers their rows (see
+    the source note)."""
+    from deva_tpu_torch.ops import cuda_build
+    _check_cuda_operands(ops, "denom_readout")
+    q, kc = ops.qcat.shape
+    n, c = values2d.shape
+    f32 = torch.float32
+    _require(seg, "segmax", f32, (q, geom.nseg))
+    _require(rmax, "rmax", f32, (q, 1))
+    _require(th, "th", f32, (q, 1))
+    _require(values2d, "values", f32, (geom.n, c))
+    dev = values2d.device
+    out = torch.empty((q, c), dtype=f32, device=dev)
+    usage = torch.zeros((n,), dtype=f32, device=dev)
+    vec4 = c % 4 == 0 and values2d.data_ptr() % 16 == 0
+    err = cuda_build.load().deva_denom_readout(
+        _ptr(ops.qcat), _ptr(ops.mcat), _ptr(ops.bsq), _ptr(ops.msq),
+        _ptr(ops.msv), _ptr(_valid_u8(ops)), _ptr(seg), _ptr(rmax), _ptr(th),
+        _ptr(values2d), q, n, kc, geom.n_tile, geom.folds, c, int(vec4),
+        _ptr(out), _ptr(usage), _stream(dev))
+    if err != 0:
+        raise RuntimeError(
+            f"denom_readout kernel launch failed: CUDA error {err}")
+    LAUNCHES["denom_readout"] += 1
+    return out, usage
+
+
+def denom_readout(ops: Operands, geom: Geometry, seg: torch.Tensor,
+                  rmax: torch.Tensor, th: torch.Tensor,
+                  values2d: torch.Tensor):
+    """Threshold softmax + readout: out [Q, C] f32 and usage [N] f32.
+    values2d: [N, C] token-major (C = O*Cv)."""
+    if _on_cuda(*ops, seg, rmax, th, values2d):
+        return _denom_readout_cuda(ops, geom, seg, rmax, th, values2d)
+    return denom_readout_plain(ops, geom, seg, rmax, th, values2d)
+
+
+def sim2_at(ops: Operands, idx: torch.Tensor) -> torch.Tensor:
+    """The pair's similarity at tokens idx [Q, K] -> [Q, K]: on a CUDA
+    device, the very floats the kernels compare with th (a check of the
+    support, not a step of the path)."""
+    if not _on_cuda(*ops, idx):
+        return similarity2_plain(ops).gather(1, idx.long())
+    from deva_tpu_torch.ops import cuda_build
+    _check_cuda_operands(ops, "sim2_at")
+    q, kc = ops.qcat.shape
+    _require(idx, "idx", torch.int32, (q, idx.shape[1]))
+    out = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
+    err = cuda_build.load().deva_sim2_at(
+        _ptr(ops.qcat), _ptr(ops.mcat), _ptr(ops.bsq), _ptr(ops.msq),
+        _ptr(ops.msv), _ptr(_valid_u8(ops)), _ptr(idx), q, ops.mcat.shape[0],
+        kc, idx.shape[1], _ptr(out), _stream(idx.device))
+    if err != 0:
+        raise RuntimeError(f"sim2_at kernel launch failed: CUDA error {err}")
+    return out
+
+
+# --------------------------------------------------------------------------
+# the composites
+# --------------------------------------------------------------------------
+
+def _concat_rings(rings):
+    """[(mk, ms|None, values, valid|None), ...] -> one ring, as
+    attend_pallas_approx_multi concatenates them (pallas_attention.py:
+    597-609)."""
+    if len(rings) == 1:
+        return rings[0]
+    mk = torch.cat([r[0] for r in rings])
+    ms = None if all(r[1] is None for r in rings) else torch.cat(
+        [r[1] if r[1] is not None else
+         torch.ones((r[0].shape[0],), dtype=r[0].dtype, device=r[0].device)
+         for r in rings])
+    values = torch.cat([r[2] for r in rings])
+    valid = None if all(r[3] is None for r in rings) else torch.cat(
+        [r[3] if r[3] is not None else
+         torch.ones((r[0].shape[0],), dtype=torch.bool, device=r[0].device)
+         for r in rings])
+    return mk, ms, values, valid
+
+
+def _attend_multi(seg_fn, dr_fn, rings, qk, qe, top_k, return_usage, n_tile):
+    q = qk.shape[0]
+    mk, ms, values, valid = _concat_rings(rings)
+    n, o, cv = values.shape
+    if n_tile is None:
+        n_tile = default_n_tile(o * cv, values.element_size())
+    geom = Geometry.of(n, n_tile)
+    ops = prep2(qk, qe, mk, ms, valid)
+    seg = seg_fn(ops, geom)
+    rmax, th = threshold(seg, top_k)
+    out, usage = dr_fn(ops, geom, seg, rmax, th,
+                       values.reshape(n, o * cv))
+    out = out.reshape(q, o, cv).transpose(0, 1)
+    if not return_usage:
+        return out
+    lens = [r[0].shape[0] for r in rings]
+    return out, list(torch.split(usage, lens))
+
+
+def attend_approx_multi(rings: Sequence, qk: torch.Tensor,
+                        qe: Optional[torch.Tensor], top_k: int,
+                        return_usage: bool = False,
+                        n_tile: Optional[int] = None):
+    """Threshold-approx attention over several rings at once (the serving
+    shape is [long-term ring ; working ring]), concatenated on the token
+    axis. rings: sequence of (mk [N, Ck], ms [N] | None, values [N, O, Cv],
+    valid [N] | None). Returns out [O, Q, Cv] (f32) and, with return_usage,
+    one usage [N_i] per ring. n_tile defaults to deva_tpu's adaptive
+    width."""
+    return _attend_multi(segmax, denom_readout, rings, qk, qe, top_k,
+                         return_usage, n_tile)
+
+
+def attend_approx_multi_plain(rings: Sequence, qk, qe, top_k: int,
+                              return_usage: bool = False,
+                              n_tile: Optional[int] = None):
+    """Plain twin of attend_approx_multi."""
+    return _attend_multi(segmax_plain, denom_readout_plain, rings, qk, qe,
+                         top_k, return_usage, n_tile)
+
+
+def attend_approx(mk: torch.Tensor, ms: Optional[torch.Tensor],
+                  values: torch.Tensor, qk: torch.Tensor,
+                  qe: Optional[torch.Tensor], top_k: int,
+                  valid: Optional[torch.Tensor] = None,
+                  return_usage: bool = False,
+                  n_tile: Optional[int] = None):
+    """Single-ring form (attend_pallas_approx), with attend_topk's signature.
+    values: [N, O, Cv] token-major. When N <= 128 a group is one token, so
+    the result is exact top-k (ties included)."""
+    res = attend_approx_multi([(mk, ms, values, valid)], qk, qe, top_k,
+                              return_usage, n_tile)
+    if return_usage:
+        out, (usage,) = res
+        return out, usage
+    return res

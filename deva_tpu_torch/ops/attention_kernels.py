@@ -16,7 +16,9 @@ here (`*_plain`), with the same semantics:
 Dispatch is by device only. Tensors on the CPU take the plain version.
 Tensors on a CUDA device launch the hand-written kernels of
 deva_tpu_torch/csrc (built by cuda_build at first use) or raise: there is no
-fallback. Each launch of a kernel adds one to its entry in `LAUNCHES`.
+fallback. Each launch of a kernel adds one to its entry in `LAUNCHES`, which
+also counts the two kernels of the approx method (ops/approx_kernels.py), so
+one reset and one read cover all four.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ import torch
 from deva_tpu_torch.ops import memory_attention as ma
 
 # launches of each kernel since the last reset_launch_counts()
-LAUNCHES = {"sim_topk": 0, "topk_readout": 0}
+LAUNCHES = {"sim_topk": 0, "topk_readout": 0, "segmax": 0,
+            "denom_readout": 0}
 
 
 def reset_launch_counts() -> None:

@@ -2,7 +2,8 @@
 
 The kernels are compiled at first use with nvcc into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds) and loaded
-with ctypes. The library goes into deva_tpu_torch/_build/ (git-ignored),
+with ctypes. Each source is compiled by its own nvcc process, all started
+together, and the objects are then linked into one library. The library goes into deva_tpu_torch/_build/ (git-ignored),
 under a name keyed by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is reused. Nothing here runs at import time.
 """
@@ -20,7 +21,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -30,6 +31,10 @@ _SIGNATURES = {
     "deva_sim_topk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P],
     "deva_topk_readout": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "deva_segmax": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "deva_denom_readout": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _I, _I, _I, _I, _P, _P, _P],
+    "deva_sim2_at": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 _lib = None
@@ -60,23 +65,41 @@ def library_path() -> Path:
     return BUILD_DIR / f"libdeva_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _nvcc_all(cmds) -> str:
+    """Run the nvcc commands at once and wait for every one; raise with
+    nvcc's output if one failed. Returns their output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate() for proc in procs]
+    for cmd, proc, (_, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{err}")
+    return "\n".join(out + err for out, err in outs)
+
+
 def build() -> Path:
-    """Compile the kernels if this version of the sources is not built yet.
-    Returns the library path. Raises with nvcc's output on failure."""
+    """Compile the kernels if this version of the sources is not built yet:
+    one nvcc per source, all started together, then one link. Returns the
+    library path. Raises with nvcc's output on failure."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr}")
-    (BUILD_DIR / (out.stem + ".log")).write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        srcs = [src for src in _sources() if src.suffix == ".cu"]
+        objs = [str(work / (src.stem + ".o")) for src in srcs]
+        log = _nvcc_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                          obj, str(src)] for src, obj in zip(srcs, objs)])
+        lib = work / "lib.so"
+        log += _nvcc_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib),
+                           *objs]])
+        (BUILD_DIR / (out.stem + ".log")).write_text(log)
+        os.replace(lib, out)  # atomic: a concurrent build sees all or nothing
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

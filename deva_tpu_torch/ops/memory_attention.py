@@ -1,9 +1,10 @@
 """Memory-attention math: anisotropic L2 similarity, top-k softmax, readout.
 
-Port of deva_tpu/ops/memory_attention.py, exact top-k only, with the same
-tokens-major layouts: keys [N, Ck], values [O, N, Cv], output [O, Q, Cv].
-These are the plain dense functions; the fused form that never builds the
-dense [Q, N] matrix is deva_tpu_torch/ops/attention_kernels.py.
+Port of deva_tpu/ops/memory_attention.py, with the same tokens-major
+layouts: keys [N, Ck], values [O, N, Cv], output [O, Q, Cv]. These are the
+plain dense functions, for both top-k methods; the fused forms that never
+build the dense [Q, N] matrix are deva_tpu_torch/ops/attention_kernels.py
+(exact) and deva_tpu_torch/ops/approx_kernels.py (approx).
 
 Similarity (XMem appendix): for memory key a (with shrinkage s) and query key
 b with per-channel selection e:
@@ -20,6 +21,8 @@ import math
 from typing import Optional
 
 import torch
+
+from deva_tpu_torch.config import resolve_topk_method
 
 
 def get_similarity(mk: torch.Tensor, ms: Optional[torch.Tensor],
@@ -77,16 +80,37 @@ def softmax_topk_values(values: torch.Tensor) -> torch.Tensor:
 def topk_softmax(sim: torch.Tensor, top_k: int,
                  valid: Optional[torch.Tensor] = None,
                  return_usage: bool = False, method: Optional[str] = "auto"):
-    """Exact top-k-restricted softmax over the token axis of sim [Q, N],
-    scattered back to a dense [Q, N] affinity. usage (if requested) is the
-    affinity summed over queries, per token: [N]."""
-    _check_method(method)
+    """Top-k-restricted softmax over the token axis of sim [Q, N], as a
+    dense [Q, N] affinity. usage (if requested) is the affinity summed over
+    queries, per token: [N].
+
+    method 'exact' (and 'auto'): the k best entries of each row, softmaxed.
+    method 'approx' (deva_tpu's threshold form, used when N >= 4*top_k):
+    every entry >= the row's k-th largest value is kept, so the support
+    contains the exact top-k and ties at the threshold all enter. The
+    threshold here is the exact k-th value; deva_tpu's approx_max_k gives
+    the same on the CPU and a lower one (a larger support) on a TPU. A row
+    with fewer than k valid tokens keeps all of them; a row with none gives
+    zeros (the sum is clamped to 1e-30), where the exact method gives NaN.
+    """
+    method = resolve_topk_method(method)
     sim = mask_invalid(sim, valid)
     q, n = sim.shape
-    values, indices = topk_sorted(sim, top_k)
-    weights = softmax_topk_values(values)
-    affinity = torch.zeros((q, n), dtype=weights.dtype, device=sim.device)
-    affinity.scatter_add_(1, indices, weights)
+    if method == "approx" and n >= 4 * top_k:
+        vals = torch.topk(sim, top_k, dim=-1).values
+        kth = vals[..., -1:]
+        row_max = vals[..., :1]
+        row_max = torch.where(torch.isfinite(row_max), row_max,
+                              torch.zeros_like(row_max))
+        e = torch.where(sim >= kth, torch.exp(sim - row_max),
+                        torch.zeros_like(sim))
+        affinity = e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+    else:
+        values, indices = topk_sorted(sim, top_k)
+        weights = softmax_topk_values(values)
+        affinity = torch.zeros((q, n), dtype=weights.dtype,
+                               device=sim.device)
+        affinity.scatter_add_(1, indices, weights)
     if return_usage:
         return affinity, affinity.sum(dim=0)
     return affinity
@@ -119,12 +143,3 @@ def attend(mk: torch.Tensor, ms: Optional[torch.Tensor], values: torch.Tensor,
                                        method=method)
         return readout(affinity, values), usage
     return readout(topk_softmax(sim, top_k, valid, method=method), values)
-
-
-def _check_method(method: Optional[str]) -> None:
-    if method == "approx":
-        raise NotImplementedError(
-            "topk_method='approx' needs the threshold kernels, which are not "
-            "ported yet (ROADMAP items B3/B4); use 'exact'")
-    if method not in (None, "auto", "exact"):
-        raise ValueError(f"unknown top-k method {method!r}")

@@ -1,15 +1,19 @@
 """Where the time of deva_tpu_torch's 480p propagation step goes, on a CUDA
 device.
 
-Runs the main path (InferenceCore.step at the default InferenceConfig, two
+Runs the main path (the default InferenceConfig with --topk_method, two
 objects, seeded weights, smooth-noise 854x480 frames like chip_smoke.py)
-for --frames frames, prints every frame's wall time, and traces the last
---window frames with torch.profiler: device time per layer (the model's four
-modes and the memory readout, as profiler ranges), device time per kernel,
-and the device's busy share of the window's wall time.
+for --frames frames, the first through InferenceCore.step and the others
+through step (--chunk 1) or step_chunk in chunks of --chunk frames (with
+--preencode_blocks, the pre-encoded block body). Prints
+every frame's wall time (a chunk's time shared by its frames), and traces
+the last --window frames (whole chunks) with torch.profiler: device time per
+layer (the model's four modes and the memory attention, as profiler
+ranges), device time per kernel, and the device's busy share of the
+window's wall time.
 
     python -m deva_tpu_torch.profile_step --frames 60 --window 10 \
-        --trace step_trace.json
+        --topk_method approx --chunk 5 --trace step_trace.json
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from deva_tpu_torch.models.network import DEVANetwork, init_weights
 
 
 LAYERS = ("encode_image", "transform_key", "encode_mask", "segment",
-          "match_memory")
+          "attention")
 
 
 def _labeled(fn, name):
@@ -49,6 +53,12 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=60)
     ap.add_argument("--window", type=int, default=10)
+    ap.add_argument("--topk_method", default="auto",
+                    choices=["auto", "exact", "approx"])
+    ap.add_argument("--chunk", type=int, default=1,
+                    help="frames per step_chunk call; 1 = step per frame")
+    ap.add_argument("--preencode_blocks", action="store_true",
+                    help="step_chunk's pre-encoded block body")
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the window here")
     args = ap.parse_args()
@@ -72,24 +82,39 @@ def main():
     net = init_weights(DEVANetwork(), seed=0).to(dev).eval()
     for mode in LAYERS[:4]:
         setattr(net, mode, _labeled(getattr(net, mode), mode))
-    core = InferenceCore(net, InferenceConfig())
+    core = InferenceCore(net, InferenceConfig(
+        topk_method=args.topk_method,
+        preencode_blocks=args.preencode_blocks))
+    # the fused step's attention, and the composed path's
+    core._fused._attend_rings = _labeled(core._fused._attend_rings,
+                                         "attention")
 
+    # frame 0 takes the mask; then runs of --chunk frames
+    runs = [(0, 1)] + [(i, min(args.chunk, args.frames - i))
+                       for i in range(1, args.frames, args.chunk)]
+    start_window = next(i for i, n in runs
+                        if i >= args.frames - args.window)
     step_ms = []
-    start_window = args.frames - args.window
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    for ti, img in enumerate(frames):
-        if ti == start_window:
+    for i, n in runs:
+        if i == start_window:
             prof.start()
             window_t0 = time.perf_counter()
-        if ti == 1:
+        if i == 1:
             core.memory.match_memory = _labeled(core.memory.match_memory,
-                                                "match_memory")
+                                                "attention")
         t0 = time.perf_counter()
-        core.step(img, *((mask, [1, 2]) if ti == 0 else ()))
+        if i == 0:
+            core.step(frames[0], mask, [1, 2])
+        elif args.chunk == 1:
+            core.step(frames[i])
+        else:
+            core.step_chunk(frames[i:i + n])
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1000)
+        step_ms += [(time.perf_counter() - t0) * 1000 / n] * n
     window_s = time.perf_counter() - window_t0
     prof.stop()
+    window = args.frames - start_window
 
     print("frame wall ms:", " ".join(f"{t:.1f}" for t in step_ms))
     print(f"median frames 10+: {statistics.median(step_ms[10:]):.3f} ms")
@@ -100,16 +125,16 @@ def main():
     layers = {e.key: _device_us(e) for e in on_device if e.key in LAYERS}
     kernels = [e for e in on_device if e.key not in LAYERS]
     busy_us = sum(_device_us(e) for e in kernels)
-    print(f"window: {args.window} frames, wall {window_s * 1000:.1f} ms, "
+    print(f"window: {window} frames, wall {window_s * 1000:.1f} ms, "
           f"device busy {busy_us / 1000:.1f} ms "
           f"({busy_us / (window_s * 1e6):.1%}), idle "
           f"{1 - busy_us / (window_s * 1e6):.1%}")
     for name, us in sorted(layers.items(), key=lambda kv: -kv[1]):
-        print(f"layer {name}: {us / 1000 / args.window:.3f} ms/frame on the "
+        print(f"layer {name}: {us / 1000 / window:.3f} ms/frame on the "
               f"device timeline ({us / (window_s * 1e6):.1%} of the wall)")
     for e in sorted(kernels, key=_device_us, reverse=True)[:25]:
-        print(f"kernel {_device_us(e) / 1000 / args.window:8.3f} ms/frame "
-              f"x{e.count / args.window:5.1f}  {e.key[:110]}")
+        print(f"kernel {_device_us(e) / 1000 / window:8.3f} ms/frame "
+              f"x{e.count / window:5.1f}  {e.key[:110]}")
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
                     exist_ok=True)

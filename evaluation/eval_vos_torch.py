@@ -11,7 +11,12 @@ Usage (the example clip, on the card):
 --model takes an upstream DEVA .pth state dict or a deva_tpu .npz export;
 given neither, the weights are a seeded random init. --device defaults to
 cuda and fails when CUDA is absent; pass --device cpu explicitly to run the
-plain PyTorch path on the CPU.
+plain PyTorch path on the CPU. --chunk N steps maskless stretches N frames
+per InferenceCore.step_chunk call; --topk_method approx takes the
+threshold-approx attention (`--chunk 5 --topk_method approx` is deva_tpu's
+serving configuration). --use_pallas_attention is accepted for parity with
+eval_vos.py and changes nothing: the port has one attention route per
+method (deva_tpu_torch/config.py).
 """
 from __future__ import annotations
 
@@ -69,6 +74,18 @@ def get_args(argv=None):
                         help="r in XMem; increase to improve speed")
     parser.add_argument("--size", type=int, default=480,
                         help="Resize shorter side to this; -1 keeps original")
+    parser.add_argument("--chunk", type=int, default=1,
+                        help="process maskless stretches in blocks of up to "
+                        "N frames via InferenceCore.step_chunk; 1 = "
+                        "per-frame stepping")
+    parser.add_argument("--topk_method", default="auto",
+                        choices=["auto", "exact", "approx"],
+                        help="top-k selection: exact (reference parity) or "
+                        "approx (threshold support that contains the exact "
+                        "top-k); auto = exact")
+    parser.add_argument("--use_pallas_attention", action="store_true",
+                        help="accepted for eval_vos.py parity; the port's "
+                        "attention route is set by --topk_method alone")
     return parser.parse_args(argv)
 
 
@@ -119,12 +136,18 @@ def save_mask(out_mask: np.ndarray, palette, out_dir: str, frame: str):
 
 class StepTimer:
     """Device time of the timed steps: CUDA events on a CUDA device (summed
-    after one synchronize per step), the host clock on the CPU."""
+    after one synchronize per step), the host clock on the CPU. A step
+    counts one frame, or n after frames_of(n)."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.total_s = 0.0
         self.frames = 0
+        self._count = 1
+
+    def frames_of(self, n: int) -> "StepTimer":
+        self._count = n
+        return self
 
     def __enter__(self):
         if self.cuda:
@@ -142,7 +165,8 @@ class StepTimer:
             self.total_s += self._start.elapsed_time(self._end) / 1000.0
         else:
             self.total_s += time.perf_counter() - self._t0
-        self.frames += 1
+        self.frames += self._count
+        self._count = 1
         return False
 
 
@@ -172,7 +196,9 @@ def main(argv=None):
         max_mid_term_frames=args.max_mid_term_frames,
         min_mid_term_frames=args.min_mid_term_frames,
         num_prototypes=args.num_prototypes,
-        max_long_term_elements=args.max_long_term_elements, size=args.size)
+        max_long_term_elements=args.max_long_term_elements, size=args.size,
+        topk_method=args.topk_method,
+        use_pallas_attention=args.use_pallas_attention)
     timer = StepTimer(device)
 
     for vid_reader in meta_dataset.get_datasets():
@@ -189,20 +215,7 @@ def main(argv=None):
         first_mask_loaded = False
         print(f"{vid_name} ({vid_length} frames)")
 
-        for ti in range(vid_length):
-            data = vid_reader[ti]
-            mask = data.get("mask")
-            if not first_mask_loaded:
-                if mask is None:
-                    continue
-                first_mask_loaded = True
-            labels = data.get("valid_labels")
-            labels = None if labels is None else [int(v) for v in labels]
-
-            with timer:
-                prob = processor.step(data["rgb"], mask, labels,
-                                      end=(ti == vid_length - 1))
-
+        def emit(data, prob):
             info = data["info"]
             prob = prob.cpu().numpy()
             if info["need_resize"]:
@@ -212,6 +225,40 @@ def main(argv=None):
             if args.save_all or info["save"]:
                 save_mask(out_mask, vid_reader.get_palette(),
                           path.join(args.output, vid_name), info["frame"])
+
+        pending = []  # buffered maskless frames for step_chunk
+
+        def flush(end: bool):
+            if not pending:
+                return
+            with timer.frames_of(len(pending)):
+                probs = processor.step_chunk([d["rgb"] for d in pending],
+                                             end=end)
+            for data, prob in zip(pending, probs):
+                emit(data, prob)
+            pending.clear()
+
+        for ti in range(vid_length):
+            data = vid_reader[ti]
+            mask = data.get("mask")
+            if not first_mask_loaded:
+                if mask is None:
+                    continue
+                first_mask_loaded = True
+            if args.chunk > 1 and mask is None:
+                pending.append(data)
+                if len(pending) >= args.chunk or ti == vid_length - 1:
+                    flush(end=ti == vid_length - 1)
+                continue
+            flush(end=False)
+            labels = data.get("valid_labels")
+            labels = None if labels is None else [int(v) for v in labels]
+
+            with timer:
+                prob = processor.step(data["rgb"], mask, labels,
+                                      end=(ti == vid_length - 1))
+            emit(data, prob)
+        flush(end=True)  # the video is over: any straggler ends it
 
     print(f"Total processing time: {timer.total_s}")
     print(f"Total processed frames: {timer.frames}")

@@ -136,4 +136,8 @@ def test_plain_twins_are_the_cpu_route():
                              10, valid=t["valid"], return_usage=True)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
-    assert ak.LAUNCHES == {"sim_topk": 0, "topk_readout": 0}
+    from deva_tpu_torch.ops import approx_kernels as apx
+    apx.attend_approx(t["mk"], t["ms"], t["values"], t["qk"], t["qe"], 10,
+                      valid=t["valid"], return_usage=True)
+    assert ak.LAUNCHES == {"sim_topk": 0, "topk_readout": 0, "segmax": 0,
+                           "denom_readout": 0}

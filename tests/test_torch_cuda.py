@@ -5,15 +5,18 @@ machine with a card run them with
     python -m pytest tests/test_torch_cuda.py -q
 
 The file imports nothing of JAX, so it also runs where JAX is not installed.
-Tolerances: similarity values 1e-5 and < 0.1% index mismatches (the bounds of
-tests/test_pallas_attention.py: the kernel sums in another order than the
-matmul of the plain version, so near-ties may swap); readout and usage 1e-4
-(f32 sums of k terms in another order).
+Tolerances: similarity values and group maxima 1e-5 and < 0.1% index
+mismatches (the bounds of tests/test_pallas_attention.py: the kernel sums in
+another order than the matmul of the plain version, so near-ties may swap);
+readout and usage 1e-4 (f32 sums in another order). The approx readout is
+compared at a threshold that no similarity lies near, so both sides keep the
+same support.
 """
 import numpy as np
 import pytest
 import torch
 
+from deva_tpu_torch.ops import approx_kernels as apx
 from deva_tpu_torch.ops import attention_kernels as ak
 
 pytestmark = pytest.mark.cuda
@@ -98,7 +101,8 @@ def test_attend_topk_kernels_match_plain(dev):
     ak.reset_launch_counts()
     out, usage = ak.attend_topk(mk, ms, values, qk, qe, 12, valid,
                                 return_usage=True)
-    assert ak.LAUNCHES == {"sim_topk": 1, "topk_readout": 1}
+    assert ak.LAUNCHES == {"sim_topk": 1, "topk_readout": 1, "segmax": 0,
+                           "denom_readout": 0}
     ref, ref_usage = ak.attend_topk_plain(mk, ms, values, qk, qe, 12, valid,
                                           return_usage=True)
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
@@ -113,3 +117,99 @@ def test_kernels_reject_what_they_do_not_take(dev):
         ak.sim_topk(qk, qe, mk.cpu(), ms, valid, 8)  # mixed devices
     with pytest.raises(TypeError):
         ak.sim_topk(qk.double(), qe, mk, ms, valid, 8)
+
+
+# --------------------------------------------------------------------------
+# the approx pair: segmax and denom_readout
+# --------------------------------------------------------------------------
+
+def _approx_operands(dev, seed, n, q, ck=64, n_valid=None, with_qe=True):
+    qk, qe, mk, ms, valid = _inputs(dev, seed, n, q, ck, n_valid, with_qe)
+    return apx.prep2(qk, qe, mk, ms, valid)
+
+
+@pytest.mark.parametrize("with_qe", [True, False])
+@pytest.mark.parametrize("n,q,n_tile", [(700, 130, 512), (16712, 1620, 512),
+                                        (16712, 300, 1024), (100, 40, 512)])
+def test_segmax_kernel_matches_plain(dev, n, q, n_tile, with_qe):
+    ops = _approx_operands(dev, 7, n, q, n_valid=n - n // 8,
+                           with_qe=with_qe)
+    geom = apx.Geometry.of(n, n_tile)
+    seg = apx.segmax(ops, geom)
+    ref = apx.segmax_plain(ops, geom)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isfinite(seg), torch.isfinite(ref))
+    fin = torch.isfinite(ref)
+    torch.testing.assert_close(seg[fin], ref[fin], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,q,c,n_valid", [(2048, 300, 1024, 1800),
+                                           (700, 130, 30, 600),
+                                           (16712, 1620, 1536, 11000),
+                                           (256, 64, 64, 5)])
+def test_denom_readout_kernel_matches_plain(dev, n, q, c, n_valid):
+    ops = _approx_operands(dev, 8, n, q, n_valid=n_valid)
+    geom = apx.Geometry.of(n, 512)
+    values = torch.randn((n, c), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    seg = apx.segmax(ops, geom)
+    rmax, th = apx.threshold(seg, 30)
+    th = apx.gap_threshold(apx.similarity2_plain(ops), th)
+    out, usage = apx.denom_readout(ops, geom, seg, rmax, th, values)
+    ref, ref_usage = apx.denom_readout_plain(ops, geom, seg, rmax, th,
+                                             values)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(usage, ref_usage, rtol=1e-4, atol=1e-4)
+
+
+def test_attend_approx_kernels_match_plain(dev):
+    qk, qe, mk, ms, valid = _inputs(dev, 9, 1300, 300, n_valid=1100)
+    values = torch.randn((1300, 2, 32), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    rings = [(mk[:512], ms[:512], values[:512], valid[:512]),
+             (mk[512:], ms[512:], values[512:], valid[512:])]
+    ak.reset_launch_counts()
+    out, usage = apx.attend_approx_multi(rings, qk, qe, 12,
+                                         return_usage=True)
+    assert ak.LAUNCHES == {"sim_topk": 0, "topk_readout": 0, "segmax": 1,
+                           "denom_readout": 1}
+    ref, ref_usage = apx.attend_approx_multi_plain(rings, qk, qe, 12,
+                                                   return_usage=True)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    for u, r in zip(usage, ref_usage):
+        torch.testing.assert_close(u, r, rtol=1e-4, atol=1e-5)
+
+
+def test_approx_support_contains_exact_top_k_with_ties(dev):
+    """A ring of 50 tokens copied 60 times: every row's support holds all
+    60 copies of its best token (> 4k entries) and the exact top-k."""
+    rng = np.random.default_rng(10)
+    base = torch.from_numpy(rng.standard_normal((50, 64)).astype(
+        np.float32)).to(dev)
+    mk = base.repeat(60, 1)
+    qk, qe, _, _, _ = _inputs(dev, 11, 10, 200)
+    ops = apx.prep2(qk, qe, mk, None, None)
+    geom = apx.Geometry.of(mk.shape[0], 512)
+    _, th = apx.threshold(apx.segmax(ops, geom), 12)
+    _, gi = ak.sim_topk(qk, qe, mk, None, None, 12)
+    assert bool((apx.sim2_at(ops, gi) >= th).all())
+    values = torch.randn((3000, 1, 16), device=dev)
+    out = apx.attend_approx(mk, None, values, qk, qe, 12)
+    ref = apx.attend_approx_multi_plain([(mk, None, values, None)], qk, qe,
+                                        12)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_approx_kernels_reject_what_they_do_not_take(dev):
+    ops = _approx_operands(dev, 12, 300, 10, ck=6)  # qcat width 12: fine
+    apx.segmax(ops, apx.Geometry.of(300, 512))
+    bad = _approx_operands(dev, 12, 300, 10, ck=5)  # width 10: not /4
+    with pytest.raises(ValueError):
+        apx.segmax(bad, apx.Geometry.of(300, 512))
+    with pytest.raises(ValueError):
+        apx.segmax(ops._replace(mcat=ops.mcat.cpu()),
+                   apx.Geometry.of(300, 512))
+    with pytest.raises(TypeError):
+        apx.segmax(ops._replace(qcat=ops.qcat.double()),
+                   apx.Geometry.of(300, 512))

@@ -47,7 +47,8 @@ def _read_pngs(out_dir):
                    for n in names]
 
 
-def test_eval_vos_torch_matches_eval_vos(tmp_path):
+def _weights(tmp_path) -> str:
+    """A seeded port model, as a deva_tpu .npz export."""
     net = init_weights(DEVANetwork(), seed=3)
     variables = convert_torch_statedict(
         {k: v.numpy() for k, v in net.state_dict().items()})
@@ -63,14 +64,10 @@ def test_eval_vos_torch_matches_eval_vos(tmp_path):
     flatten(variables, ())
     weights = str(tmp_path / "weights.npz")
     np.savez(weights, **flat)
+    return weights
 
-    common = ["--dataset", "G", "--generic_path", CLIP, "--size", "120",
-              "--model", weights]
-    _run("eval_vos.py", *common, "--output", str(tmp_path / "jax"))
-    out = _run("eval_vos_torch.py", *common, "--output",
-               str(tmp_path / "torch"), "--device", "cpu")
-    assert "FPS:" in out
 
+def _compare_pngs(tmp_path):
     names_j, masks_j = _read_pngs(tmp_path / "jax")
     names_t, masks_t = _read_pngs(tmp_path / "torch")
     assert names_t == names_j == ["00000.png", "00001.png", "00002.png",
@@ -80,6 +77,29 @@ def test_eval_vos_torch_matches_eval_vos(tmp_path):
         assert set(np.unique(mt)) <= {0, 1, 2}
         agree = (mj == mt).mean()
         assert agree >= 0.99, f"label agreement {agree}"
+
+
+def test_eval_vos_torch_matches_eval_vos(tmp_path):
+    common = ["--dataset", "G", "--generic_path", CLIP, "--size", "120",
+              "--model", _weights(tmp_path)]
+    _run("eval_vos.py", *common, "--output", str(tmp_path / "jax"))
+    out = _run("eval_vos_torch.py", *common, "--output",
+               str(tmp_path / "torch"), "--device", "cpu")
+    assert "FPS:" in out
+    _compare_pngs(tmp_path)
+
+
+def test_eval_vos_torch_chunk_matches_eval_vos_chunk(tmp_path):
+    """--chunk 4: both drivers step the maskless frames through step_chunk
+    (the clip's three propagated frames in one chunk that ends the video)."""
+    weights = _weights(tmp_path)
+    common = ["--dataset", "G", "--generic_path", CLIP, "--size", "120",
+              "--model", weights, "--chunk", "4"]
+    _run("eval_vos.py", *common, "--output", str(tmp_path / "jax"))
+    out = _run("eval_vos_torch.py", *common, "--output",
+               str(tmp_path / "torch"), "--device", "cpu")
+    assert "Total processed frames: 4" in out
+    _compare_pngs(tmp_path)
 
 
 def test_eval_vos_torch_refuses_missing_cuda(tmp_path):

@@ -158,10 +158,19 @@ def test_full_softmax_matches():
     np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-7)
 
 
-def test_approx_method_is_not_ported():
-    sim = torch.zeros((2, 40))
-    with pytest.raises(NotImplementedError, match="B3/B4"):
-        tma.topk_softmax(sim, 5, method="approx")
+@pytest.mark.parametrize("method", ["approx", "exact", "auto"])
+def test_topk_method_runs_and_unknown_method_raises(method):
+    """Every top-k method of deva_tpu runs, in topk_softmax and through the
+    config; an unknown one raises in both."""
     from deva_tpu_torch.config import InferenceConfig
-    with pytest.raises(NotImplementedError, match="B3/B4"):
-        InferenceConfig(topk_method="approx").resolve_topk_method()
+    sim = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (3, 40)).astype(np.float32))
+    aff = tma.topk_softmax(sim, 5, method=method)
+    assert torch.allclose(aff.sum(-1), torch.ones(3))
+    assert int((aff > 0).sum(-1).min()) >= 5
+    want = "approx" if method == "approx" else "exact"
+    assert InferenceConfig(topk_method=method).resolve_topk_method() == want
+    with pytest.raises(ValueError, match="unknown"):
+        tma.topk_softmax(sim, 5, method="fastest")
+    with pytest.raises(ValueError, match="unknown"):
+        InferenceConfig(topk_method="fastest").resolve_topk_method()
