@@ -8,12 +8,13 @@ InferenceCore.step_chunk with threshold-approx top-k) on the card.
 Phases (any failure raises and the script exits non-zero):
 1. Each of the four kernels against its plain PyTorch twin on the card, at
    the 480p main-path shapes (Q=1620 queries, Ck=64, k=30, C=2*512 value
-   columns, N in {1620, 8100, 512+16200} ring tokens with partial validity
-   masks), with times from CUDA events. Exact pair: plus a ring of
-   duplicated tokens for tie order. Approx pair: plus a ring of duplicated
-   tokens whose tied group maxima admit more than 4k entries, rows with
-   fewer valid tokens than k and with none, and a check that every row's
-   support contains the exact top-k of sim_topk.
+   columns, N in {1620, 3240, 6480, 8100, 512+16200} ring tokens with the
+   validity masks the memory engine gives them), with device times from
+   CUDA events. Exact pair: plus a ring of duplicated tokens for tie
+   order, and sim_topk's host time per call. Approx pair: plus a ring of
+   duplicated tokens whose tied group maxima admit more than 4k entries,
+   rows with fewer valid tokens than k and with none, and a check that
+   every row's support contains the exact top-k of sim_topk.
 2. The slice on the card against the slice on the CPU (the plain twins),
    seeded weights, long-term memory on, probabilities within 5e-3: with
    exact top-k on 8 frames of the 64x96 synthetic video of
@@ -70,30 +71,55 @@ KERNELS = {
     "denom_readout": ("deva_tpu_torch/csrc/denom_readout.cu",
                       "deva_tpu/ops/pallas_attention.py:491"),
 }
-RING_CASES = (1620, 8100, 16712)  # ring tokens of phase 1
+# ring tokens of phase 1: the working ring grows 1620 -> 3240 -> 6480 as
+# memory frames arrive, and with long-term memory it is read beside 512
+# long-term slots
+RING_CASES = (1620, 3240, 6480, 8100, 16712)
 
 
 def ring_validity(n, dev):
     """Validity of each phase-1 ring, as the memory engine lays them out."""
     ar = lambda m: torch.arange(m, device=dev)
     return {1620: ar(1620) < 1620,                  # one memory frame
+            3240: ar(3240) < 3240,                  # two, full
+            6480: ar(6480) < 4860,                  # three of four
             8100: ar(8100) < 6480,                  # working ring, 4/5 full
             16712: torch.cat([ar(512) < 128,        # [long-term ; working]
                               ar(16200) < 9720])}[n]
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
-    """Mean device time of fn() in ms over `iters` runs, after a warm-up."""
+def cuda_ms(fn, iters: int = 20, windows: int = 3) -> float:
+    """Device time of fn() in ms: the mean over `iters` runs, after a
+    warm-up, in the fastest of `windows` windows. A sleeping kernel ahead of
+    each window lets the host queue its runs before the first starts, so
+    host time per call does not enter. A host stall longer than the sleep
+    would, hence the fastest window."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
+    best = float("inf")
+    for _ in range(windows):
+        torch.cuda._sleep(5_000_000)  # ~2.5 ms at the H100's boost clock
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Host time of one fn() call in us: `calls` calls with no sync."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 # --------------------------------------------------------------------------
@@ -148,6 +174,9 @@ def phase_kernels(ak, dev) -> dict:
                 mk, ms, values, qk, qe, k, valid, True)),
         }
         times[n] = t
+        print(f"phase 1 N={n}: sim_topk host us per call "
+              f"{host_us(lambda: ak.sim_topk(qk, qe, mk, ms, valid, k)):.1f}"
+              f" (device {t['sim_topk'] * 1000:.1f})", flush=True)
         print(f"phase 1 N={n}: sim_topk err {(gv - rv).abs().max().item():.3g}"
               f" idx-mismatch {mism:.2e}; readout err "
               f"{(out - ref).abs().max().item():.3g}; usage err "

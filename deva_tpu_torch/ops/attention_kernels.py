@@ -81,33 +81,58 @@ def sim_topk_plain(qk, qe, mk, ms, valid, top_k: int):
     return values, indices.to(torch.int32)
 
 
-@functools.lru_cache(maxsize=1)
-def _sim_topk_limits():
-    from deva_tpu_torch.ops import cuda_build
-    vals = [ctypes.c_int() for _ in range(5)]
-    cuda_build.load().deva_sim_topk_limits(*[ctypes.byref(v) for v in vals])
-    return [v.value for v in vals]  # qt, nt, ck_max, k_max, max_splits
+# tiles and bounds of csrc/sim_topk.cu (tests/test_torch_sim_topk_plan.py
+# holds them to the source): queries per block, tokens per tile, key
+# channels, k, token-axis splits
+QT, NT, CK_MAX, K_MAX, MAX_SPLITS = 64, 64, 64, 64, 32
+# the fewest tiles a split of the token axis may hold (see _sim_topk_plan)
+MIN_SPLIT_TILES = 3
 
 
-def _sim_topk_cuda(qk, qe, mk, ms, valid, top_k: int):
+def _sim_topk_plan(q: int, n: int, k: int, sms: int):
+    """(splits, split_len) of the token axis for sim_topk's selection kernel.
+    Each split is a run of whole NT-token tiles, the last one possibly
+    short; together they cover n and none is empty. The plan aims at about
+    2.25 blocks of QT queries per SM (of `sms`), but gives no split fewer
+    than MIN_SPLIT_TILES tiles: the first tiles of every split take a full
+    sort per row, so short splits multiply the selection work. Set from a
+    sweep on the H100 at q=1620, k=30 (PERF.md): at each ring size it is
+    within 5% of the fastest plan. k does not enter the rule."""
+    n_tiles = -(-n // NT)
+    q_tiles = -(-q // QT)
+    target = min(MAX_SPLITS, -(-9 * sms // (4 * q_tiles)))
+    split_len = max(MIN_SPLIT_TILES, -(-n_tiles // target)) * NT
+    return -(-n // split_len), split_len
+
+
+def msv_divisor(ck: int) -> float:
+    """The f32 divisor of msv = ms / d: what torch's `ms / math.sqrt(ck)`
+    divides an f32 tensor by (the Python float rounded to f32)."""
+    return ctypes.c_float(math.sqrt(ck)).value
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sim_topk_cuda(qk, qe, mk, ms, valid, top_k: int, plan=None):
     """Launches csrc/sim_topk.cu, the port of the Pallas `_sim_topk_kernel`
-    and its candidate merge (deva_tpu/ops/pallas_attention.py:177-242). It
-    is bound by the f32 FFMA rate and shared-memory traffic (2*Q*N*Ck FFMAs,
-    no TF32); it keeps a running top-k per query in shared memory instead
-    of writing [Q, N] similarities, and splits the token axis across blocks
-    to fill the SMs (see the source note)."""
-    from deva_tpu_torch.ops import cuda_build
-    lib = cuda_build.load()
-    qt, nt, ck_max, k_max, max_splits = _sim_topk_limits()
+    and its candidate merge (deva_tpu/ops/pallas_attention.py:177-242): a
+    selection kernel and a merge kernel, and no other device work. It is
+    bound by the f32 FFMA rate (2*Q*N*Ck FFMAs, no TF32) and by the
+    selection; it keeps a running top-k per query in shared memory, merges
+    each tile into it with warp-wide bitonic or rank merges, and splits the
+    token axis across blocks by `plan` ((splits, split_len), by default
+    _sim_topk_plan's; see the source note)."""
     q, ck = qk.shape
     n = mk.shape[0]
-    if ck > ck_max:
-        raise ValueError(f"sim_topk: key dim {ck} > {ck_max}")
-    if not 1 <= top_k <= k_max:
-        raise ValueError(f"sim_topk: top_k={top_k} outside [1, {k_max}]")
+    if ck > CK_MAX:
+        raise ValueError(f"sim_topk: key dim {ck} > {CK_MAX}")
+    if not 1 <= top_k <= K_MAX:
+        raise ValueError(f"sim_topk: top_k={top_k} outside [1, {K_MAX}]")
     if n < top_k:
         raise ValueError(f"sim_topk: {n} tokens < top_k={top_k}")
-    dev = qk.device
     f32 = torch.float32
     _require(qk, "qk", f32, (q, ck))
     _require(mk, "mk", f32, (n, ck))
@@ -117,42 +142,25 @@ def _sim_topk_cuda(qk, qe, mk, ms, valid, top_k: int):
         _require(ms, "ms", f32, (n,))
     if valid is not None:
         _require(valid, "valid", torch.bool, (n,))
-
-    # per-row and per-token terms, as in pallas_attention._prep_inputs
-    if qe is not None:
-        qkqe = (qk * qe).contiguous()
-        bsq = torch.sum(qe * qk * qk, dim=-1).contiguous()
-        msq = None
-    else:
-        qkqe = qk
-        bsq = torch.zeros((q,), dtype=f32, device=dev)
-        msq = torch.sum(mk * mk, dim=-1).contiguous()
-    # divided, not multiplied by a reciprocal: the same rounding as the plain
-    # path's sim * (ms / sqrt(ck))
-    msv = (ms / math.sqrt(ck)).contiguous() if ms is not None else \
-        torch.full((n,), 1.0 / math.sqrt(ck), dtype=f32, device=dev)
-    valid_u8 = valid.view(torch.uint8) if valid is not None else None
-
-    # split the token axis so that about two blocks per SM are in flight
-    n_tiles = -(-n // nt)
-    q_tiles = -(-q // qt)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = max(1, min(max_splits, n_tiles, -(-2 * sms // q_tiles)))
-    split_len = -(-n_tiles // splits) * nt
-    splits = -(-n // split_len)
-
-    cand_v = torch.empty((splits, q, top_k), dtype=f32, device=dev)
-    cand_i = torch.empty((splits, q, top_k), dtype=torch.int32, device=dev)
-    out_v = torch.empty((q, top_k), dtype=f32, device=dev)
-    out_i = torch.empty((q, top_k), dtype=torch.int32, device=dev)
+        valid = valid.view(torch.uint8)
+    from deva_tpu_torch.ops import cuda_build
+    lib = cuda_build.load()
+    dev = qk.device
+    splits, split_len = plan or _sim_topk_plan(q, n, top_k,
+                                               _sm_count(dev.index))
+    # two allocations: the output pair (values as f32 bits) and the
+    # per-split lists
+    out = torch.empty((2, q, top_k), dtype=torch.int32, device=dev)
+    scratch = torch.empty((splits, q, top_k, 2), dtype=torch.int32,
+                          device=dev)
     err = lib.deva_sim_topk(
-        _ptr(qkqe), _ptr(qe), _ptr(bsq), _ptr(mk), _ptr(msq), _ptr(msv),
-        _ptr(valid_u8), q, n, ck, top_k, splits, split_len, _ptr(cand_v),
-        _ptr(cand_i), _ptr(out_v), _ptr(out_i), _stream(dev))
+        _ptr(qk), _ptr(qe), _ptr(mk), _ptr(ms), _ptr(valid), q, n, ck, top_k,
+        splits, split_len, msv_divisor(ck), _ptr(scratch), _ptr(out[0]),
+        _ptr(out[1]), _stream(dev))
     if err != 0:
         raise RuntimeError(f"sim_topk kernel launch failed: CUDA error {err}")
     LAUNCHES["sim_topk"] += 1
-    return out_v, out_i
+    return out[0].view(f32), out[1]
 
 
 def sim_topk(qk: torch.Tensor, qe: Optional[torch.Tensor], mk: torch.Tensor,

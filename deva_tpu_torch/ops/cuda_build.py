@@ -25,11 +25,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of each exported function (all return a CUDA error code)
 _SIGNATURES = {
-    "deva_sim_topk_limits": [_P, _P, _P, _P, _P],
-    "deva_sim_topk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _P, _P, _P, _P, _P],
+    "deva_sim_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
+                      _P, _P, _P],
     "deva_topk_readout": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "deva_segmax": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "deva_denom_readout": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -109,6 +109,73 @@ def test_attend_topk_kernels_match_plain(dev):
     torch.testing.assert_close(usage, ref_usage, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("with_qe", [True, False])
+@pytest.mark.parametrize("k", [1, 30, 32, 33, 64])
+def test_sim_topk_kernel_matches_plain_at_k(dev, k, with_qe):
+    """k on both sides of a lane's two list entries (32) and at the bound,
+    with and without a selection; Q and N are not multiples of the tiles."""
+    qk, qe, mk, ms, valid = _inputs(dev, 13, 1000, 100, n_valid=900,
+                                    with_qe=with_qe)
+    ref_v, ref_i = ak.sim_topk_plain(qk, qe, mk, ms, valid, k)
+    gv, gi = ak.sim_topk(qk, qe, mk, ms, valid, k)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(gv, ref_v, rtol=1e-5, atol=1e-5)
+    mism = (gi != ref_i).float().mean().item()
+    assert mism < 1e-3, f"index mismatch share {mism}"
+
+
+@pytest.mark.parametrize("n,q,k", [(65, 1, 30), (1, 65, 1), (130, 127, 64),
+                                   (4033, 70, 30)])
+def test_sim_topk_kernel_ragged_shapes(dev, n, q, k):
+    """A ring of one token past a tile, of one token, and rows past a query
+    tile: the partial tiles take no part and every row is right."""
+    qk, qe, mk, ms, valid = _inputs(dev, 14, n, q)
+    ref_v, ref_i = ak.sim_topk_plain(qk, qe, mk, ms, valid, k)
+    gv, gi = ak.sim_topk(qk, qe, mk, ms, valid, k)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(gv, ref_v, rtol=1e-5, atol=1e-5)
+    mism = (gi != ref_i).float().mean().item()
+    assert mism < 1e-3, f"index mismatch share {mism}"
+    assert int(gi.min()) >= 0 and int(gi.max()) < n
+
+
+def test_sim_topk_kernel_result_does_not_depend_on_the_plan(dev):
+    """One split against the most splits, on a ring of 100 tokens copied 30
+    times: every tie crosses split boundaries, and both plans give bitwise
+    the same values and indices, with ties to the lowest index."""
+    rng = np.random.default_rng(15)
+    base = rng.standard_normal((100, 64)).astype(np.float32)
+    mk = torch.from_numpy(np.tile(base, (30, 1))).to(dev)  # 3000 tokens
+    ms = torch.from_numpy(np.tile(rng.uniform(1, 4, 100).astype(np.float32),
+                                  30)).to(dev)
+    qk, qe, _, _, _ = _inputs(dev, 16, 10, 200)
+    n_tiles = -(-3000 // ak.NT)
+    most_len = -(-n_tiles // ak.MAX_SPLITS) * ak.NT
+    plans = [(1, n_tiles * ak.NT), (-(-3000 // most_len), most_len)]
+    assert plans[1][0] > 20
+    (v1, i1), (v2, i2) = [ak._sim_topk_cuda(qk, qe, mk, ms, None, 45,
+                                            plan=plan) for plan in plans]
+    torch.cuda.synchronize()
+    assert torch.equal(v1, v2) and torch.equal(i1, i2)
+    assert torch.equal(i1, ak.sim_topk_plain(qk, qe, mk, ms, None, 45)[1])
+
+
+def test_sim_topk_is_two_device_kernels(dev):
+    """One call runs the selection and the merge kernel and no other device
+    work (the preparation is inside the kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    qk, qe, mk, ms, valid = _inputs(dev, 17, 5000, 300, n_valid=4000)
+    ak.sim_topk(qk, qe, mk, ms, valid, 30)  # build and load first
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ak.sim_topk(qk, qe, mk, ms, valid, 30)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    assert len(names) == 2, names
+    assert "sim_topk_split_kernel" in names[0], names
+    assert "sim_topk_merge_kernel" in names[1], names
+
+
 def test_kernels_reject_what_they_do_not_take(dev):
     qk, qe, mk, ms, valid = _inputs(dev, 6, 300, 10)
     with pytest.raises(ValueError):
@@ -117,6 +184,8 @@ def test_kernels_reject_what_they_do_not_take(dev):
         ak.sim_topk(qk, qe, mk.cpu(), ms, valid, 8)  # mixed devices
     with pytest.raises(TypeError):
         ak.sim_topk(qk.double(), qe, mk, ms, valid, 8)
+    with pytest.raises(RuntimeError):  # a plan that does not cover N
+        ak._sim_topk_cuda(qk, qe, mk, ms, valid, 8, plan=(1, ak.NT))
 
 
 # --------------------------------------------------------------------------
