@@ -10,11 +10,18 @@ Phases (any failure raises and the script exits non-zero):
    the 480p main-path shapes (Q=1620 queries, Ck=64, k=30, C=2*512 value
    columns, N in {1620, 3240, 6480, 8100, 512+16200} ring tokens with the
    validity masks the memory engine gives them), with device times from
-   CUDA events. Exact pair: plus a ring of duplicated tokens for tie
-   order, and sim_topk's host time per call. Approx pair: plus a ring of
-   duplicated tokens whose tied group maxima admit more than 4k entries,
-   rows with fewer valid tokens than k and with none, and a check that
-   every row's support contains the exact top-k of sim_topk.
+   CUDA events, each beside its bound (`bound`: the larger of its f32
+   operations over 67 TFLOP/s and the bytes it must move over 3.35 TB/s,
+   counted from this run's inputs), topk_readout beside the one PyTorch
+   call with its function (embedding_bag, never used by the port), and
+   sim_topk and segmax beside cuBLAS's f32 product of their operands.
+   Exact pair: plus a ring of duplicated tokens for tie order, and
+   sim_topk's host time per call. Approx pair: segmax bitwise the max of
+   sim2_at over each group on sampled rows; denom_readout's rmax and th
+   bitwise `threshold` (torch.topk); plus a ring of duplicated tokens whose
+   tied group maxima admit more than 4k entries, rows with fewer valid
+   tokens than k and with none, and a check that every row's support
+   contains the exact top-k of sim_topk.
 2. The slice on the card against the slice on the CPU (the plain twins),
    seeded weights, long-term memory on, probabilities within 5e-3: with
    exact top-k on 8 frames of the 64x96 synthetic video of
@@ -43,8 +50,10 @@ Phases (any failure raises and the script exits non-zero):
 
 The second-to-last line of output is a JSON object with each kernel's
 launches (phase 3 for the exact pair, phase 4 for the approx pair), largest
-error against its plain twin and times at N=16712; the last line is
-{"ok": true, "device": {...}}. Exits non-zero without CUDA.
+error against its plain twin, and its time, its plain twin's, its bound and
+what sets it, the library call's (null where no single call computes the
+function) and the product's (null where none applies) at N=16712; the last
+line is {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
 from __future__ import annotations
 
@@ -75,6 +84,17 @@ KERNELS = {
 # memory frames arrive, and with long-term memory it is read beside 512
 # long-term slots
 RING_CASES = (1620, 3240, 6480, 8100, 16712)
+# NVIDIA H100 SXM data sheet: f32 FFMA peak outside the tensor cores, and
+# HBM3 bandwidth (both at the 700 W limit)
+F32_FLOPS, HBM_BYTES = 67e12, 3.35e12
+
+
+def bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the least time the card could take for work of
+    `flops` f32 operations that must move `nbytes` bytes (each input read
+    once, each output written once), and which of the two sets it."""
+    t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def ring_validity(n, dev):
@@ -126,14 +146,14 @@ def host_us(fn, calls: int = 100) -> float:
 # phase 1: kernels against their plain twins
 # --------------------------------------------------------------------------
 
-def phase_kernels(ak, dev) -> dict:
+def phase_kernels(ak, apx, dev) -> dict:
     q, ck, k, c = 1620, 64, 30, 2 * 512
     gen = torch.Generator(device=dev).manual_seed(0)
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
     rand = lambda *s: torch.rand(s, generator=gen, device=dev)
     qk, qe = randn(q, ck), rand(q, ck)
     err = {"sim_topk": 0.0, "topk_readout": 0.0}
-    times = {}
+    times, bounds = {}, {}
     for n in RING_CASES:
         valid = ring_validity(n, dev)
         mk, ms = randn(n, ck), 1 + 3 * rand(n)
@@ -155,11 +175,27 @@ def phase_kernels(ak, dev) -> dict:
         err["topk_readout"] = max(err["topk_readout"],
                                   (out - ref).abs().max().item())
 
+        # the library call with topk_readout's function (never used by the
+        # port): one bag of k weighted rows per query
+        gl = gi.long()
+        bag = torch.nn.functional.embedding_bag(gl, v2, mode="sum",
+                                                per_sample_weights=w)
+        torch.testing.assert_close(bag, ref, rtol=1e-4, atol=1e-4)
+        # cuBLAS's f32 product of the one-product similarity's operands: the
+        # reference for sim_topk's FFMA part, not for its whole function
+        ops2 = apx.prep2(qk, qe, mk, ms, valid)
+
         o, u = ak.attend_topk(mk, ms, values, qk, qe, k, valid, True)
         ro, ru = ak.attend_topk_plain(mk, ms, values, qk, qe, k, valid, True)
         torch.testing.assert_close(o, ro, rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(u, ru, rtol=1e-4, atol=1e-4)
 
+        rows = int(torch.unique(gi).numel())  # value rows the readout needs
+        bounds[n] = {
+            "sim_topk": bound(4 * q * n * ck, 4 * (2 * q * ck + n * ck + n)
+                              + n + 8 * q * k),
+            "topk_readout": bound(2 * q * k * c, 8 * q * k + 4 * rows * c
+                                  + 4 * q * c)}
         t = {
             "sim_topk": cuda_ms(lambda: ak.sim_topk(qk, qe, mk, ms, valid,
                                                     k)),
@@ -168,6 +204,11 @@ def phase_kernels(ak, dev) -> dict:
             "topk_readout": cuda_ms(lambda: ak.topk_readout(gi, w, v2)),
             "topk_readout_plain": cuda_ms(
                 lambda: ak.topk_readout_plain(gi, w, v2)),
+            "topk_readout_library": cuda_ms(
+                lambda: torch.nn.functional.embedding_bag(
+                    gl, v2, mode="sum", per_sample_weights=w)),
+            "sim_topk_product": cuda_ms(
+                lambda: torch.mm(ops2.qcat, ops2.mcat.T)),
             "attend_topk": cuda_ms(lambda: ak.attend_topk(
                 mk, ms, values, qk, qe, k, valid, True)),
             "attend_topk_plain": cuda_ms(lambda: ak.attend_topk_plain(
@@ -181,7 +222,10 @@ def phase_kernels(ak, dev) -> dict:
               f" idx-mismatch {mism:.2e}; readout err "
               f"{(out - ref).abs().max().item():.3g}; usage err "
               f"{(u - ru).abs().max().item():.3g}; ms " +
-              ", ".join(f"{name} {v:.4f}" for name, v in t.items()),
+              ", ".join(f"{name} {v:.4f}" for name, v in t.items()) +
+              f"; readout rows {rows}; bound ms " +
+              ", ".join(f"{name} {b:.4f} ({by})"
+                        for name, (b, by) in bounds[n].items()),
               flush=True)
 
     # ties: 10 copies of 1620 tokens; for each query the exact top-30 is the
@@ -199,7 +243,7 @@ def phase_kernels(ak, dev) -> dict:
                                rtol=1e-5, atol=1e-5)
     print("phase 1 ties: duplicated ring of 16200 tokens resolves to the "
           "lowest index", flush=True)
-    return {"err": err, "times": times}
+    return {"err": err, "times": times, "bounds": bounds}
 
 
 def check_composite(apx, rings, qk, qe, k, eps: float, label: str):
@@ -234,14 +278,39 @@ def check_composite(apx, rings, qk, qe, k, eps: float, label: str):
     return out
 
 
-def support_check(ak, apx, mk, ms, valid, qk, qe, k, n_tile=512):
+def same_bits(a, b) -> bool:
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def check_segmax_bits(apx, ops, geom, seg, rows):
+    """segmax at query rows `rows` is bitwise the max, over each group's
+    members, of sim2_at (the fmaf chain denom_readout recomputes); padded
+    tokens are -inf."""
+    sub = ops._replace(qcat=ops.qcat[rows].contiguous(),
+                       bsq=None if ops.bsq is None else
+                       ops.bsq[rows].contiguous())
+    idx = torch.arange(geom.tiles * geom.n_tile, dtype=torch.int32,
+                       device=seg.device).expand(len(rows), -1).contiguous()
+    at = apx.sim2_at(sub, idx).reshape(len(rows), geom.tiles, geom.group,
+                                       geom.width)
+    ref = at.amax(2).reshape(len(rows), geom.nseg)
+    assert same_bits(seg[rows], ref), "segmax is not the max of sim2_at"
+
+
+def support_check(ak, apx, mk, ms, valid, values2d, qk, qe, k, n_tile=512):
     """The kernels' support contains the exact top-k: at every exact top-k
     token of sim_topk, the pair's similarity (the float the kernels compare)
-    is at least the kernel threshold. Returns the support sizes per row of
-    the plain twin, for the record."""
+    is at least the threshold denom_readout used, and that threshold and
+    its row max are bitwise `threshold` of the group maxima. Returns the
+    support sizes per row of the plain twin, for the record."""
     ops = apx.prep2(qk, qe, mk, ms, valid)
     geom = apx.Geometry.of(mk.shape[0], n_tile)
-    _, th = apx.threshold(apx.segmax(ops, geom), k)
+    seg = apx.segmax(ops, geom)
+    _, _, rmax, th = apx.denom_readout(ops, geom, seg, values2d, k)
+    rmax_ref, th_ref = apx.threshold(seg, k)
+    assert same_bits(th, th_ref) and same_bits(rmax, rmax_ref), \
+        "denom_readout's rmax or th differs from threshold()"
     _, gi = ak.sim_topk(qk, qe, mk, ms, valid, k)
     at = apx.sim2_at(ops, gi)
     torch.cuda.synchronize()
@@ -254,6 +323,7 @@ def support_check(ak, apx, mk, ms, valid, qk, qe, k, n_tile=512):
 def phase_approx_kernels(ak, apx, dev) -> dict:
     """segmax, denom_readout and attend_approx_multi against their twins."""
     q, ck, k, o, cv = 1620, 64, 30, 2, 512
+    c, kc = o * cv, 2 * ck
     n_tile = apx.default_n_tile(o * cv, 4)
     assert n_tile == 512
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -262,11 +332,12 @@ def phase_approx_kernels(ak, apx, dev) -> dict:
     qk, qe = randn(q, ck), rand(q, ck)
     eps = 1e-3  # well above the kernel-vs-matmul rounding of sim (~1e-5)
     err = {"segmax": 0.0, "denom_readout": 0.0}
-    times = {}
+    times, bounds = {}, {}
+    sample = torch.randperm(q, generator=gen, device=dev)[:64]
     for n in RING_CASES:
         valid = ring_validity(n, dev)
         mk, ms, values = randn(n, ck), 1 + 3 * rand(n), randn(n, o, cv)
-        v2 = values.reshape(n, o * cv)
+        v2 = values.reshape(n, c)
         ops = apx.prep2(qk, qe, mk, ms, valid)
         geom = apx.Geometry.of(n, n_tile)
         assert geom.group == 4 and geom.width == 128
@@ -280,13 +351,17 @@ def phase_approx_kernels(ak, apx, dev) -> dict:
                                    atol=1e-5)
         err["segmax"] = max(err["segmax"],
                             (seg[fin] - seg_ref[fin]).abs().max().item())
+        check_segmax_bits(apx, ops, geom, seg, sample)
 
         rmax, th = apx.threshold(seg, k)
-        th_gap = apx.gap_threshold(apx.similarity2_plain(ops), th, eps)
-        out, usage = apx.denom_readout(ops, geom, seg, rmax, th_gap, v2)
+        sim = apx.similarity2_plain(ops)
+        th_gap = apx.gap_threshold(sim, th, eps)
+        out, usage, rmax_k, th_k = apx.denom_readout(ops, geom, seg, v2, k,
+                                                     th_gap)
         ref, ref_usage = apx.denom_readout_plain(ops, geom, seg, rmax,
                                                  th_gap, v2)
         torch.cuda.synchronize()
+        assert same_bits(rmax_k, rmax) and same_bits(th_k, th_gap)
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(usage, ref_usage, rtol=1e-4, atol=1e-4)
         err["denom_readout"] = max(err["denom_readout"],
@@ -297,15 +372,30 @@ def phase_approx_kernels(ak, apx, dev) -> dict:
             [(mk[:512], ms[:512], values[:512], valid[:512]),
              (mk[512:], ms[512:], values[512:], valid[512:])]
         check_composite(apx, rings, qk, qe, k, eps, f"N={n}")
-        sizes = support_check(ak, apx, mk, ms, valid, qk, qe, k)
+        sizes = support_check(ak, apx, mk, ms, valid, v2, qk, qe, k)
 
+        # the support of the plain twin at the kernel's threshold: the
+        # entries whose similarity and value row the readout needs
+        support = (sim >= th) & torch.isfinite(sim)
+        entries = int(support.sum())
+        rows = int(support.any(0).sum())
+        bounds[n] = {
+            "segmax": bound(2 * q * n * kc, 4 * (q * kc + n * kc + n + q)
+                            + n + 4 * q * geom.nseg),
+            "denom_readout": bound(
+                2 * entries * (kc + c),
+                4 * q * (geom.nseg + kc + 1 + c) + rows * (4 * (c + kc + 1)
+                                                           + 1) + 4 * n)}
+        del sim, support
         t = {
             "segmax": cuda_ms(lambda: apx.segmax(ops, geom)),
             "segmax_plain": cuda_ms(lambda: apx.segmax_plain(ops, geom)),
+            "segmax_product": cuda_ms(lambda: torch.mm(ops.qcat,
+                                                       ops.mcat.T)),
             "denom_readout": cuda_ms(lambda: apx.denom_readout(
-                ops, geom, seg, rmax, th, v2)),
-            "denom_readout_plain": cuda_ms(lambda: apx.denom_readout_plain(
-                ops, geom, seg, rmax, th, v2)),
+                ops, geom, seg, v2, k)),
+            "denom_readout_plain": cuda_ms(lambda: apx._denom_readout_twin(
+                ops, geom, seg, v2, k)),
             "attend_approx_multi": cuda_ms(lambda: apx.attend_approx_multi(
                 rings, qk, qe, k, return_usage=True)),
             "attend_approx_multi_plain": cuda_ms(
@@ -313,12 +403,17 @@ def phase_approx_kernels(ak, apx, dev) -> dict:
                     rings, qk, qe, k, return_usage=True)),
         }
         times[n] = t
-        print(f"phase 1 N={n}: segmax err {err['segmax']:.3g}; "
-              f"denom_readout err {err['denom_readout']:.3g}; support "
-              f"min/median/max {int(sizes.min())}/"
+        print(f"phase 1 N={n}: segmax err {err['segmax']:.3g}, bitwise "
+              f"the max of sim2_at on {len(sample)} rows; denom_readout err "
+              f"{err['denom_readout']:.3g}, rmax and th bitwise threshold(); "
+              f"support min/median/max {int(sizes.min())}/"
               f"{int(sizes.median())}/{int(sizes.max())} (k={k}) holds "
-              f"the exact top-k; ms " +
-              ", ".join(f"{name} {v:.4f}" for name, v in t.items()),
+              f"the exact top-k; {entries} support entries over {rows} "
+              f"tokens; ms " +
+              ", ".join(f"{name} {v:.4f}" for name, v in t.items()) +
+              "; bound ms " +
+              ", ".join(f"{name} {b:.4f} ({by})"
+                        for name, (b, by) in bounds[n].items()),
               flush=True)
 
     # ties: 54 base tokens, 300 copies each; the tied group maxima admit
@@ -327,7 +422,8 @@ def phase_approx_kernels(ak, apx, dev) -> dict:
     mk = randn(base, ck).repeat(300, 1)
     ms = (1 + 3 * rand(base)).repeat(300)
     values = randn(base * 300, o, cv)
-    sizes = support_check(ak, apx, mk, ms, None, qk, qe, k)
+    sizes = support_check(ak, apx, mk, ms, None, values.reshape(-1, c), qk,
+                          qe, k)
     assert int(sizes.min()) > 4 * k, int(sizes.min())
     check_composite(apx, [(mk, ms, values, None)], qk, qe, k, eps,
                     "duplicated ring")
@@ -341,9 +437,12 @@ def phase_approx_kernels(ak, apx, dev) -> dict:
         ring = [(randn(n, ck), 1 + 3 * rand(n), randn(n, o, cv), valid)]
         out = check_composite(apx, ring, qk, qe, k, eps,
                               f"{n_valid} valid tokens")
+        mk_, ms_, values_, _ = ring[0]
+        support_check(ak, apx, mk_, ms_, valid, values_.reshape(n, c), qk,
+                      qe, k)
         if n_valid == 0:
             assert not bool(out.abs().gt(0).any()), "empty rows must be 0"
-    return {"err": err, "times": times}
+    return {"err": err, "times": times, "bounds": bounds}
 
 
 # --------------------------------------------------------------------------
@@ -652,7 +751,7 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: "
           f"{os.path.relpath(lib, ROOT)}", flush=True)
 
-    exact = phase_kernels(ak, dev)
+    exact = phase_kernels(ak, apx, dev)
     approx = phase_approx_kernels(ak, apx, dev)
     net_cpu = init_weights(DEVANetwork(), seed=0).eval()
     phase_slice_parity(ak, net_cpu, dev)
@@ -668,10 +767,14 @@ def main() -> int:
         res, runs = (exact, launches) if name in exact["err"] else \
             (approx, launches_approx)
         main_shape = res["times"][16712]
+        bound_ms, bound_by = res["bounds"][16712][name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": tpu, "launches": runs[name],
                      "max_abs_err": res["err"][name], "ms": main_shape[name],
-                     "plain_ms": main_shape[name + "_plain"]})
+                     "plain_ms": main_shape[name + "_plain"],
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": main_shape.get(name + "_library"),
+                     "product_ms": main_shape.get(name + "_product")})
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": rows}))

@@ -15,39 +15,74 @@
 // decides the threshold, so it is reproduced exactly (segmax_plain in
 // ops/approx_kernels.py builds the same one).
 //
-// What bounds it on the H100: like sim_topk, the f32 FFMA rate and the
-// shared-memory traffic of the register tiles. At the 480p serving shape
-// (Q=1620, N=16712 padded to 16896, kc=128) it is 3.5 G FFMA in true f32;
-// the operands (8.7 MB of mcat) stay in L2, and the output is 27 MB.
+// What bounds it on the H100: the f32 FFMA rate. At the 480p serving shape
+// (Q=1620, N=16712 padded to 16896, kc=128) it is 3.5 G FFMA (6.9 GFLOP,
+// 0.103 ms at 67 TFLOP/s) in true f32; the operands (8.7 MB of mcat) stay in
+// L2, and the output is 27 MB.
 //
-// Design: a block owns 64 queries and 64 consecutive group columns of one
-// tile. For each of the 2^folds members j of its groups it stages the 64
-// tokens tile*n_tile + j*W + [w0, w0+64) in shared memory (channel-major,
-// rows padded by 4 floats against bank conflicts), computes a 64x64 block
-// of similarities with 4x4 register tiles per thread, and keeps the running
-// max in registers, so the fold costs no memory traffic. The similarity is
-// built by sim2.cuh, shared with denom_readout.cu.
+// Design, SGEMM-shaped: a block of 256 threads owns 128 queries and 64
+// consecutive group columns of one tile; each thread keeps a 4x8 register
+// tile (queries ty + 32i, group columns tx + 8j), 12 16-byte shared loads
+// per 128 FFMA. The qcat tile (all kc channels) is staged once and serves
+// every member of the groups. mcat is staged token-major in chunks of KCH
+// channels, double-buffered with cp.async: stage s+1 (the next chunk, or the
+// next member's first) loads while stage s runs its FFMA. Both tiles are
+// read as float4 along the channels, and their rows are padded so the
+// 8-lane phases of a 16-byte shared load hit distinct banks. After a
+// member's last chunk, each similarity is finished and folded into the
+// running group max in registers. ~106 KB of shared memory and 117
+// registers a thread: two blocks, 16 warps, per SM. The tile constants were
+// picked by a sweep on the H100 at the 480p shapes (8x8 and 8x4 thread
+// tiles, 64-query blocks, 16/32/64-channel stages; PERF.md). The similarity
+// is sim2.cuh's fmaf chain over c = 0..kc-1 from 0.f, as in
+// denom_readout.cu, so every group max is bitwise the max of the floats
+// that kernel recomputes.
+#include <stdint.h>
+
 #include "sim2.cuh"
 
 namespace {
 
-constexpr int QT = 64;        // queries per block
+constexpr int QT = 128;       // queries per block
 constexpr int GT = 64;        // group columns per block
+constexpr int TI = 4;         // queries per thread
+constexpr int TJ = 8;         // group columns per thread
+constexpr int TY = QT / TI, TX = GT / TJ;
+constexpr int THREADS = TX * TY;
+constexpr int MIN_BLOCKS = 2;  // blocks per SM the registers must allow
 constexpr int KC_MAX = 128;   // qcat / mcat channels (2 * Ck)
-constexpr int THREADS = 256;  // 16 x 16 threads, 4x4 similarities each
+constexpr int KCH = 64;       // channels per mcat stage
+constexpr int GROUP_MAX = 4;
 constexpr int PAD = 4;
 
 struct Smem {
-  float a[KC_MAX][QT];        // qcat tile, channel-major
-  float m[KC_MAX][GT + PAD];  // mcat tile, channel-major
+  float a[QT][KC_MAX + PAD];      // qcat tile, query-major
+  float b[2][GT][KCH + PAD];      // mcat stages, token-major
   float bsq[QT];
-  float msq[GT];
-  float msv[GT];
-  int flag[GT];               // 1 valid; 0 invalid or past the ring
+  float msq[GROUP_MAX][GT];
+  float msv[GROUP_MAX][GT];
+  int flag[GROUP_MAX][GT];        // 1 valid; 0 invalid or past the ring
 };
 
+// 16 bytes global -> shared, asynchronously; zeros when !full.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+}
+
 template <bool HAS_QE>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 segmax_kernel(const float* __restrict__ qcat, const float* __restrict__ mcat,
               const float* __restrict__ bsq, const float* __restrict__ msq,
               const float* __restrict__ msv,
@@ -58,84 +93,120 @@ segmax_kernel(const float* __restrict__ qcat, const float* __restrict__ mcat,
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+  const int tx = tid % TX, ty = tid / TX;
   const int q0 = blockIdx.x * QT;
   const int col0 = blockIdx.y * GT;
   const int tok0 = (col0 / width) * n_tile + col0 % width;
+  const int kc4 = kc / 4;
+  const int chunks = (kc + KCH - 1) / KCH;
+  const int stages = groups * chunks;  // (member, channel chunk) in order
 
-  for (int x = tid; x < QT * kc; x += THREADS) {
-    const int ql = x / kc, c = x % kc, q = q0 + ql;
-    s.a[c][ql] = q < Q ? qcat[(size_t)q * kc + c] : 0.f;
+  for (int x = tid; x < QT * kc4; x += THREADS) {
+    const int ql = x / kc4, c4 = x % kc4, q = q0 + ql;
+    cp_async16(&s.a[ql][c4 * 4], qcat + (size_t)(q < Q ? q : 0) * kc + c4 * 4,
+               q < Q);
   }
+  auto load_stage = [&](int st) {
+    const int k0 = (st % chunks) * KCH;
+    const int kw4 = min(KCH, kc - k0) / 4;
+    const int base = tok0 + (st / chunks) * width;
+    for (int x = tid; x < GT * kw4; x += THREADS) {
+      const int nl = x / kw4, c4 = x % kw4, n = base + nl;
+      cp_async16(&s.b[st & 1][nl][c4 * 4],
+                 mcat + (size_t)(n < N ? n : 0) * kc + k0 + c4 * 4, n < N);
+    }
+  };
+  load_stage(0);
+  cp_commit();  // group 0: the qcat tile and stage 0
+
   for (int x = tid; x < QT; x += THREADS)
     s.bsq[x] = (HAS_QE && q0 + x < Q) ? bsq[q0 + x] : 0.f;
+  for (int x = tid; x < groups * GT; x += THREADS) {
+    const int member = x / GT, nl = x % GT;
+    const int n = tok0 + member * width + nl;
+    const bool present = n < N;
+    s.msv[member][nl] = present ? msv[n] : 0.f;
+    s.msq[member][nl] = (!HAS_QE && present) ? msq[n] : 0.f;
+    s.flag[member][nl] = present && (valid == nullptr || valid[n]);
+  }
 
-  float gmax[4][4];
+  float acc[TI][TJ], gmax[TI][TJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < TI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) gmax[i][j] = -INFINITY;
+    for (int j = 0; j < TJ; ++j) {
+      acc[i][j] = 0.f;
+      gmax[i][j] = -INFINITY;
+    }
 
-  for (int member = 0; member < groups; ++member) {
-    const int base = tok0 + member * width;
-    __syncthreads();  // the previous member's tile has been read
-    for (int x = tid; x < GT * kc; x += THREADS) {
-      const int nl = x / kc, c = x % kc, n = base + nl;
-      s.m[c][nl] = n < N ? mcat[(size_t)n * kc + c] : 0.f;
+  for (int st = 0; st < stages; ++st) {
+    if (st + 1 < stages) {
+      load_stage(st + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
-    for (int x = tid; x < GT; x += THREADS) {
-      const int n = base + x;
-      const bool present = n < N;
-      s.msv[x] = present ? msv[n] : 0.f;
-      s.msq[x] = (!HAS_QE && present) ? msq[n] : 0.f;
-      s.flag[x] = present && (valid == nullptr || valid[n]);
-    }
-    __syncthreads();
-
-    float acc[4][4];
+    __syncthreads();  // stage st (and the qcat tile) visible to all
+    const int k0 = (st % chunks) * KCH;
+    const int kw = min(KCH, kc - k0);
+    const float(*b)[KCH + PAD] = s.b[st & 1];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int c = 0; c < KCH; c += 4) {
+      if (c < kw) {
+        float4 a[TI];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < kc; ++c) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&s.a[c][ty * 4]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&s.m[c][tx * 4]);
-      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+        for (int i = 0; i < TI; ++i)
+          a[i] = *reinterpret_cast<const float4*>(&s.a[ty + TY * i][k0 + c]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < TJ; ++j) {
+          const float4 bv =
+              *reinterpret_cast<const float4*>(&b[tx + TX * j][c]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = deva_sim2::acc_step(acc[i][j], av[i], bv[j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int nl = tx * 4 + j;
-        const float sub = HAS_QE ? s.bsq[ty * 4 + i] : s.msq[nl];
-        const float sim =
-            deva_sim2::finish(acc[i][j], sub, s.msv[nl], s.flag[nl] != 0);
-        gmax[i][j] = fmaxf(gmax[i][j], sim);
+          for (int i = 0; i < TI; ++i) {
+            acc[i][j] = deva_sim2::acc_step(acc[i][j], a[i].x, bv.x);
+            acc[i][j] = deva_sim2::acc_step(acc[i][j], a[i].y, bv.y);
+            acc[i][j] = deva_sim2::acc_step(acc[i][j], a[i].z, bv.z);
+            acc[i][j] = deva_sim2::acc_step(acc[i][j], a[i].w, bv.w);
+          }
+        }
       }
+    }
+    if (st % chunks == chunks - 1) {  // a member's chain is complete
+      const int member = st / chunks;
+#pragma unroll
+      for (int i = 0; i < TI; ++i)
+#pragma unroll
+        for (int j = 0; j < TJ; ++j) {
+          const int nl = tx + TX * j;
+          const float sub = HAS_QE ? s.bsq[ty + TY * i] : s.msq[member][nl];
+          const float sim = deva_sim2::finish(acc[i][j], sub,
+                                              s.msv[member][nl],
+                                              s.flag[member][nl] != 0);
+          gmax[i][j] = fmaxf(gmax[i][j], sim);
+          acc[i][j] = 0.f;
+        }
+    }
+    __syncthreads();  // buffer st & 1 is refilled by stage st + 2
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = q0 + ty * 4 + i;
-    if (q < Q)
-      *reinterpret_cast<float4*>(&out[(size_t)q * nseg + col0 + tx * 4]) =
-          make_float4(gmax[i][0], gmax[i][1], gmax[i][2], gmax[i][3]);
+  for (int i = 0; i < TI; ++i) {
+    const int q = q0 + ty + TY * i;
+    if (q < Q) {
+      float* orow = out + (size_t)q * nseg + col0 + tx;
+#pragma unroll
+      for (int j = 0; j < TJ; ++j) orow[TX * j] = gmax[i][j];
+    }
   }
 }
 
 }  // namespace
 
 // qcat [Q, kc], mcat [N, kc], msv [N]; with a selection (has_qe) bsq [Q] and
-// msq null, without one msq [N] and bsq null; valid [N] or null. out [Q,
-// nseg] with nseg = ceil(N / n_tile) * (n_tile >> folds). Returns the CUDA
-// error code of the launch.
+// msq null, without one msq [N] and bsq null; valid [N] or null. qcat and
+// mcat 16-byte aligned, kc % 4 == 0. out [Q, nseg] with nseg = ceil(N /
+// n_tile) * (n_tile >> folds). Returns the CUDA error code of the launch.
 extern "C" int deva_segmax(const float* qcat, const float* mcat,
                            const float* bsq, const float* msq,
                            const float* msv, const uint8_t* valid, int Q,
@@ -145,30 +216,21 @@ extern "C" int deva_segmax(const float* qcat, const float* mcat,
   const bool has_qe = bsq != nullptr;
   if (Q <= 0 || N <= 0 || kc <= 0 || kc > KC_MAX || kc % 4 != 0 ||
       width <= 0 || width % GT != 0 || (width << folds) != n_tile ||
-      (has_qe ? msq != nullptr : msq == nullptr))
+      (has_qe ? msq != nullptr : msq == nullptr) ||
+      reinterpret_cast<uintptr_t>(qcat) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(mcat) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const int tiles = (N + n_tile - 1) / n_tile;
   const int nseg = tiles * width;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = sizeof(Smem);
   const dim3 grid((Q + QT - 1) / QT, nseg / GT);
-  cudaError_t err;
-  if (has_qe) {
-    err = cudaFuncSetAttribute(segmax_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    segmax_kernel<true><<<grid, THREADS, smem, st>>>(
-        qcat, mcat, bsq, msq, msv, valid, Q, N, kc, n_tile, width,
-        1 << folds, nseg, out);
-  } else {
-    err = cudaFuncSetAttribute(segmax_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    segmax_kernel<false><<<grid, THREADS, smem, st>>>(
-        qcat, mcat, bsq, msq, msv, valid, Q, N, kc, n_tile, width,
-        1 << folds, nseg, out);
-  }
+  auto kernel = has_qe ? segmax_kernel<true> : segmax_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, THREADS, smem, st>>>(qcat, mcat, bsq, msq, msv, valid, Q, N,
+                                      kc, n_tile, width, 1 << folds, nseg,
+                                      out);
   return (int)cudaGetLastError();
 }

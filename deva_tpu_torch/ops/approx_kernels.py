@@ -13,14 +13,15 @@ Port of the approx half of deva_tpu/ops/pallas_attention.py (`_prep2`,
 - `segmax`: the token axis is cut into tiles of `n_tile` tokens, and group g
   of a tile is {g, g+W, g+2W, ...} with W = n_tile >> folds (`Geometry`).
   The result [Q, nseg] holds each group's max.
-- Between the kernels: rmax = the row max of the group maxima (0 if not
+- `denom_readout`: rmax = the row max of the group maxima (0 if not
   finite), th = the min(k, nseg)-th largest group max (`threshold`), exact,
-  as deva_tpu's interpret mode takes it. On a TPU deva_tpu takes it with
-  approx_max_k, which can only lower it.
-- `denom_readout`: e = exp(sim - rmax) where sim >= th, aff = e / max(sum e,
-  1e-30), out = aff @ V, usage = aff summed over queries. The support
-  contains the exact top-k; a row with fewer than k valid tokens keeps all of
-  them, and a row with none gives zeros.
+  as deva_tpu's interpret mode takes it (on a TPU deva_tpu takes it with
+  approx_max_k, which can only lower it); then e = exp(sim - rmax) where
+  sim >= th, aff = e / max(sum e, 1e-30), out = aff @ V, usage = aff summed
+  over queries. The support contains the exact top-k; a row with fewer than
+  k valid tokens keeps all of them, and a row with none gives zeros. The
+  CUDA kernel takes rmax and th itself, so nothing runs between the two
+  kernels.
 
 Dispatch is by device only, as in attention_kernels.py: CPU tensors take the
 plain twins (`*_plain`), CUDA tensors launch csrc/segmax.cu and
@@ -133,6 +134,8 @@ def _check_cuda_operands(ops: Operands, kernel: str) -> None:
     f32 = torch.float32
     _require(ops.qcat, "qcat", f32, (q, kc))
     _require(ops.mcat, "mcat", f32, (n, kc))
+    if ops.qcat.data_ptr() % 16 or ops.mcat.data_ptr() % 16:
+        raise ValueError(f"{kernel}: qcat and mcat must be 16-byte aligned")
     _require(ops.msv, "msv", f32, (n,))
     if ops.bsq is not None:
         _require(ops.bsq, "bsq", f32, (q,))
@@ -192,7 +195,8 @@ def segmax(ops: Operands, geom: Geometry) -> torch.Tensor:
 def threshold(seg: torch.Tensor, top_k: int):
     """-> (rmax [Q, 1], th [Q, 1]) from the group maxima: the row max,
     clamped to 0 when not finite, and the min(k, nseg)-th largest group max
-    (pallas_attention.py:627-643, its exact branch)."""
+    (pallas_attention.py:627-643, its exact branch). The CPU route's; the
+    CUDA denom_readout takes both itself, bitwise the same."""
     rmax = seg.amax(dim=-1, keepdim=True)
     rmax = torch.where(torch.isfinite(rmax), rmax, torch.zeros_like(rmax))
     kk = min(top_k, seg.shape[-1])
@@ -213,9 +217,9 @@ def _support_weights(sim, rmax, th):
 
 def denom_readout_plain(ops: Operands, geom: Geometry, seg, rmax, th,
                         values2d):
-    """Plain twin of denom_readout: the dense e, denominator, aff @ V and
-    aff.sum(0). (seg and geom are what the kernel reads to find the
-    support; the dense form needs neither.)"""
+    """The dense form of denom_readout at a given rmax and th [Q, 1]: e,
+    the denominator, aff @ V and aff.sum(0). (seg and geom are what the
+    kernel reads to find the support; the dense form needs neither.)"""
     aff = _support_weights(similarity2_plain(ops), rmax, th)
     return aff @ values2d.float(), aff.sum(dim=0)
 
@@ -234,56 +238,77 @@ def gap_threshold(sim: torch.Tensor, th: torch.Tensor,
     return torch.where(ok.any(-1, keepdim=True), mid, th)
 
 
-def _denom_readout_cuda(ops: Operands, geom: Geometry, seg, rmax, th,
-                        values2d):
+def _denom_readout_cuda(ops: Operands, geom: Geometry, seg, values2d,
+                        top_k: int, th=None):
     """Launches csrc/denom_readout.cu, the port of the Pallas
-    `_denom_readout_kernel` (deva_tpu/ops/pallas_attention.py:491-575). It
-    is bound by the gathered value rows of the support (Q*|support|*C*4
-    bytes); instead of the TPU's dense affinity-times-values product it
-    finds each row's support from the group maxima, recomputes those
-    similarities with segmax's device function and gathers their rows (see
-    the source note)."""
+    `_denom_readout_kernel` (deva_tpu/ops/pallas_attention.py:491-575) with
+    the row max and threshold taken between deva_tpu's two kernels. It is
+    bound by the bytes of the group maxima and of the support's value rows;
+    instead of the TPU's dense affinity-times-values product, a warp per
+    query selects th from the candidates of its row of group maxima (those
+    at or above a lower bound from the lanes' maxima), recomputes the
+    support's similarities with segmax's device function and gathers their
+    rows (see the source note)."""
     from deva_tpu_torch.ops import cuda_build
     _check_cuda_operands(ops, "denom_readout")
     q, kc = ops.qcat.shape
     n, c = values2d.shape
+    if top_k < 1:
+        raise ValueError(f"denom_readout: top_k={top_k} < 1")
     f32 = torch.float32
     _require(seg, "segmax", f32, (q, geom.nseg))
-    _require(rmax, "rmax", f32, (q, 1))
-    _require(th, "th", f32, (q, 1))
     _require(values2d, "values", f32, (geom.n, c))
+    if th is not None:
+        _require(th, "th", f32, (q, 1))
     dev = values2d.device
+    vec4 = c % 4 == 0 and values2d.data_ptr() % 16 == 0
     out = torch.empty((q, c), dtype=f32, device=dev)
     usage = torch.zeros((n,), dtype=f32, device=dev)
-    vec4 = c % 4 == 0 and values2d.data_ptr() % 16 == 0
+    used = torch.empty((2, q, 1), dtype=f32, device=dev)  # rmax, th
     err = cuda_build.load().deva_denom_readout(
         _ptr(ops.qcat), _ptr(ops.mcat), _ptr(ops.bsq), _ptr(ops.msq),
-        _ptr(ops.msv), _ptr(_valid_u8(ops)), _ptr(seg), _ptr(rmax), _ptr(th),
-        _ptr(values2d), q, n, kc, geom.n_tile, geom.folds, c, int(vec4),
-        _ptr(out), _ptr(usage), _stream(dev))
+        _ptr(ops.msv), _ptr(_valid_u8(ops)), _ptr(seg), _ptr(th),
+        _ptr(values2d), q, n, kc, geom.n_tile, geom.folds, c, top_k,
+        int(vec4), _ptr(out), _ptr(usage), _ptr(used[0]), _ptr(used[1]),
+        _stream(dev))
     if err != 0:
         raise RuntimeError(
             f"denom_readout kernel launch failed: CUDA error {err}")
     LAUNCHES["denom_readout"] += 1
-    return out, usage
+    return out, usage, used[0], used[1]
+
+
+def _denom_readout_twin(ops: Operands, geom: Geometry, seg, values2d,
+                        top_k: int, th=None):
+    """Plain twin of denom_readout: `threshold`, then denom_readout_plain."""
+    rmax, th_k = threshold(seg, top_k)
+    th = th_k if th is None else th
+    out, usage = denom_readout_plain(ops, geom, seg, rmax, th, values2d)
+    return out, usage, rmax, th
 
 
 def denom_readout(ops: Operands, geom: Geometry, seg: torch.Tensor,
-                  rmax: torch.Tensor, th: torch.Tensor,
-                  values2d: torch.Tensor):
-    """Threshold softmax + readout: out [Q, C] f32 and usage [N] f32.
-    values2d: [N, C] token-major (C = O*Cv)."""
-    if _on_cuda(*ops, seg, rmax, th, values2d):
-        return _denom_readout_cuda(ops, geom, seg, rmax, th, values2d)
-    return denom_readout_plain(ops, geom, seg, rmax, th, values2d)
+                  values2d: torch.Tensor, top_k: int,
+                  th: Optional[torch.Tensor] = None):
+    """Threshold softmax + readout from the group maxima seg: out [Q, C]
+    f32, usage [N] f32, and the rmax [Q, 1] and th [Q, 1] it used. th, if
+    given, replaces the k-th largest group max. values2d: [N, C]
+    token-major (C = O*Cv)."""
+    if _on_cuda(*ops, seg, values2d, th):
+        return _denom_readout_cuda(ops, geom, seg, values2d, top_k, th)
+    return _denom_readout_twin(ops, geom, seg, values2d, top_k, th)
 
 
 def sim2_at(ops: Operands, idx: torch.Tensor) -> torch.Tensor:
-    """The pair's similarity at tokens idx [Q, K] -> [Q, K]: on a CUDA
-    device, the very floats the kernels compare with th (a check of the
-    support, not a step of the path)."""
+    """The pair's similarity at tokens idx [Q, K] -> [Q, K], -inf where an
+    index lies outside [0, N): on a CUDA device, the very floats the kernels
+    compare with th (a check of the support, not a step of the path)."""
     if not _on_cuda(*ops, idx):
-        return similarity2_plain(ops).gather(1, idx.long())
+        n = ops.mcat.shape[0]
+        sim = torch.nn.functional.pad(similarity2_plain(ops), (0, 1),
+                                      value=float("-inf"))
+        idx = idx.long()
+        return sim.gather(1, torch.where((idx >= 0) & (idx < n), idx, n))
     from deva_tpu_torch.ops import cuda_build
     _check_cuda_operands(ops, "sim2_at")
     q, kc = ops.qcat.shape
@@ -330,9 +355,8 @@ def _attend_multi(seg_fn, dr_fn, rings, qk, qe, top_k, return_usage, n_tile):
     geom = Geometry.of(n, n_tile)
     ops = prep2(qk, qe, mk, ms, valid)
     seg = seg_fn(ops, geom)
-    rmax, th = threshold(seg, top_k)
-    out, usage = dr_fn(ops, geom, seg, rmax, th,
-                       values.reshape(n, o * cv))
+    out, usage, _, _ = dr_fn(ops, geom, seg, values.reshape(n, o * cv),
+                             top_k)
     out = out.reshape(q, o, cv).transpose(0, 1)
     if not return_usage:
         return out
@@ -358,7 +382,7 @@ def attend_approx_multi_plain(rings: Sequence, qk, qe, top_k: int,
                               return_usage: bool = False,
                               n_tile: Optional[int] = None):
     """Plain twin of attend_approx_multi."""
-    return _attend_multi(segmax_plain, denom_readout_plain, rings, qk, qe,
+    return _attend_multi(segmax_plain, _denom_readout_twin, rings, qk, qe,
                          top_k, return_usage, n_tile)
 
 

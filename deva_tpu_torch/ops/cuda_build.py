@@ -32,8 +32,8 @@ _SIGNATURES = {
                       _P, _P, _P],
     "deva_topk_readout": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "deva_segmax": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    "deva_denom_readout": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                           _I, _I, _I, _I, _I, _P, _P, _P],
+    "deva_denom_readout": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "deva_sim2_at": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 

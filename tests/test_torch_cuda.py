@@ -212,11 +212,24 @@ def test_segmax_kernel_matches_plain(dev, n, q, n_tile, with_qe):
     torch.testing.assert_close(seg[fin], ref[fin], rtol=1e-5, atol=1e-5)
 
 
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
 @pytest.mark.parametrize("n,q,c,n_valid", [(2048, 300, 1024, 1800),
                                            (700, 130, 30, 600),
                                            (16712, 1620, 1536, 11000),
-                                           (256, 64, 64, 5)])
+                                           (256, 64, 64, 5),
+                                           (3000, 200, 512, 2500),
+                                           (3000, 200, 3072, 2500),
+                                           (1620, 100, 1030, 1620),
+                                           (1620, 100, 1024, 20),
+                                           (1620, 100, 1024, 0)])
 def test_denom_readout_kernel_matches_plain(dev, n, q, c, n_valid):
+    """Under a threshold in a gap of the similarities (gap_threshold), out
+    and usage within 1e-4 of the twin, for C of 1 to 6 objects and a C that
+    is not a multiple of 4, and rows with 20 and with 0 valid tokens; the
+    kernel reports the th it was given and the row max bitwise."""
     ops = _approx_operands(dev, 8, n, q, n_valid=n_valid)
     geom = apx.Geometry.of(n, 512)
     values = torch.randn((n, c), device=dev,
@@ -224,12 +237,130 @@ def test_denom_readout_kernel_matches_plain(dev, n, q, c, n_valid):
     seg = apx.segmax(ops, geom)
     rmax, th = apx.threshold(seg, 30)
     th = apx.gap_threshold(apx.similarity2_plain(ops), th)
-    out, usage = apx.denom_readout(ops, geom, seg, rmax, th, values)
+    out, usage, rmax_k, th_k = apx.denom_readout(ops, geom, seg, values, 30,
+                                                 th)
     ref, ref_usage = apx.denom_readout_plain(ops, geom, seg, rmax, th,
                                              values)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(usage, ref_usage, rtol=1e-4, atol=1e-4)
+    assert torch.equal(_bits(rmax_k), _bits(rmax))
+    assert torch.equal(_bits(th_k), _bits(th))
+    if n_valid == 0:
+        assert not bool(out.abs().gt(0).any())
+
+
+@pytest.mark.parametrize("with_qe", [True, False])
+@pytest.mark.parametrize("n,q,k,n_valid", [(16712, 1620, 30, 9848),
+                                           (16712, 200, 40, 9848),
+                                           (700, 130, 12, 600),
+                                           (1620, 64, 30, 20),
+                                           (1620, 64, 30, 0),
+                                           (100, 33, 200, 90)])
+def test_denom_readout_threshold_is_bitwise_threshold(dev, n, q, k, n_valid,
+                                                      with_qe):
+    """The row max and k-th largest group max the kernel selects are
+    bitwise `threshold`'s (torch.topk), with short rows (th = -inf), empty
+    rows (rmax clamped to 0), k above 32 (no lower bound from the lanes:
+    the select runs over the whole row) and k above the number of group
+    maxima."""
+    ops = _approx_operands(dev, 18, n, q, n_valid=n_valid, with_qe=with_qe)
+    geom = apx.Geometry.of(n, 512)
+    values = torch.randn((n, 64), device=dev)
+    seg = apx.segmax(ops, geom)
+    _, _, rmax, th = apx.denom_readout(ops, geom, seg, values, k)
+    rmax_ref, th_ref = apx.threshold(seg, k)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(rmax), _bits(rmax_ref))
+    assert torch.equal(_bits(th), _bits(th_ref))
+
+
+def test_denom_readout_whole_row_when_candidates_overflow(dev):
+    """th = -inf on a full ring: every group qualifies, the candidate list
+    overflows, and the kernel compacts from the row in device memory over
+    66 rounds; the result is the dense softmax readout of the twin."""
+    ops = _approx_operands(dev, 23, 16712, 100)
+    geom = apx.Geometry.of(16712, 512)
+    values = torch.randn((16712, 1024), device=dev)
+    seg = apx.segmax(ops, geom)
+    th = torch.full((100, 1), float("-inf"), device=dev)
+    out, usage, rmax, _ = apx.denom_readout(ops, geom, seg, values, 30, th)
+    ref, ref_usage = apx.denom_readout_plain(ops, geom, seg, rmax, th,
+                                             values)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(usage, ref_usage, rtol=1e-4, atol=1e-4)
+
+
+def test_denom_readout_support_in_rounds(dev):
+    """10 base tokens copied 300 times, k=12: a row's tied group maxima
+    qualify hundreds of groups, more than one round holds, and the result
+    still matches the twin, with the exact top-k inside the support."""
+    rng = np.random.default_rng(19)
+    base = rng.standard_normal((10, 64)).astype(np.float32)
+    mk = torch.from_numpy(np.tile(base, (300, 1))).to(dev)
+    qk, qe, _, _, _ = _inputs(dev, 20, 10, 150)
+    ops = apx.prep2(qk, qe, mk, None, None)
+    geom = apx.Geometry.of(3000, 512)
+    values = torch.randn((3000, 1024), device=dev)
+    seg = apx.segmax(ops, geom)
+    rmax, th = apx.threshold(seg, 12)
+    qualifying = ((seg >= th) & (seg > float("-inf"))).sum(-1)
+    assert int(qualifying.min()) > 64  # more than one round (GCAP)
+    th_gap = apx.gap_threshold(apx.similarity2_plain(ops), th)
+    out, usage, _, _ = apx.denom_readout(ops, geom, seg, values, 12, th_gap)
+    ref, ref_usage = apx.denom_readout_plain(ops, geom, seg, rmax, th_gap,
+                                             values)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(usage, ref_usage, rtol=1e-4, atol=1e-4)
+    _, _, _, th_k = apx.denom_readout(ops, geom, seg, values, 12)
+    _, gi = ak.sim_topk(qk, qe, mk, None, None, 12)
+    assert bool((apx.sim2_at(ops, gi) >= th_k).all())
+
+
+@pytest.mark.parametrize("with_qe", [True, False])
+@pytest.mark.parametrize("n,n_valid", [(16712, 9848), (1300, 1100),
+                                       (100, 90)])
+def test_segmax_is_bitwise_the_max_of_sim2_at(dev, n, n_valid, with_qe):
+    """On sampled rows every group max is bitwise the max of sim2_at (the
+    chain denom_readout recomputes) over the group's members."""
+    ops = _approx_operands(dev, 21, n, 1620, n_valid=n_valid,
+                           with_qe=with_qe)
+    geom = apx.Geometry.of(n, 512)
+    seg = apx.segmax(ops, geom)
+    rows = torch.arange(0, 1620, 53, device=dev)
+    sub = ops._replace(qcat=ops.qcat[rows].contiguous(),
+                       bsq=None if ops.bsq is None else
+                       ops.bsq[rows].contiguous())
+    idx = torch.arange(geom.tiles * geom.n_tile, dtype=torch.int32,
+                       device=dev).expand(len(rows), -1).contiguous()
+    ref = apx.sim2_at(sub, idx).reshape(len(rows), geom.tiles, geom.group,
+                                        geom.width).amax(2)
+    assert torch.equal(_bits(seg[rows]), _bits(ref.reshape(len(rows), -1)))
+
+
+def test_attend_approx_runs_no_topk_on_the_card(dev, monkeypatch):
+    """The CUDA route of attend_approx_multi takes rmax and th in the
+    kernel: `threshold` is never called and no sort or top-k kernel runs."""
+    from torch.profiler import ProfilerActivity, profile
+    qk, qe, mk, ms, valid = _inputs(dev, 22, 1300, 300, n_valid=1100)
+    values = torch.randn((1300, 2, 32), device=dev)
+    rings = [(mk[:512], ms[:512], values[:512], valid[:512]),
+             (mk[512:], ms[512:], values[512:], valid[512:])]
+    apx.attend_approx_multi(rings, qk, qe, 12)  # build and load first
+    torch.cuda.synchronize()
+
+    def no_threshold(*args):
+        raise AssertionError("threshold() on the CUDA route")
+
+    monkeypatch.setattr(apx, "threshold", no_threshold)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        apx.attend_approx_multi(rings, qk, qe, 12, return_usage=True)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    assert any("segmax_kernel" in x for x in names), names
+    assert any("denom_readout_kernel" in x for x in names), names
+    assert not any("topk" in x.lower() or "sort" in x.lower()
+                   for x in names), names
 
 
 def test_attend_approx_kernels_match_plain(dev):
@@ -260,10 +391,11 @@ def test_approx_support_contains_exact_top_k_with_ties(dev):
     qk, qe, _, _, _ = _inputs(dev, 11, 10, 200)
     ops = apx.prep2(qk, qe, mk, None, None)
     geom = apx.Geometry.of(mk.shape[0], 512)
-    _, th = apx.threshold(apx.segmax(ops, geom), 12)
+    values = torch.randn((3000, 1, 16), device=dev)
+    _, _, _, th = apx.denom_readout(ops, geom, apx.segmax(ops, geom),
+                                    values.reshape(3000, 16), 12)
     _, gi = ak.sim_topk(qk, qe, mk, None, None, 12)
     assert bool((apx.sim2_at(ops, gi) >= th).all())
-    values = torch.randn((3000, 1, 16), device=dev)
     out = apx.attend_approx(mk, None, values, qk, qe, 12)
     ref = apx.attend_approx_multi_plain([(mk, None, values, None)], qk, qe,
                                         12)
