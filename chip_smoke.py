@@ -15,8 +15,11 @@ Phases (any failure raises and the script exits non-zero):
    counted from this run's inputs), topk_readout beside the one PyTorch
    call with its function (embedding_bag, never used by the port), and
    sim_topk and segmax beside cuBLAS's f32 product of their operands.
-   Exact pair: plus a ring of duplicated tokens for tie order, and
-   sim_topk's host time per call. Approx pair: segmax bitwise the max of
+   Exact pair: plus a ring of duplicated tokens for tie order,
+   sim_topk's host time per call, and topk_readout on each ring split at
+   the long-term ring's 512 slots (two segments read in place, bitwise the
+   one-segment call, timed beside it), with the distinct rows U of each
+   tile of its queries and the L2 bytes they imply. Approx pair: segmax bitwise the max of
    sim2_at over each group on sampled rows; denom_readout's rmax and th
    bitwise `threshold` (torch.topk); plus a ring of duplicated tokens whose
    tied group maxima admit more than 4k entries, rows with fewer valid
@@ -38,8 +41,9 @@ Phases (any failure raises and the script exits non-zero):
    InferenceConfig, through step (the fused step), so the working memory
    saturates and long-term consolidation and [long-term ; working]
    attention run. Checks finite probabilities that sum to 1 and that both
-   exact kernels launched on every propagated frame; prints ms/frame, FPS
-   and peak device memory.
+   exact kernels launched on every propagated frame, reading the
+   [long-term ; working] value rings as two segments; prints ms/frame,
+   FPS, peak device memory, and U per tile on frame 50.
 4. The approx 480p main path: the same, with topk_method='approx', the
    first frame through step and the other 59 through step_chunk in chunks
    of 5 (as eval_vos_torch.py --chunk 5 drives it); both approx kernels
@@ -60,6 +64,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -84,6 +89,9 @@ KERNELS = {
 # memory frames arrive, and with long-term memory it is read beside 512
 # long-term slots
 RING_CASES = (1620, 3240, 6480, 8100, 16712)
+# the long-term ring's slots at 480p: phase 1 splits every ring there for
+# the two-segment readout
+LT_SLOTS = 512
 # NVIDIA H100 SXM data sheet: f32 FFMA peak outside the tensor cores, and
 # HBM3 bandwidth (both at the 700 W limit)
 F32_FLOPS, HBM_BYTES = 67e12, 3.35e12
@@ -106,6 +114,49 @@ def ring_validity(n, dev):
             8100: ar(8100) < 6480,                  # working ring, 4/5 full
             16712: torch.cat([ar(512) < 128,        # [long-term ; working]
                               ar(16200) < 9720])}[n]
+
+
+def readout_tiles():
+    """(QT, CS, CAP) of csrc/topk_readout.cu, read from the source."""
+    with open(os.path.join(ROOT, KERNELS["topk_readout"][0])) as f:
+        src = f.read()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);", src)
+                     .group(1)) for name in ("QT", "CS", "CAP"))
+
+
+def readout_rows(gi, c: int):
+    """What topk_readout.cu reads for indices gi [Q, k] and C value
+    columns: the distinct rows U of each tile of QT queries, and the value
+    bytes it reads from L2 (per tile, CAP distinct rows once and every pair
+    whose row has a later slot by itself; the kernel's threads claim slots
+    in any order, counted here by first occurrence in pair order), beside
+    Q*k*C*4 of one gather per pair. Returns (U per tile, bytes, gather
+    bytes)."""
+    qt, _, cap = readout_tiles()
+    q, k = gi.shape
+    flat = gi.long().reshape(-1)
+    per_tile, rows_read = [], 0
+    for q0 in range(0, q, qt):
+        rows = flat[q0 * k:min(q, q0 + qt) * k]
+        uniq, inv = torch.unique(rows, return_inverse=True)
+        first = torch.full((len(uniq),), rows.numel(), device=rows.device)
+        first.scatter_reduce_(0, inv, torch.arange(rows.numel(),
+                                                   device=rows.device),
+                              "amin")
+        slot = torch.argsort(torch.argsort(first))[inv]
+        per_tile.append(len(uniq))
+        rows_read += min(len(uniq), cap) + int((slot >= cap).sum())
+    return per_tile, rows_read * c * 4, q * k * c * 4
+
+
+def rows_line(label, gi, c: int) -> str:
+    per_tile, nbytes, gather = readout_rows(gi, c)
+    qt = readout_tiles()[0]
+    return (f"{label}: topk_readout rows per tile of {qt} queries mean "
+            f"{statistics.mean(per_tile):.1f} max {max(per_tile)} (of "
+            f"{gi.shape[1] * qt} pairs); "
+            f"L2 value bytes {nbytes / 1e6:.1f} MB against {gather / 1e6:.1f}"
+            f" MB gathered per pair")
 
 
 def cuda_ms(fn, iters: int = 20, windows: int = 3) -> float:
@@ -172,6 +223,10 @@ def phase_kernels(ak, apx, dev) -> dict:
         out = ak.topk_readout(gi, w, v2)
         ref = ak.topk_readout_plain(gi, w, v2)
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+        # the ring as [long-term ; working] segments, read in place
+        pair = (v2[:LT_SLOTS], v2[LT_SLOTS:])
+        assert same_bits(ak.topk_readout(gi, w, pair), out), \
+            f"topk_readout N={n}: two segments differ from one"
         err["topk_readout"] = max(err["topk_readout"],
                                   (out - ref).abs().max().item())
 
@@ -202,6 +257,8 @@ def phase_kernels(ak, apx, dev) -> dict:
             "sim_topk_plain": cuda_ms(lambda: ak.sim_topk_plain(
                 qk, qe, mk, ms, valid, k)),
             "topk_readout": cuda_ms(lambda: ak.topk_readout(gi, w, v2)),
+            "topk_readout_two_segments": cuda_ms(
+                lambda: ak.topk_readout(gi, w, pair)),
             "topk_readout_plain": cuda_ms(
                 lambda: ak.topk_readout_plain(gi, w, v2)),
             "topk_readout_library": cuda_ms(
@@ -227,6 +284,8 @@ def phase_kernels(ak, apx, dev) -> dict:
               ", ".join(f"{name} {b:.4f} ({by})"
                         for name, (b, by) in bounds[n].items()),
               flush=True)
+        print(rows_line(f"phase 1 N={n}", gi, c) + "; two segments split "
+              f"at {LT_SLOTS} bitwise one", flush=True)
 
     # ties: 10 copies of 1620 tokens; for each query the exact top-30 is the
     # 10 copies of its best 3 base tokens, lowest copy first
@@ -642,16 +701,35 @@ def phase_main_path(ak, net_cpu, dev, n_frames: int = 60) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
 
+    # the readout's indices on one steady-state frame, for the rows its
+    # tiles share on real data
+    real_readout, seen = ak.topk_readout, []
+
+    def keep_indices(indices, weights, values):
+        seen.append((indices.clone(), values))
+        return real_readout(indices, weights, values)
+
     ak.reset_launch_counts()
     step_ms = []
     for ti, img in enumerate(frames):
         args = (mask, [1, 2]) if ti == 0 else ()
+        ak.topk_readout = keep_indices if ti == n_frames - 10 else \
+            real_readout
         t0 = time.perf_counter()
-        prob = core.step(img, *args, end=(ti == n_frames - 1))
+        try:
+            prob = core.step(img, *args, end=(ti == n_frames - 1))
+        finally:
+            ak.topk_readout = real_readout
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1000)
         check_prob(prob, ti)
     launches = dict(ak.LAUNCHES)
+    assert len(seen) == 1 and isinstance(seen[0][1], tuple), \
+        f"frame {n_frames - 10} did not read the [long-term ; working] " \
+        "pair once"
+    gi, (v_lt, v_work) = seen[0]
+    print(rows_line(f"phase 3 frame {n_frames - 10} (ring {v_lt.shape[0]}"
+                    f" + {v_work.shape[0]})", gi, v_lt.shape[1]), flush=True)
 
     propagated = n_frames - 1
     assert launches["sim_topk"] >= propagated and \

@@ -79,10 +79,12 @@ class FusedStepper:
                      (bucket.key, bucket.shrinkage, bucket.value,
                       work_valid)], qk, qe, self.top_k, return_usage=True)
             else:
+                # the value rings are read in place (two segments); the
+                # keys, shrinkage and validity are concatenated for sim_topk
                 rd, usage = attend_topk(
                     torch.cat([lt.key, bucket.key]),
                     torch.cat([lt.shrinkage, bucket.shrinkage]),
-                    torch.cat([lt.value, bucket.value]), qk, qe, self.top_k,
+                    (lt.value, bucket.value), qk, qe, self.top_k,
                     torch.cat([lt_valid, work_valid]), return_usage=True)
                 lt_usage, work_u = usage[:lt.cap], usage[lt.cap:]
             return rd, work_u, lt_usage

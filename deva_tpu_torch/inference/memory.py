@@ -20,11 +20,12 @@ survivors in order.
 
 `match_memory` is the composed path of deva_tpu's memory.py:94-123. With the
 exact method every readout goes through attention_kernels.attend_topk (single
-ring, or [long-term ; working] concatenated), so on a CUDA device both exact
-kernels run; with the approx method it takes the dense threshold form of
-memory_attention.topk_softmax, as deva_tpu does (XLA code there, not a
-kernel). The fused step (inference/fused_step.py) reads and writes the same
-rings in place.
+ring, or [long-term ; working]: keys concatenated, value rings read in place
+as two segments), so on a CUDA device both exact kernels run; with the
+approx method it takes the dense threshold form of
+memory_attention.topk_softmax over the concatenated rings, as deva_tpu does
+(XLA code there, not a kernel). The fused step (inference/fused_step.py)
+reads and writes the same rings in place.
 """
 from __future__ import annotations
 
@@ -341,8 +342,12 @@ class MemoryEngine:
     def _attend(self, mk, ms, values, qk, qe, top_k: int, valid,
                 return_usage: bool = False):
         """The composed path's attention (see the module docstring). values
-        [N, O, Cv] token-major -> [O, Q, Cv] (and usage [N])."""
+        [N, O, Cv] token-major, or the pair of [long-term ; working] value
+        rings, which the exact kernels read in place -> [O, Q, Cv] (and
+        usage [N])."""
         if self.approx:
+            if isinstance(values, tuple):  # the dense form reads one ring
+                values = torch.cat(values)
             return ma.attend(mk, ms, values.transpose(0, 1), qk, qe, top_k,
                              valid, return_usage, method="approx")
         return attend_topk(mk, ms, values, qk, qe, top_k, valid,
@@ -362,7 +367,7 @@ class MemoryEngine:
                 rd, usage = self._attend(
                     torch.cat([lt.key, b.key]),
                     torch.cat([lt.shrinkage, b.shrinkage]),
-                    torch.cat([lt.value, b.value]), qk, qe, self.top_k,
+                    (lt.value, b.value), qk, qe, self.top_k,
                     valid=torch.cat([lt_valid, valid]), return_usage=True)
                 count_usage(b, usage[lt.cap:], valid)
                 if self.count_long_term_usage:

@@ -5,13 +5,20 @@ Port of the exact path of deva_tpu/ops/pallas_attention.py (`sim_topk`,
 `topk_readout`, `attend_pallas`). Each function has its plain PyTorch twin
 here (`*_plain`), with the same semantics:
 
-- `sim_topk` -> (values [Q, K] descending, indices [Q, K] int32). Ties go to
-  the lowest index. Invalid slots are -inf; in a row with fewer valid tokens
-  than K the -inf slots carry the lowest invalid indices, so every index is
-  in range.
-- `topk_readout` -> out[q] = sum_k w[q, k] * V[idx[q, k]], [Q, C] f32.
+- `sim_topk` -> (values [Q, K] descending, indices [Q, K] int32), with
+  K = min(top_k, N): a ring of fewer tokens than top_k keeps all of them
+  (as deva_tpu's Pallas route, which pads N and softmaxes over the real
+  tokens), and an empty ring raises, on both devices. Ties go to the lowest
+  index. Invalid slots are -inf; in a row with fewer valid tokens than K
+  the -inf slots carry the lowest invalid indices, so every index is in
+  range.
+- `topk_readout` -> out[q] = sum_k w[q, k] * V[idx[q, k]], [Q, C] f32. The
+  ring V may be one [N, C] tensor or a pair of segments (V_a, V_b), read in
+  place: row i is V_a[i] for i < n_a, else V_b[i - n_a].
 - `attend_topk` -> the composite of `attend_pallas`: out [O, Q, Cv] and,
-  optionally, per-token usage [N] (the scatter-add of the weights).
+  optionally, per-token usage [N] (the scatter-add of the weights). Its
+  values may likewise be a pair of [n_i, O, Cv] rings ([long-term ;
+  working]), which it never concatenates.
 
 Dispatch is by device only. Tensors on the CPU take the plain version.
 Tensors on a CUDA device launch the hand-written kernels of
@@ -74,8 +81,15 @@ def _stream(device: torch.device):
 # sim_topk
 # --------------------------------------------------------------------------
 
+def _check_ring(n: int) -> None:
+    if n == 0:
+        raise ValueError("sim_topk: the ring holds no token")
+
+
 def sim_topk_plain(qk, qe, mk, ms, valid, top_k: int):
-    """Plain twin of sim_topk: the dense similarity and a stable sort."""
+    """Plain twin of sim_topk: the dense similarity and a stable sort (which
+    keeps min(top_k, N) entries)."""
+    _check_ring(mk.shape[0])
     sim = ma.mask_invalid(ma.get_similarity(mk, ms, qk, qe), valid)
     values, indices = ma.topk_sorted(sim, top_k)
     return values, indices.to(torch.int32)
@@ -131,8 +145,8 @@ def _sim_topk_cuda(qk, qe, mk, ms, valid, top_k: int, plan=None):
         raise ValueError(f"sim_topk: key dim {ck} > {CK_MAX}")
     if not 1 <= top_k <= K_MAX:
         raise ValueError(f"sim_topk: top_k={top_k} outside [1, {K_MAX}]")
-    if n < top_k:
-        raise ValueError(f"sim_topk: {n} tokens < top_k={top_k}")
+    _check_ring(n)
+    top_k = min(top_k, n)  # as the twin's sort-and-slice
     f32 = torch.float32
     _require(qk, "qk", f32, (q, ck))
     _require(mk, "mk", f32, (n, ck))
@@ -168,7 +182,8 @@ def sim_topk(qk: torch.Tensor, qe: Optional[torch.Tensor], mk: torch.Tensor,
              top_k: int):
     """Exact masked top-k of the (never materialized) similarity.
     qk/qe: [Q, Ck]; mk: [N, Ck]; ms: [N] or None; valid: [N] bool or None.
-    Returns (values [Q, K] sorted descending, indices [Q, K] int32)."""
+    Returns (values [Q, K] sorted descending, indices [Q, K] int32), K =
+    min(top_k, N); raises for an empty ring."""
     if _on_cuda(qk, qe, mk, ms, valid):
         return _sim_topk_cuda(qk, qe, mk, ms, valid, top_k)
     return sim_topk_plain(qk, qe, mk, ms, valid, top_k)
@@ -178,30 +193,56 @@ def sim_topk(qk: torch.Tensor, qe: Optional[torch.Tensor], mk: torch.Tensor,
 # topk_readout
 # --------------------------------------------------------------------------
 
-def topk_readout_plain(indices, weights, values2d):
-    """Plain twin of topk_readout: gather the k rows and sum."""
-    rows = values2d.float()[indices.long()]  # [Q, K, C]
-    return torch.einsum("qk,qkc->qc", weights.float(), rows)
+def _segments(values):
+    """A ring given as one tensor or as a pair of segments -> a tuple."""
+    return tuple(values) if isinstance(values, (tuple, list)) else (values,)
 
 
-def _topk_readout_cuda(indices, weights, values2d):
+def topk_readout_plain(indices, weights, values):
+    """Plain twin of topk_readout: gather the k rows and sum. With two
+    segments each row is gathered from its own segment by index arithmetic,
+    so the result is bitwise that on the concatenated ring. Indices outside
+    the ring contribute nothing."""
+    idx = indices.long()
+    rows, start = None, 0  # rows: [Q, K, C]
+    for seg in _segments(values):
+        n = seg.shape[0]
+        if n:
+            local = idx - start
+            got = seg.float()[local.clamp(0, n - 1)]
+            rows = got if rows is None else torch.where(
+                ((local >= 0) & (local < n))[..., None], got, rows)
+        start += n
+    w = weights.float()
+    w = torch.where((idx >= 0) & (idx < start), w, torch.zeros_like(w))
+    return torch.einsum("qk,qkc->qc", w, rows)
+
+
+def _topk_readout_cuda(indices, weights, values):
     """Launches csrc/topk_readout.cu, the port of the Pallas
     `_readout_kernel` (deva_tpu/ops/pallas_attention.py:249-305). It is
-    bound by the bytes of the gathered value rows (Q*k*C*4); it gathers the
-    k rows per query with 16-byte loads instead of rebuilding a dense
-    affinity tile for a matrix unit (see the source note)."""
+    bound by the bytes of the value rows; a block of 16 queries stages the
+    first 64 distinct rows of its queries in shared memory with cp.async,
+    once each, and reads the others from global memory (see the source
+    note). A ring in two segments is read in place."""
     from deva_tpu_torch.ops import cuda_build
-    lib = cuda_build.load()
     q, k = indices.shape
-    n, c = values2d.shape
+    segs = _segments(values)
+    if len(segs) not in (1, 2):
+        raise ValueError(f"topk_readout: {len(segs)} ring segments")
+    c = segs[0].shape[1]
     _require(indices, "indices", torch.int32, (q, k))
     _require(weights, "weights", torch.float32, (q, k))
-    _require(values2d, "values", torch.float32, (n, c))
-    out = torch.empty((q, c), dtype=torch.float32, device=values2d.device)
-    vec4 = c % 4 == 0 and values2d.data_ptr() % 16 == 0
-    err = lib.deva_topk_readout(_ptr(indices), _ptr(weights), _ptr(values2d),
-                                q, n, k, c, int(vec4), _ptr(out),
-                                _stream(values2d.device))
+    for i, seg in enumerate(segs):
+        _require(seg, f"values[{i}]", torch.float32, (seg.shape[0], c))
+    (va, n_a), (vb, n_b) = [(s, s.shape[0]) for s in segs] + \
+        [(None, 0)] * (2 - len(segs))
+    lib = cuda_build.load()
+    out = torch.empty((q, c), dtype=torch.float32, device=va.device)
+    vec4 = c % 4 == 0 and all(s.data_ptr() % 16 == 0 for s in segs)
+    err = lib.deva_topk_readout(_ptr(indices), _ptr(weights), _ptr(va), n_a,
+                                _ptr(vb), n_b, q, k, c, int(vec4), _ptr(out),
+                                _stream(va.device))
     if err != 0:
         raise RuntimeError(
             f"topk_readout kernel launch failed: CUDA error {err}")
@@ -210,12 +251,13 @@ def _topk_readout_cuda(indices, weights, values2d):
 
 
 def topk_readout(indices: torch.Tensor, weights: torch.Tensor,
-                 values2d: torch.Tensor) -> torch.Tensor:
-    """indices/weights: [Q, K] (token ids and weights); values2d: [N, C]
-    (token-major, C = O*Cv). Returns [Q, C] f32."""
-    if _on_cuda(indices, weights, values2d):
-        return _topk_readout_cuda(indices, weights, values2d)
-    return topk_readout_plain(indices, weights, values2d)
+                 values) -> torch.Tensor:
+    """indices/weights: [Q, K] (token ids and weights); values: the ring,
+    [N, C] (token-major, C = O*Cv), or a pair of segments [n_a, C], [n_b, C]
+    read as their concatenation. Returns [Q, C] f32."""
+    if _on_cuda(indices, weights, *_segments(values)):
+        return _topk_readout_cuda(indices, weights, values)
+    return topk_readout_plain(indices, weights, values)
 
 
 # --------------------------------------------------------------------------
@@ -224,14 +266,17 @@ def topk_readout(indices: torch.Tensor, weights: torch.Tensor,
 
 def _attend(select, read, mk, ms, values, qk, qe, top_k, valid,
             return_usage):
-    n, o, cv = values.shape
+    segs = _segments(values)
+    o, cv = segs[0].shape[1:]
+    n = sum(v.shape[0] for v in segs)
     q = qk.shape[0]
     gv, gi = select(qk, qe, mk, ms, valid, top_k)
     w = ma.softmax_topk_values(gv)
-    out = read(gi, w, values.reshape(n, o * cv))
+    flat = tuple(v.reshape(v.shape[0], o * cv) for v in segs)  # views
+    out = read(gi, w, flat[0] if len(flat) == 1 else flat)
     out = out.reshape(q, o, cv).transpose(0, 1)
     if return_usage:
-        usage = torch.zeros((n,), dtype=torch.float32, device=values.device)
+        usage = torch.zeros((n,), dtype=torch.float32, device=qk.device)
         usage.index_add_(0, gi.reshape(-1).long(), w.reshape(-1))
         return out, usage
     return out
@@ -250,7 +295,9 @@ def attend_topk(mk: torch.Tensor, ms: Optional[torch.Tensor],
                 valid: Optional[torch.Tensor] = None,
                 return_usage: bool = False):
     """Exact top-k attention with no dense [Q, N] affinity (the composite of
-    pallas_attention.attend_pallas). values: [N, O, Cv] token-major.
-    Returns out [O, Q, Cv] (f32) and optionally the per-token usage [N]."""
+    pallas_attention.attend_pallas). values: [N, O, Cv] token-major, or a
+    pair of rings [n_a, O, Cv], [n_b, O, Cv] read in place as their
+    concatenation (mk, ms and valid cover all n_a + n_b tokens). Returns out
+    [O, Q, Cv] (f32) and optionally the per-token usage [N]."""
     return _attend(sim_topk, topk_readout, mk, ms, values, qk, qe, top_k,
                    valid, return_usage)

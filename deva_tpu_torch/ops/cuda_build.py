@@ -30,7 +30,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "deva_sim_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
                       _P, _P, _P],
-    "deva_topk_readout": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "deva_topk_readout": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
     "deva_segmax": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "deva_denom_readout": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],

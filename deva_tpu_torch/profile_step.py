@@ -9,8 +9,8 @@ through step (--chunk 1) or step_chunk in chunks of --chunk frames (with
 every frame's wall time (a chunk's time shared by its frames), and traces
 the last --window frames (whole chunks) with torch.profiler: device time per
 layer (the model's four modes and the memory attention, as profiler
-ranges), device time per kernel, and the device's busy share of the
-window's wall time.
+ranges), device time per kernel, the device's busy share of the
+window's wall time, and the peak allocated device memory of the run.
 
     python -m deva_tpu_torch.profile_step --frames 60 --window 10 \
         --topk_method approx --chunk 5 --trace step_trace.json
@@ -129,6 +129,8 @@ def main():
           f"device busy {busy_us / 1000:.1f} ms "
           f"({busy_us / (window_s * 1e6):.1%}), idle "
           f"{1 - busy_us / (window_s * 1e6):.1%}")
+    print(f"peak allocated {torch.cuda.max_memory_allocated(dev) / 2**20:.1f}"
+          " MiB over the run")
     for name, us in sorted(layers.items(), key=lambda kv: -kv[1]):
         print(f"layer {name}: {us / 1000 / window:.3f} ms/frame on the "
               f"device timeline ({us / (window_s * 1e6):.1%} of the wall)")

@@ -124,6 +124,30 @@ def test_attend_topk_fewer_valid_than_k():
     np.testing.assert_allclose(usage.numpy().sum(), 64, rtol=1e-5)
 
 
+@pytest.mark.parametrize("n", [1, 24, 29])
+def test_attend_topk_ring_smaller_than_k(n):
+    """A ring of fewer tokens than top_k=30 (a 64x96 frame gives 24): both
+    sides keep all n tokens (deva_tpu's Pallas route pads the ring and
+    softmaxes over the real tokens), out within 1e-4 and usage within 1e-5;
+    sim_topk returns [Q, n]."""
+    d = _inputs(8, n, 16, 64, o=2, cv=8)
+    (jmk, tmk), (jms, tms), (jval, tval), (jqk, tqk), (jqe, tqe) = map(
+        _both, (d["mk"], d["ms"], d["values"], d["qk"], d["qe"]))
+    ref, ref_usage = pa.attend_pallas(jmk, jms, jval, jqk, jqe, top_k=30,
+                                      return_usage=True, interpret=True)
+    out, usage = ak.attend_topk(tmk, tms, tval, tqk, tqe, 30,
+                                return_usage=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(usage.numpy(), np.asarray(ref_usage),
+                               rtol=1e-5, atol=1e-5)
+    gv, gi = ak.sim_topk(tqk, tqe, tmk, tms, None, 30)
+    assert gv.shape == gi.shape == (16, n)
+    assert sorted(gi[0].tolist()) == list(range(n))
+    with pytest.raises(ValueError):
+        ak.sim_topk(tqk, tqe, tmk[:0], tms[:0], None, 30)  # an empty ring
+
+
 def test_plain_twins_are_the_cpu_route():
     """On CPU tensors each wrapper is its plain twin, and launches nothing."""
     d = _inputs(7, 300, 50, 64, n_valid=280, o=2, cv=8)

@@ -30,6 +30,10 @@ def dev():
     return torch.device("cuda")
 
 
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
 def _inputs(dev, seed, n, q, ck=64, n_valid=None, with_qe=True,
             with_ms=True):
     rng = np.random.default_rng(seed)
@@ -77,20 +81,111 @@ def test_sim_topk_kernel_fewer_valid_than_k(dev):
     assert int(gi.max()) < 256
 
 
-@pytest.mark.parametrize("q,n,c,k", [(256, 512, 128, 16), (1620, 16712,
-                                                           1024, 30),
-                                     (33, 100, 30, 7)])
-def test_topk_readout_kernel_matches_plain(dev, q, n, c, k):
-    rng = np.random.default_rng(0)
+def _readout_inputs(dev, seed, q, n, c, k):
+    rng = np.random.default_rng(seed)
     idx = torch.from_numpy(
         rng.integers(0, n, (q, k)).astype(np.int32)).to(dev)
     w = rng.uniform(0, 1, (q, k)).astype(np.float32)
     w = torch.from_numpy(w / w.sum(-1, keepdims=True)).to(dev)
     values = torch.from_numpy(
         rng.standard_normal((n, c)).astype(np.float32)).to(dev)
+    return idx, w, values
+
+
+@pytest.mark.parametrize("q,n,c,k", [(256, 512, 128, 16), (1620, 16712,
+                                                           1024, 30),
+                                     (33, 100, 30, 7), (1620, 16712, 1536, 30),
+                                     (100, 700, 1030, 64), (17, 3, 4, 1)])
+def test_topk_readout_kernel_matches_plain(dev, q, n, c, k):
+    idx, w, values = _readout_inputs(dev, 0, q, n, c, k)
     out = ak.topk_readout(idx, w, values)
     torch.testing.assert_close(out, ak.topk_readout_plain(idx, w, values),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("c", [1024, 1536, 30, 1030])
+def test_topk_readout_two_segments_bitwise_one(dev, c):
+    """The ring as two segments, split at 0, 512 (the long-term ring), 513
+    (for C=30, segment B starts off a 16-byte boundary), N - 1 and N, and
+    split at 512 with segment B copied to a base 4 bytes past alignment
+    (the scalar path at any C), is bitwise the single-segment call on the
+    concatenated ring."""
+    idx, w, values = _readout_inputs(dev, 24, 1620, 3000, c, 30)
+    one = ak.topk_readout(idx, w, values)
+    shifted = torch.empty(2488 * c + 1, device=dev)[1:].view(2488, c)
+    shifted.copy_(values[512:])
+    assert shifted.data_ptr() % 16 != 0
+    for seg_a, seg_b in [(values[:at], values[at:])
+                         for at in (0, 512, 513, 2999, 3000)] + \
+            [(values[:512], shifted)]:
+        two = ak.topk_readout(idx, w, (seg_a, seg_b))
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(one), _bits(two)), (c, seg_a.shape[0])
+    torch.testing.assert_close(one, ak.topk_readout_plain(idx, w, values),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["all_distinct", "all_shared", "duplicates",
+                                  "out_of_range"])
+def test_topk_readout_kernel_tiles(dev, case):
+    """Tiles whose k*16 rows are all distinct (past the shared rows: the
+    overflow reads from global memory), all the same k rows, repeated within
+    a query, and indices outside the ring (they contribute nothing)."""
+    q, k, n, c = 100, 30, 4000, 1024
+    idx, w, values = _readout_inputs(dev, 25, q, n, c, k)
+    if case == "all_distinct":
+        idx = torch.randperm(n, device=dev)[:q * k].reshape(q, k).int()
+    elif case == "all_shared":
+        idx = idx[:1].expand(q, k).contiguous()
+    elif case == "duplicates":
+        idx[:, k // 2:] = idx[:, :k - k // 2].clone()
+        idx[3] = idx[3, 0]
+    else:
+        idx[::3, ::4] = -1
+        idx[1, :3] = torch.tensor([n, n + 9, -5], dtype=torch.int32)
+    out = ak.topk_readout(idx, w, (values[:512], values[512:]))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ak.topk_readout_plain(idx, w, values),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [1, 24, 29])
+def test_sim_topk_ring_smaller_than_k(dev, n):
+    """A ring of fewer tokens than top_k=30 selects all n, as the twin."""
+    qk, qe, mk, ms, _ = _inputs(dev, 26, n, 16)
+    values = torch.randn((n, 2, 8), device=dev)
+    gv, gi = ak.sim_topk(qk, qe, mk, ms, None, 30)
+    ref_v, ref_i = ak.sim_topk_plain(qk, qe, mk, ms, None, 30)
+    torch.cuda.synchronize()
+    assert gv.shape == (16, n)
+    torch.testing.assert_close(gv, ref_v, rtol=1e-5, atol=1e-5)
+    assert torch.equal(gi, ref_i)
+    out, usage = ak.attend_topk(mk, ms, values, qk, qe, 30,
+                                return_usage=True)
+    ref, ref_usage = ak.attend_topk_plain(mk, ms, values, qk, qe, 30,
+                                          return_usage=True)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(usage, ref_usage, rtol=1e-4, atol=1e-5)
+
+
+def test_attend_topk_two_rings_launches_two_kernels(dev):
+    """The [long-term ; working] value rings as a pair: one sim_topk and one
+    topk_readout launch; the readout bitwise the one on the concatenated
+    ring, the usage within rounding (index_add_'s atomics add in any
+    order)."""
+    qk, qe, mk, ms, valid = _inputs(dev, 27, 1300, 300, n_valid=1100)
+    values = torch.randn((1300, 2, 32), device=dev)
+    pair = (values[:512].contiguous(), values[512:].contiguous())
+    ak.reset_launch_counts()
+    out, usage = ak.attend_topk(mk, ms, pair, qk, qe, 12, valid,
+                                return_usage=True)
+    assert ak.LAUNCHES == {"sim_topk": 1, "topk_readout": 1, "segmax": 0,
+                           "denom_readout": 0}
+    ref, ref_usage = ak.attend_topk(mk, ms, values, qk, qe, 12, valid,
+                                    return_usage=True)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(ref))
+    torch.testing.assert_close(usage, ref_usage, rtol=1e-5, atol=1e-6)
 
 
 def test_attend_topk_kernels_match_plain(dev):
@@ -210,10 +305,6 @@ def test_segmax_kernel_matches_plain(dev, n, q, n_tile, with_qe):
     assert torch.equal(torch.isfinite(seg), torch.isfinite(ref))
     fin = torch.isfinite(ref)
     torch.testing.assert_close(seg[fin], ref[fin], rtol=1e-5, atol=1e-5)
-
-
-def _bits(t):
-    return t.contiguous().view(torch.int32)
 
 
 @pytest.mark.parametrize("n,q,c,n_valid", [(2048, 300, 1024, 1800),

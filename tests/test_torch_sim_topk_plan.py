@@ -68,7 +68,8 @@ def test_wrapper_limits_mirror_the_kernel_source():
     (65, 8, 300, ValueError),   # key dim above the kernel bound
     (64, 65, 300, ValueError),  # k above the kernel bound
     (64, 0, 300, ValueError),
-    (64, 30, 20, ValueError),   # fewer tokens than k
+    (64, 30, 0, ValueError),    # an empty ring (fewer tokens than k
+                                # select min(k, n): test_torch_attention)
 ])
 def test_wrapper_rejects_before_building(ck, top_k, n, error):
     qk = torch.zeros((10, ck))
