@@ -1,7 +1,8 @@
 """Smoke test of deva_tpu_torch on one NVIDIA GPU: builds the CUDA kernels from
 this checkout and drives the port's main paths (semi-supervised VOS
 propagation through InferenceCore.step with exact top-k, and through
-InferenceCore.step_chunk with threshold-approx top-k) on the card.
+InferenceCore.step_chunk with threshold-approx top-k) on the card, in f32
+and in deva_tpu's serving dtypes (bf16 compute, bf16 memory rings).
 
     python3 chip_smoke.py
 
@@ -25,17 +26,27 @@ Phases (any failure raises and the script exits non-zero):
    tied group maxima admit more than 4k entries, rows with fewer valid
    tokens than k and with none, and a check that every row's support
    contains the exact top-k of sim_topk.
+   bf16 rings (N = 1620 and 16712): sim_topk, topk_readout (one and two
+   segments) and segmax bitwise their f32 launches on the widened rings
+   (and, for the readout, on the weights rounded to bf16); denom_readout's
+   rmax and th bitwise and its usage within f32 atomics noise of the
+   f32-ring launch, its output within the bf16 rounding of the normalised
+   weights of that launch (2^-8 * sum aff |V|), and within 1e-5 of its twin
+   on 99% of the outputs (one bf16 ulp of the weights everywhere); each
+   timed beside a bound counted for bf16.
 2. The slice on the card against the slice on the CPU (the plain twins),
    seeded weights, long-term memory on, probabilities within 5e-3: with
    exact top-k on 8 frames of the 64x96 synthetic video of
-   tests/test_inference_parity.py through step; with approx top-k on 10
+   tests/test_inference_parity.py through step and through step_chunk;
+   with approx top-k on 10
    frames of 128x192, whose [long-term ; working] ring exceeds 512 tokens so
    that groups of 4 occur, through step and through step_chunk. The
    kernels of each method must have launched. Then, for each method, a
    third object appears: its mask frame and the next frame run the composed
    path (MemoryEngine.match_memory over two buckets) on the card, within
    5e-3 of the CPU; with exact top-k both exact kernels launch inside it,
-   with approx it takes the dense threshold form, as deva_tpu does.
+   with approx it takes the dense threshold form, as deva_tpu does. Then
+   the same with bf16 compute and bf16 rings, within BF16_SLICE_TOL.
 3. The exact 480p main path: the full-width model on 60 seeded synthetic
    854x480 frames with a two-object first-frame mask at the default
    InferenceConfig, through step (the fused step), so the working memory
@@ -51,17 +62,24 @@ Phases (any failure raises and the script exits non-zero):
    block body (preencode_blocks=True: a block's frames encoded as one
    batch, one attention per block), held to the per-frame body's
    probabilities within tests/test_step_chunk.py's budget for it.
+Phases 3 and 4 then run again with bf16 compute and bf16 rings on the same
+frames and weights: each bf16 kernel of the method launches once per
+propagated frame (59 in 59), and the probabilities meet
+tests/test_amp.py's whole-clip budget against the f32 run, frame by frame.
 
 The second-to-last line of output is a JSON object with each kernel's
 launches (phase 3 for the exact pair, phase 4 for the approx pair), largest
 error against its plain twin, and its time, its plain twin's, its bound and
 what sets it, the library call's (null where no single call computes the
-function) and the product's (null where none applies) at N=16712; the last
-line is {"ok": true, "device": {...}}. Exits non-zero without CUDA.
+function) and the product's (null where none applies) at N=16712, once on
+f32 rings and once on bf16 rings (names suffixed ".bf16", launches from
+the bf16 runs); the last line is {"ok": true, "device": {...}}. Exits
+non-zero without CUDA.
 """
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import os
 import re
@@ -92,6 +110,15 @@ RING_CASES = (1620, 3240, 6480, 8100, 16712)
 # the long-term ring's slots at 480p: phase 1 splits every ring there for
 # the two-segment readout
 LT_SLOTS = 512
+# phase 1's rings on bf16: one memory frame, and [long-term ; working]
+BF16_RINGS = (1620, 16712)
+# the kernels of topk_method 'exact'; the other two are 'approx''s
+EXACT_PAIR = ("sim_topk", "topk_readout")
+# phase 2's budget for the bf16 slice, card against CPU: the two run bf16
+# convolutions that sum in different orders (cuDNN, oneDNN), each layer a
+# few bf16 ulps apart; about three times the largest |dprob| the H100 gave
+# (tests/test_torch_cuda.py: 0.0126 exact, 0.0172 approx at 64x96)
+BF16_SLICE_TOL = 0.05
 # NVIDIA H100 SXM data sheet: f32 FFMA peak outside the tensor cores, and
 # HBM3 bandwidth (both at the 700 W limit)
 F32_FLOPS, HBM_BYTES = 67e12, 3.35e12
@@ -504,6 +531,151 @@ def phase_approx_kernels(ak, apx, dev) -> dict:
     return {"err": err, "times": times, "bounds": bounds}
 
 
+def phase_kernels_bf16(ak, apx, dev) -> dict:
+    """Phase 1 on bf16 rings (InferenceConfig(ring_dtype='bfloat16')), at
+    N = 1620 and 16712: each kernel against its f32 launch on the widened
+    rings, with the relation its design gives, and against its plain twin
+    on the same bf16 rings; timed beside a bound counted for bf16 (the key
+    and value bytes halve, the similarity's f32 FFMAs do not; segmax reads
+    the f32 mcat that prep2 builds from the widened keys, so its bound does
+    not change)."""
+    q, ck, k, o, cv = 1620, 64, 30, 2, 512
+    c, kc = o * cv, 2 * ck
+    gen = torch.Generator(device=dev).manual_seed(2)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    rand = lambda *s: torch.rand(s, generator=gen, device=dev)
+    qk, qe = randn(q, ck), rand(q, ck)
+    n_tile = apx.default_n_tile(c, 2)
+    assert n_tile == 1024  # deva_tpu's tile for bf16 rows of 1024 values
+    err = dict.fromkeys(KERNELS, 0.0)
+    times, bounds = {}, {}
+    for n in BF16_RINGS:
+        valid = ring_validity(n, dev)
+        mk16, ms16 = randn(n, ck).bfloat16(), (1 + 3 * rand(n)).bfloat16()
+        v16 = randn(n, c).bfloat16()
+        mk32, ms32, v32 = mk16.float(), ms16.float(), v16.float()
+
+        # sim_topk: bitwise the f32 launch on the widened ring
+        gv, gi = ak.sim_topk(qk, qe, mk16, ms16, valid, k)
+        rv, ri = ak.sim_topk(qk, qe, mk32, ms32, valid, k)
+        pv, pi = ak.sim_topk_plain(qk, qe, mk16, ms16, valid, k)
+        torch.cuda.synchronize()
+        assert same_bits(gv, rv) and torch.equal(gi, ri), \
+            f"sim_topk bf16 N={n}: not bitwise the widened ring"
+        torch.testing.assert_close(gv, pv, rtol=1e-5, atol=1e-5)
+        assert (gi != pi).float().mean().item() < 1e-3
+        err["sim_topk"] = max(err["sim_topk"], (gv - pv).abs().max().item())
+
+        # topk_readout: bitwise the f32 launch on (w rounded, V widened),
+        # one segment and two
+        w = torch.softmax(gv, dim=-1)
+        out = ak.topk_readout(gi, w, v16)
+        ref = ak.topk_readout(gi, w.bfloat16().float(), v32)
+        pair = (v16[:LT_SLOTS], v16[LT_SLOTS:])
+        plain = ak.topk_readout_plain(gi, w, v16)
+        torch.cuda.synchronize()
+        assert same_bits(out, ref), f"topk_readout bf16 N={n}: not bitwise"
+        assert same_bits(ak.topk_readout(gi, w, pair), out), \
+            f"topk_readout bf16 N={n}: two segments differ from one"
+        torch.testing.assert_close(out, plain, rtol=1e-4, atol=1e-4)
+        err["topk_readout"] = max(err["topk_readout"],
+                                  (out - plain).abs().max().item())
+
+        # segmax: bitwise on the widened keys
+        ops = apx.prep2(qk, qe, mk16, ms16, valid)
+        ops32 = apx.prep2(qk, qe, mk32, ms32, valid)
+        geom = apx.Geometry.of(n, n_tile)
+        seg = apx.segmax(ops, geom)
+        seg_ref = apx.segmax_plain(ops, geom)
+        torch.cuda.synchronize()
+        assert same_bits(seg, apx.segmax(ops32, geom)), \
+            f"segmax bf16 N={n}: not bitwise the widened keys"
+        fin = torch.isfinite(seg_ref)
+        assert torch.equal(torch.isfinite(seg), fin)
+        torch.testing.assert_close(seg[fin], seg_ref[fin], rtol=1e-5,
+                                   atol=1e-5)
+        err["segmax"] = max(err["segmax"],
+                            (seg[fin] - seg_ref[fin]).abs().max().item())
+
+        # denom_readout: rmax and th bitwise, usage within atomics noise,
+        # out within the bf16 rounding of the normalised weights, of the
+        # f32-ring launch; against the twin on the same bf16 ring
+        o16, u16, rmax16, th16 = apx.denom_readout(ops, geom, seg, v16, k)
+        o32, u32, rmax32, th32 = apx.denom_readout(ops, geom, seg, v32, k)
+        torch.cuda.synchronize()
+        assert same_bits(rmax16, rmax32) and same_bits(th16, th32), \
+            f"denom_readout bf16 N={n}: rmax or th differ"
+        usage_bits = same_bits(u16, u32)
+        torch.testing.assert_close(u16, u32, rtol=1e-5, atol=1e-6)
+        sim = apx.similarity2_plain(ops)
+        aff = apx._support_weights(sim, rmax32, th32)
+        slack = 2.0 ** -8 * (aff @ v32.abs()) + 1e-6
+        excess = ((o16 - o32).abs() / slack).max().item()
+        assert excess <= 1.0, f"denom_readout bf16 N={n}: {excess} of bound"
+        th_gap = apx.gap_threshold(sim, th32, 1e-3)
+        og, _, _, _ = apx.denom_readout(ops, geom, seg, v16, k, th_gap)
+        rg, _ = apx.denom_readout_plain(ops, geom, seg, rmax32, th_gap, v16)
+        diff = (og - rg).abs()
+        tight = (diff <= 1e-5 + 1e-5 * rg.abs()).float().mean().item()
+        aff_gap = apx._support_weights(sim, rmax32, th_gap)
+        assert tight >= 0.99 and bool(
+            (diff <= 2.0 ** -7 * (aff_gap @ v32.abs()) + 1e-5).all()), \
+            f"denom_readout bf16 N={n}: twin {tight:.4f} within 1e-5"
+        err["denom_readout"] = max(err["denom_readout"], diff.max().item())
+        support = (sim >= th32) & torch.isfinite(sim)
+        entries, rows = int(support.sum()), int(support.any(0).sum())
+        del sim, aff, aff_gap, support, slack
+        rows_r = int(torch.unique(gi).numel())
+
+        bounds[n] = {
+            "sim_topk": bound(4 * q * n * ck, 4 * 2 * q * ck
+                              + 2 * (n * ck + n) + n + 8 * q * k),
+            "topk_readout": bound(2 * q * k * c, 8 * q * k + 2 * rows_r * c
+                                  + 4 * q * c),
+            "segmax": bound(2 * q * n * kc, 4 * (q * kc + n * kc + n + q)
+                            + n + 4 * q * geom.nseg),
+            "denom_readout": bound(
+                2 * entries * (kc + c),
+                4 * q * (geom.nseg + kc + 1 + c) + rows * (2 * c + 4 * kc
+                                                           + 4 + 1) + 4 * n)}
+        t = {
+            "sim_topk": cuda_ms(lambda: ak.sim_topk(qk, qe, mk16, ms16,
+                                                    valid, k)),
+            "sim_topk_plain": cuda_ms(lambda: ak.sim_topk_plain(
+                qk, qe, mk16, ms16, valid, k)),
+            "sim_topk_product": cuda_ms(lambda: torch.mm(ops.qcat,
+                                                         ops.mcat.T)),
+            "topk_readout": cuda_ms(lambda: ak.topk_readout(gi, w, v16)),
+            "topk_readout_two_segments": cuda_ms(
+                lambda: ak.topk_readout(gi, w, pair)),
+            "topk_readout_plain": cuda_ms(
+                lambda: ak.topk_readout_plain(gi, w, v16)),
+            "segmax": cuda_ms(lambda: apx.segmax(ops, geom)),
+            "segmax_plain": cuda_ms(lambda: apx.segmax_plain(ops, geom)),
+            "segmax_product": cuda_ms(lambda: torch.mm(ops.qcat,
+                                                       ops.mcat.T)),
+            "denom_readout": cuda_ms(lambda: apx.denom_readout(
+                ops, geom, seg, v16, k)),
+            "denom_readout_plain": cuda_ms(lambda: apx._denom_readout_twin(
+                ops, geom, seg, v16, k)),
+            "denom_readout_f32_ring": cuda_ms(lambda: apx.denom_readout(
+                ops, geom, seg, v32, k)),
+        }
+        times[n] = t
+        print(f"phase 1 bf16 rings N={n}: sim_topk, topk_readout (one and "
+              f"two segments) and segmax bitwise their f32 launches on the "
+              f"widened rings; denom_readout rmax, th bitwise, usage "
+              f"{'bitwise' if usage_bits else 'within 1e-5'}, out at most "
+              f"{excess:.3f} of the 2^-8 bound, twin within 1e-5 on "
+              f"{tight:.4%}; err vs twins " +
+              ", ".join(f"{name} {v:.3g}" for name, v in err.items()) +
+              "; ms " + ", ".join(f"{name} {v:.4f}" for name, v in t.items())
+              + "; bound ms " +
+              ", ".join(f"{name} {b:.4f} ({by})"
+                        for name, (b, by) in bounds[n].items()), flush=True)
+    return {"err": err, "times": times, "bounds": bounds}
+
+
 # --------------------------------------------------------------------------
 # phase 2: the slice on the card against the slice on the CPU
 # --------------------------------------------------------------------------
@@ -528,10 +700,10 @@ def two_object_mask(h, w, rows1, cols1, rows2, cols2):
 
 
 def composed_frames(ak, cpu_core, gpu_core, frames, rows, cols,
-                    label: str):
+                    label: str, tol: float = 5e-3):
     """A third object appears mid-stream: its mask frame and the next frame
     take the composed path (MemoryEngine.match_memory; the next frame over
-    two buckets) on the card, against the CPU within 5e-3. Returns a
+    two buckets) on the card, against the CPU within tol. Returns a
     summary and, per match_memory call, the kernel launches made inside
     it."""
     h, w = frames[0].shape[:2]
@@ -558,7 +730,7 @@ def composed_frames(ak, cpu_core, gpu_core, frames, rows, cols,
         assert p_gpu.shape == p_cpu.shape == (4, h, w), p_gpu.shape
         diff = (p_gpu - p_cpu).abs().max().item()
         worst = max(worst, diff)
-        assert diff <= 5e-3, f"{label} composed frame {i}: |card - cpu| = " \
+        assert diff <= tol, f"{label} composed frame {i}: |card - cpu| = " \
             f"{diff}"
     assert len(gpu_core.memory.buckets) == 2
     return (f"new object: {len(calls)} match_memory calls on the card over "
@@ -566,13 +738,15 @@ def composed_frames(ak, cpu_core, gpu_core, frames, rows, cols,
             f"inside them {calls}"), calls
 
 
-def phase_slice_parity(ak, net_cpu, dev):
+def phase_slice_parity(ak, net_cpu, dev, ring_dtype="float32",
+                       tol: float = 5e-3):
     from deva_tpu_torch.config import InferenceConfig
     from deva_tpu_torch.inference.core import InferenceCore
     cfg = InferenceConfig(mem_every=2, top_k=8, enable_long_term=True,
                           enable_long_term_count_usage=True,
                           max_mid_term_frames=3, min_mid_term_frames=1,
-                          num_prototypes=16, max_long_term_elements=96)
+                          num_prototypes=16, max_long_term_elements=96,
+                          ring_dtype=ring_dtype)
     frames = synthetic_video(np.random.default_rng(7), 64, 96, 10)
     mask = two_object_mask(64, 96, (8, 28), (10, 40), (36, 60), (50, 90))
     net_gpu = copy.deepcopy(net_cpu).to(dev)
@@ -580,30 +754,41 @@ def phase_slice_parity(ak, net_cpu, dev):
     gpu_core = InferenceCore(net_gpu, cfg)
     ak.reset_launch_counts()
     worst = 0.0
+    p_cpu = []
     for ti, img in enumerate(frames[:8]):
         args = (mask, [1, 2]) if ti == 0 else ()
-        p_cpu = cpu_core.step(img, *args)
+        p_cpu.append(cpu_core.step(img, *args))
         p_gpu = gpu_core.step(img, *args).cpu()
-        assert p_gpu.shape == p_cpu.shape == (3, 64, 96)
-        diff = (p_gpu - p_cpu).abs().max().item()
+        assert p_gpu.shape == p_cpu[-1].shape == (3, 64, 96)
+        diff = (p_gpu - p_cpu[-1]).abs().max().item()
         worst = max(worst, diff)
-        assert diff <= 5e-3, f"frame {ti}: |card - cpu| = {diff}"
+        assert diff <= tol, f"frame {ti}: |card - cpu| = {diff}"
     launches = dict(ak.LAUNCHES)
+    # the same frames through step_chunk on the card (a memory period per
+    # call of the fused block body)
+    chunk_core = InferenceCore(net_gpu, cfg)
+    p_chunk = [chunk_core.step(frames[0], mask, [1, 2])]
+    p_chunk += chunk_core.step_chunk(frames[1:8])
+    worst_chunk = max((g.cpu() - c).abs().max().item()
+                      for g, c in zip(p_chunk, p_cpu))
+    assert worst_chunk <= tol, f"step_chunk: |card - cpu| = {worst_chunk}"
     assert launches["sim_topk"] > 0 and launches["topk_readout"] > 0, \
         launches
     lt = gpu_core.memory.long_buckets.get(0)
     assert lt is not None and lt.size > 0, "long-term memory never engaged"
+    assert lt.key.dtype == getattr(torch, ring_dtype)
     composed, calls = composed_frames(ak, cpu_core, gpu_core, frames[8:],
-                                      (4, 20), (60, 88), "exact")
+                                      (4, 20), (60, 88), "exact", tol)
     assert all(c["sim_topk"] > 0 and c["topk_readout"] > 0
                for c in calls), f"exact kernels not in match_memory: {calls}"
-    print(f"phase 2 exact: card vs cpu slice max |dprob| {worst:.3g} over 8 "
-          f"frames "
-          f"(bound 5e-3); launches {launches}; long-term tokens {lt.size}; "
-          f"{composed}", flush=True)
+    print(f"phase 2 exact{dtype_label(net_cpu, ring_dtype)}: card vs cpu "
+          f"slice max |dprob| step {worst:.3g}, step_chunk "
+          f"{worst_chunk:.3g} over 8 frames (bound {tol:g}); launches "
+          f"{launches}; long-term tokens {lt.size}; {composed}", flush=True)
 
 
-def phase_slice_parity_approx(ak, apx, net_cpu, dev):
+def phase_slice_parity_approx(ak, apx, net_cpu, dev, ring_dtype="float32",
+                              tol: float = 5e-3):
     """The approx slice, card against CPU, through step and step_chunk:
     128x192 frames (96 tokens), a memory frame every frame and long-term
     memory consolidating at 7 frames, so the [long-term ; working] ring
@@ -615,7 +800,7 @@ def phase_slice_parity_approx(ak, apx, net_cpu, dev):
                           enable_long_term_count_usage=True,
                           max_mid_term_frames=7, min_mid_term_frames=2,
                           num_prototypes=16, max_long_term_elements=96,
-                          topk_method="approx")
+                          topk_method="approx", ring_dtype=ring_dtype)
     frames = synthetic_video(np.random.default_rng(21), h, w, 12)
     mask = two_object_mask(h, w, (16, 56), (20, 80), (72, 120), (100, 180))
     net_gpu = copy.deepcopy(net_cpu).to(dev)
@@ -634,22 +819,26 @@ def phase_slice_parity_approx(ak, apx, net_cpu, dev):
     for name, probs in (("step", p_step), ("step_chunk", p_chunk)):
         diff = max((g.cpu() - c).abs().max().item()
                    for g, c in zip(probs, p_cpu))
-        assert diff <= 5e-3, f"approx {name}: |card - cpu| = {diff}"
+        assert diff <= tol, f"approx {name}: |card - cpu| = {diff}"
         worst[name] = diff
     assert launches["segmax"] >= 18 and launches["denom_readout"] >= 18, \
         launches
     for core in (step_core, chunk_core):
         lt, work = core.memory.long_buckets[0], core.memory.buckets[0]
         geom = apx.Geometry.of(lt.cap + work.cap, apx.default_n_tile(
-            work.value.shape[1] * work.value.shape[2], 4))
-        assert lt.size > 0 and geom.group == 4, (lt.cap, work.cap, geom)
+            work.value.shape[1] * work.value.shape[2],
+            work.value.element_size()))
+        # groups of 4 on f32 rings (512-token tiles); bf16 rings take
+        # deva_tpu's 1024-token tiles, one tile of 768 here: groups of 2
+        assert lt.size > 0 and geom.group > 1, (lt.cap, work.cap, geom)
     composed, calls = composed_frames(ak, cpu_core, step_core, frames[10:],
-                                      (8, 48), (110, 180), "approx")
+                                      (8, 48), (110, 180), "approx", tol)
     # the composed path takes the dense threshold form, as deva_tpu does
     assert not any(any(c.values()) for c in calls), calls
-    print(f"phase 2 approx: card vs cpu slice max |dprob| step "
+    print(f"phase 2 approx{dtype_label(net_cpu, ring_dtype)}: card vs cpu "
+          f"slice max |dprob| step "
           f"{worst['step']:.3g}, step_chunk {worst['step_chunk']:.3g} over "
-          f"10 frames of {h}x{w} (bound 5e-3); [long-term ; working] ring "
+          f"10 frames of {h}x{w} (bound {tol:g}); [long-term ; working] ring "
           f"{lt.cap}+{work.cap} tokens in groups of {geom.group}; launches "
           f"{launches}; {composed}", flush=True)
 
@@ -659,6 +848,10 @@ def phase_slice_parity_approx(ak, apx, net_cpu, dev):
 # --------------------------------------------------------------------------
 
 def main_path_setup(net_cpu, dev, n_frames):
+    # earlier phases leave reference cycles (a core whose match_memory
+    # was wrapped) that hold device memory until a collection: collect
+    # them, so that a run's peak counts its own memory only
+    gc.collect()
     frames = synthetic_video(np.random.default_rng(11), H480, W480,
                              n_frames)
     # a rider above a bike, as in bmx-trees
@@ -673,6 +866,52 @@ def check_prob(prob, ti):
     assert bool(torch.isfinite(prob).all()), f"frame {ti}: non-finite"
     torch.testing.assert_close(prob.sum(0), torch.ones_like(prob[0]),
                                rtol=0, atol=1e-4)
+
+
+def dtype_label(net, ring_dtype: str) -> str:
+    """', bf16 compute, bf16 rings' and the like; '' for all-f32."""
+    compute = net.config.compute_dtype
+    if compute == torch.float32 and ring_dtype == "float32":
+        return ""
+    short = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    return (f", {short[compute]} compute, "
+            f"{short[getattr(torch, ring_dtype)]} rings")
+
+
+def with_dtype(net, dtype: str):
+    """The same weights in a DEVANetwork of another compute dtype."""
+    import dataclasses
+    from deva_tpu_torch.models.network import DEVANetwork
+    out = DEVANetwork(dataclasses.replace(net.config, dtype=dtype)).eval()
+    out.load_state_dict(net.state_dict())
+    return out
+
+
+def compare_dtypes(f32_probs, bf16_probs, label: str):
+    """The bf16 480p run against the f32 run of the same frames and weights
+    on the card, with tests/test_amp.py's whole-clip budget per frame:
+    mean |dprob| < 0.03, argmax flips at confident pixels (f32 margin
+    > 0.25) under 2%, and none where the f32 margin exceeds 0.6."""
+    worst_mean = worst_conf = worst_margin = 0.0
+    for ti, (pe, pa) in enumerate(zip(f32_probs, bf16_probs)):
+        mean = (pa - pe).abs().mean().item()
+        flips = pa.argmax(0) != pe.argmax(0)
+        top2 = pe.topk(2, dim=0).values
+        margin = top2[0] - top2[1]
+        conf = (flips & (margin > 0.25)).float().mean().item()
+        flipped = margin[flips].max().item() if bool(flips.any()) else 0.0
+        assert mean < 0.03, f"{label} frame {ti}: mean |dprob| {mean}"
+        assert conf < 0.02, f"{label} frame {ti}: confident flips {conf}"
+        assert flipped <= 0.6, f"{label} frame {ti}: flip at margin " \
+            f"{flipped}"
+        worst_mean = max(worst_mean, mean)
+        worst_conf = max(worst_conf, conf)
+        worst_margin = max(worst_margin, flipped)
+    print(f"{label} vs the f32 run: per-frame mean |dprob| at most "
+          f"{worst_mean:.4g} (budget 0.03), confident-pixel flips at most "
+          f"{worst_conf:.3%} (budget 2%), largest flipped f32 margin "
+          f"{worst_margin:.3g} (budget 0.6), over {len(f32_probs)} frames",
+          flush=True)
 
 
 def report_main_path(label, core, step_ms, launches, dev, n_frames):
@@ -692,12 +931,14 @@ def report_main_path(label, core, step_ms, launches, dev, n_frames):
           flush=True)
 
 
-def phase_main_path(ak, net_cpu, dev, n_frames: int = 60) -> dict:
-    """Phase 3: exact top-k through step (the fused step) at 480p."""
+def phase_main_path(ak, net_cpu, dev, n_frames: int = 60,
+                    ring_dtype: str = "float32"):
+    """Phase 3: exact top-k through step (the fused step) at 480p. Returns
+    the launch counts and the probabilities (on the host)."""
     from deva_tpu_torch.config import InferenceConfig
     from deva_tpu_torch.inference.core import InferenceCore
     frames, mask, net = main_path_setup(net_cpu, dev, n_frames)
-    core = InferenceCore(net, InferenceConfig())
+    core = InferenceCore(net, InferenceConfig(ring_dtype=ring_dtype))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
 
@@ -710,7 +951,7 @@ def phase_main_path(ak, net_cpu, dev, n_frames: int = 60) -> dict:
         return real_readout(indices, weights, values)
 
     ak.reset_launch_counts()
-    step_ms = []
+    step_ms, out = [], []
     for ti, img in enumerate(frames):
         args = (mask, [1, 2]) if ti == 0 else ()
         ak.topk_readout = keep_indices if ti == n_frames - 10 else \
@@ -723,24 +964,27 @@ def phase_main_path(ak, net_cpu, dev, n_frames: int = 60) -> dict:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1000)
         check_prob(prob, ti)
+        out.append(prob.cpu())  # kept on the host, out of the peak memory
     launches = dict(ak.LAUNCHES)
     assert len(seen) == 1 and isinstance(seen[0][1], tuple), \
         f"frame {n_frames - 10} did not read the [long-term ; working] " \
         "pair once"
     gi, (v_lt, v_work) = seen[0]
-    print(rows_line(f"phase 3 frame {n_frames - 10} (ring {v_lt.shape[0]}"
-                    f" + {v_work.shape[0]})", gi, v_lt.shape[1]), flush=True)
+    label = "phase 3 exact, step" + dtype_label(net, ring_dtype)
+    print(rows_line(f"{label}, frame {n_frames - 10} (ring "
+                    f"{v_lt.shape[0]} + {v_work.shape[0]})", gi,
+                    v_lt.shape[1]), flush=True)
 
     propagated = n_frames - 1
     assert launches["sim_topk"] >= propagated and \
         launches["topk_readout"] >= propagated, launches
-    report_main_path("phase 3 exact, step", core, step_ms, launches, dev,
-                     n_frames)
-    return launches
+    report_main_path(label, core, step_ms, launches, dev, n_frames)
+    return launches, out
 
 
 def phase_main_path_approx(ak, net_cpu, dev, n_frames: int = 60,
-                           chunk: int = 5, preencode: bool = False):
+                           chunk: int = 5, preencode: bool = False,
+                           ring_dtype: str = "float32"):
     """Phase 4: approx top-k at 480p, the first frame through step and the
     rest through step_chunk in chunks of `chunk` (the last one ending the
     video), as eval_vos_torch.py --chunk buffers them. A chunk's time is
@@ -751,7 +995,8 @@ def phase_main_path_approx(ak, net_cpu, dev, n_frames: int = 60,
     from deva_tpu_torch.inference.core import InferenceCore
     frames, mask, net = main_path_setup(net_cpu, dev, n_frames)
     core = InferenceCore(net, InferenceConfig(topk_method="approx",
-                                              preencode_blocks=preencode))
+                                              preencode_blocks=preencode,
+                                              ring_dtype=ring_dtype))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
 
@@ -781,8 +1026,9 @@ def phase_main_path_approx(ak, net_cpu, dev, n_frames: int = 60,
     assert launches["segmax"] >= calls and \
         launches["denom_readout"] >= calls, launches
     body = ", pre-encoded blocks" if preencode else ""
-    report_main_path(f"phase 4 approx, step_chunk by {chunk}{body}", core,
-                     step_ms, launches, dev, n_frames)
+    report_main_path(f"phase 4 approx, step_chunk by {chunk}{body}"
+                     f"{dtype_label(net, ring_dtype)}", core, step_ms,
+                     launches, dev, n_frames)
     return launches, out
 
 
@@ -831,28 +1077,49 @@ def main() -> int:
 
     exact = phase_kernels(ak, apx, dev)
     approx = phase_approx_kernels(ak, apx, dev)
+    bf16 = phase_kernels_bf16(ak, apx, dev)
     net_cpu = init_weights(DEVANetwork(), seed=0).eval()
+    net_cpu16 = with_dtype(net_cpu, "bfloat16")
     phase_slice_parity(ak, net_cpu, dev)
     phase_slice_parity_approx(ak, apx, net_cpu, dev)
-    launches = phase_main_path(ak, net_cpu, dev)
+    phase_slice_parity(ak, net_cpu16, dev, "bfloat16", BF16_SLICE_TOL)
+    phase_slice_parity_approx(ak, apx, net_cpu16, dev, "bfloat16",
+                              BF16_SLICE_TOL)
+    launches, probs = phase_main_path(ak, net_cpu, dev)
+    launches16, probs16 = phase_main_path(ak, net_cpu16, dev,
+                                          ring_dtype="bfloat16")
+    compare_dtypes(probs, probs16, "phase 3 exact, bf16")
+    del probs, probs16
     launches_approx, probs = phase_main_path_approx(ak, net_cpu, dev)
     compare_preencoded(probs, phase_main_path_approx(ak, net_cpu, dev,
                                                      preencode=True)[1])
-    del probs
+    launches_approx16, probs16 = phase_main_path_approx(
+        ak, net_cpu16, dev, ring_dtype="bfloat16")
+    compare_dtypes(probs, probs16, "phase 4 approx, bf16")
+    del probs, probs16
+    for runs in (launches16, launches_approx16):
+        used = [name for name, count in runs.items() if count]
+        assert all(runs[name] == 59 for name in used) and len(used) == 2, \
+            f"bf16 run: not one launch per propagated frame: {runs}"
 
     rows = []
-    for name, (src, tpu) in KERNELS.items():
-        res, runs = (exact, launches) if name in exact["err"] else \
-            (approx, launches_approx)
-        main_shape = res["times"][16712]
-        bound_ms, bound_by = res["bounds"][16712][name]
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": tpu, "launches": runs[name],
-                     "max_abs_err": res["err"][name], "ms": main_shape[name],
-                     "plain_ms": main_shape[name + "_plain"],
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": main_shape.get(name + "_library"),
-                     "product_ms": main_shape.get(name + "_product")})
+    for ring, res_exact, res_approx, run_exact, run_approx in (
+            ("float32", exact, approx, launches, launches_approx),
+            ("bfloat16", bf16, bf16, launches16, launches_approx16)):
+        for name, (src, tpu) in KERNELS.items():
+            res, runs = (res_exact, run_exact) if name in EXACT_PAIR \
+                else (res_approx, run_approx)
+            main_shape = res["times"][16712]
+            bound_ms, bound_by = res["bounds"][16712][name]
+            rows.append({
+                "name": name if ring == "float32" else name + ".bf16",
+                "ring_dtype": ring, "route": "cuda", "source": src,
+                "replaces": tpu, "launches": runs[name],
+                "max_abs_err": res["err"][name], "ms": main_shape[name],
+                "plain_ms": main_shape[name + "_plain"],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": main_shape.get(name + "_library"),
+                "product_ms": main_shape.get(name + "_product")})
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": rows}))

@@ -1,10 +1,17 @@
 """Typed configuration for deva_tpu_torch.
 
 Same fields and defaults as deva_tpu/config.py, so command-line flags and
-`flat_config` match between the two packages. The one difference is how the
-'auto' dtypes resolve: here they are float32 on every backend, because this
-port is held to deva_tpu's f32 results (bf16 compute comes later, with the
-drift budgets of tests/test_amp.py).
+`flat_config` match between the two packages. Two dtypes are configurable,
+each on its own:
+- ModelConfig.dtype, the compute dtype of the convolutions and dense layers
+  (parameters stay float32; attention, logit aggregation and the final
+  prediction conv stay float32, as in deva_tpu);
+- InferenceConfig.ring_dtype, the storage dtype of the memory rings' keys,
+  shrinkage, selection and values (usage counts stay float32).
+Each takes 'float32' or 'bfloat16'. 'auto' resolves to float32 on every
+device: deva_tpu resolves it to bfloat16 only on a TPU, so on a GPU bf16
+runs only when asked for ('bfloat16', or --amp in eval_vos_torch.py), as
+it does in deva_tpu off the TPU. Any other name raises.
 """
 from __future__ import annotations
 
@@ -30,13 +37,16 @@ def resolve_dtype(name: str) -> str:
     return "float32" if name == "auto" else name
 
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def _torch_dtype(name: str) -> torch.dtype:
     name = resolve_dtype(name)
-    if name != "float32":
+    if name not in _DTYPES:
         raise NotImplementedError(
-            f"dtype {name!r}: only float32 is implemented in deva_tpu_torch "
-            "so far")
-    return torch.float32
+            f"dtype {name!r}: deva_tpu_torch takes 'float32', 'bfloat16' "
+            "or 'auto'")
+    return _DTYPES[name]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +59,10 @@ class ModelConfig:
 
     def __post_init__(self):
         _torch_dtype(self.dtype)  # raises for a dtype the port lacks
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return _torch_dtype(self.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +111,9 @@ class InferenceConfig:
     ring_dtype: str = "auto"
 
     obj_pad_buckets: tuple = (1, 2, 3, 4, 8, 16, 32, 64, 128, 256)
+
+    def __post_init__(self):
+        _torch_dtype(self.ring_dtype)  # raises for a dtype the port lacks
 
     def resolve_topk_method(self) -> str:
         """'auto' and 'exact' -> 'exact'; 'approx' -> 'approx'."""

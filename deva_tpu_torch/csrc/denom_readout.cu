@@ -54,16 +54,28 @@
 // entries) takes rounds: the denominator over all of them, then again,
 // round by round, for the readout. A row with no valid token gets a zero
 // denominator, clamped, and writes zeros.
+//
+// The value ring is float or bf16 (ring.cuh), one template instance each.
+// On bf16 the normalised weight aff = e * inv is rounded to bf16 before the
+// product, as the Pallas kernel casts its normalised affinity tile
+// (pallas_attention.py:524-532), not e; the usage sums the f32 aff. A lane
+// then takes VPL 16-byte vectors of 8 columns, so a column block is 1024
+// columns for both types, and the value bytes of the support halve. rmax,
+// th and the support never touch the values: they are bitwise those of the
+// float instance.
+#include "ring.cuh"
 #include "sim2.cuh"
 
 namespace {
+
+using deva_ring::bf16;
 
 constexpr int KC_MAX = 128;
 constexpr int GROUP_MAX = 4;
 constexpr int GCAP = 64;                  // qualifying groups per round
 constexpr int SCAP = GCAP * GROUP_MAX;    // token slots per round
 constexpr int ILP = 4;                    // similarities in flight per lane
-constexpr int VPL = 8;                    // value vectors per lane per block
+constexpr int VPL = 8;  // float4 value vectors per lane per column block
 constexpr int CCAP = 512;                 // candidate group maxima
 constexpr int ROWS = 2;  // query rows (warps) per block: 1..8 moved the
                          // 480p-shape time by <= 9% on the H100
@@ -138,7 +150,7 @@ __device__ float kth_largest(const float* row, int nseg, unsigned kk,
   return key_float(prefix);
 }
 
-template <bool HAS_QE, bool VEC4>
+template <bool HAS_QE, bool VEC16, typename T>
 __global__ void __launch_bounds__(32 * ROWS)
 denom_readout_kernel(const float* __restrict__ qcat,
                      const float* __restrict__ mcat,
@@ -148,7 +160,7 @@ denom_readout_kernel(const float* __restrict__ qcat,
                      const uint8_t* __restrict__ valid,
                      const float* __restrict__ seg,
                      const float* __restrict__ th_in,
-                     const float* __restrict__ values, int Q, int N, int kc,
+                     const T* __restrict__ values, int Q, int N, int kc,
                      int n_tile, int width, int groups, int nseg, int C,
                      int kk, float* __restrict__ out,
                      float* __restrict__ usage, float* __restrict__ rmax_out,
@@ -313,12 +325,15 @@ denom_readout_kernel(const float* __restrict__ qcat,
     den += __shfl_xor_sync(FULL, den, off);
   const float inv = 1.f / fmaxf(den, 1e-30f);
 
-  constexpr int V = VEC4 ? 4 : 1;
-  constexpr int COLS = 32 * VPL * V;  // value columns per column block
+  // a lane's columns of a block: VL vectors of V elements (16 bytes each on
+  // the vector path)
+  constexpr int V = VEC16 ? deva_ring::kVec16<T> : 1;
+  constexpr int VL = VPL * 4 / (VEC16 ? V : 4);
+  constexpr int COLS = 32 * VL * V;  // value columns per column block
   for (int col0 = 0; col0 < C; col0 += COLS) {
-    float acc[VPL][V];
+    float acc[VL][V];
 #pragma unroll
-    for (int v = 0; v < VPL; ++v)
+    for (int v = 0; v < VL; ++v)
 #pragma unroll
       for (int x = 0; x < V; ++x) acc[v][x] = 0.f;
     pos = 0;
@@ -332,21 +347,20 @@ denom_readout_kernel(const float* __restrict__ qcat,
           atomicAdd(&usage[tok[i]], w[i] * inv);
 #pragma unroll 2
       for (int i = 0; i < count; ++i) {
-        const float wi = w[i] * inv;
-        const float* vrow = values + (size_t)tok[i] * C;
+        const float wi = deva_ring::weight<T>(w[i] * inv);
+        const T* vrow = values + (size_t)tok[i] * C;
 #pragma unroll
-        for (int v = 0; v < VPL; ++v) {
+        for (int v = 0; v < VL; ++v) {
           const int col = col0 + (v * 32 + lane) * V;
           if (col < C) {
-            if constexpr (VEC4) {
-              const float4 x =
-                  __ldg(reinterpret_cast<const float4*>(vrow + col));
-              acc[v][0] = fmaf(wi, x.x, acc[v][0]);
-              acc[v][1] = fmaf(wi, x.y, acc[v][1]);
-              acc[v][2] = fmaf(wi, x.z, acc[v][2]);
-              acc[v][3] = fmaf(wi, x.w, acc[v][3]);
+            if constexpr (VEC16) {
+              float x[V];
+              deva_ring::ldg16(vrow + col, x);
+#pragma unroll
+              for (int e = 0; e < V; ++e)
+                acc[v][e] = fmaf(wi, x[e], acc[v][e]);
             } else {
-              acc[v][0] = fmaf(wi, __ldg(vrow + col), acc[v][0]);
+              acc[v][0] = fmaf(wi, deva_ring::ldg1(vrow + col), acc[v][0]);
             }
           }
         }
@@ -355,14 +369,17 @@ denom_readout_kernel(const float* __restrict__ qcat,
     } while (pos < len);
     float* orow = out + (size_t)q * C;
 #pragma unroll
-    for (int v = 0; v < VPL; ++v) {
+    for (int v = 0; v < VL; ++v) {
       const int col = col0 + (v * 32 + lane) * V;
       if (col < C) {
-        if constexpr (VEC4)
-          *reinterpret_cast<float4*>(orow + col) =
-              make_float4(acc[v][0], acc[v][1], acc[v][2], acc[v][3]);
-        else
-          orow[col] = acc[v][0];
+#pragma unroll
+        for (int x = 0; x < V; x += 4) {
+          if constexpr (VEC16)
+            *reinterpret_cast<float4*>(orow + col + x) = make_float4(
+                acc[v][x], acc[v][x + 1], acc[v][x + 2], acc[v][x + 3]);
+          else
+            orow[col] = acc[v][0];
+        }
       }
     }
   }
@@ -391,21 +408,22 @@ __global__ void sim2_at_kernel(const float* __restrict__ qcat,
                              valid == nullptr || valid[n]);
 }
 
-template <bool HAS_QE, bool VEC4>
+template <bool HAS_QE, bool VEC16, typename T>
 cudaError_t launch(const float* qcat, const float* mcat, const float* bsq,
                    const float* msq, const float* msv, const uint8_t* valid,
-                   const float* seg, const float* th_in, const float* values,
+                   const float* seg, const float* th_in, const void* values,
                    int Q, int N, int kc, int n_tile, int width, int groups,
                    int nseg, int C, int kk, float* out, float* usage,
                    float* rmax, float* th, cudaStream_t st) {
   const size_t smem = (size_t)ROWS * WARP_WORDS * sizeof(float);
-  auto kernel = denom_readout_kernel<HAS_QE, VEC4>;
+  auto kernel = denom_readout_kernel<HAS_QE, VEC16, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<(Q + ROWS - 1) / ROWS, 32 * ROWS, smem, st>>>(
-      qcat, mcat, bsq, msq, msv, valid, seg, th_in, values, Q, N, kc, n_tile,
-      width, groups, nseg, C, kk, out, usage, rmax, th);
+      qcat, mcat, bsq, msq, msv, valid, seg, th_in,
+      static_cast<const T*>(values), Q, N, kc, n_tile, width, groups, nseg, C,
+      kk, out, usage, rmax, th);
   return cudaGetLastError();
 }
 
@@ -421,19 +439,21 @@ bool bad_operands(const float* bsq, const float* msq, int Q, int N, int kc,
 }  // namespace
 
 // Operands as deva_segmax, plus seg [Q, nseg] (its output), th_in [Q] or
-// null, values [N, C], k >= 1; out [Q, C]; usage [N], zeroed by the caller;
-// rmax and th [Q], the row max and threshold used. vec4 requires C % 4 == 0
-// and 16-byte aligned values/out. qcat and mcat rows must be 16-byte aligned
-// (kc % 4 == 0), as must the rows of seg (nseg % 4 == 0). Returns the CUDA
-// error code of the launch.
+// null, values [N, C] float (ring_bf16 = 0) or bf16 (1), k >= 1; out
+// [Q, C]; usage [N], zeroed by the caller; rmax and th [Q], the row max and
+// threshold used. vec selects the 16-byte path: it requires C % 4 == 0
+// (float) or C % 8 == 0 (bf16) and 16-byte aligned values/out. qcat and mcat
+// rows must be 16-byte aligned (kc % 4 == 0), as must the rows of seg
+// (nseg % 4 == 0). Returns the CUDA error code of the launch.
 extern "C" int deva_denom_readout(
     const float* qcat, const float* mcat, const float* bsq, const float* msq,
     const float* msv, const uint8_t* valid, const float* seg,
-    const float* th_in, const float* values, int Q, int N, int kc, int n_tile,
-    int folds, int C, int k, int vec4, float* out, float* usage, float* rmax,
-    float* th, void* stream) {
+    const float* th_in, const void* values, int ring_bf16, int Q, int N,
+    int kc, int n_tile, int folds, int C, int k, int vec, float* out,
+    float* usage, float* rmax, float* th, void* stream) {
   if (bad_operands(bsq, msq, Q, N, kc, n_tile, folds) || C <= 0 || k <= 0 ||
-      (vec4 && C % 4 != 0))
+      (ring_bf16 != 0 && ring_bf16 != 1) ||
+      (vec && C % (ring_bf16 ? 8 : 4) != 0))
     return (int)cudaErrorInvalidValue;
   const int width = n_tile >> folds;
   const int nseg = ((N + n_tile - 1) / n_tile) * width;
@@ -442,8 +462,14 @@ extern "C" int deva_denom_readout(
   const int kk = k < nseg ? k : nseg;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool has_qe = bsq != nullptr;
-  auto go = has_qe ? (vec4 ? launch<true, true> : launch<true, false>)
-                   : (vec4 ? launch<false, true> : launch<false, false>);
+  auto go = ring_bf16 ? (has_qe ? (vec ? launch<true, true, bf16>
+                                         : launch<true, false, bf16>)
+                                  : (vec ? launch<false, true, bf16>
+                                         : launch<false, false, bf16>))
+                      : (has_qe ? (vec ? launch<true, true, float>
+                                       : launch<true, false, float>)
+                                : (vec ? launch<false, true, float>
+                                       : launch<false, false, float>));
   return (int)go(qcat, mcat, bsq, msq, msv, valid, seg, th_in, values, Q, N,
                  kc, n_tile, width, groups, nseg, C, kk, out, usage, rmax,
                  th, st);

@@ -63,13 +63,23 @@
 //   same float in any block, so the result is bitwise the same under any
 //   plan.
 // - cudaFuncSetAttribute runs once per template instance and device.
+// - The ring (mk, ms) is float or bf16 (ring.cuh), one template instance
+//   each. A bf16 key is widened as its tile is loaded into the same f32
+//   shared-memory tile, exactly, so the key bytes per tile halve and every
+//   similarity, and with it the result, is bitwise that of the f32 kernel
+//   on the widened ring.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <atomic>
 
+#include "ring.cuh"
+
 namespace {
+
+using deva_ring::bf16;
+using deva_ring::widen;
 
 constexpr int QT = 64;        // queries per block
 constexpr int NT = 64;        // tokens per shared-memory tile
@@ -210,12 +220,12 @@ __device__ __forceinline__ void rank_merge(float* lv, int* li, int k,
   __syncwarp();
 }
 
-template <bool HAS_QE>
+template <bool HAS_QE, typename T>
 __global__ void __launch_bounds__(THREADS, 2)
 sim_topk_split_kernel(const float* __restrict__ qk,
                       const float* __restrict__ qe,
-                      const float* __restrict__ mk,
-                      const float* __restrict__ ms,
+                      const T* __restrict__ mk,
+                      const T* __restrict__ ms,
                       const uint8_t* __restrict__ valid,
                       int Q, int N, int ck, int k, int split_len,
                       float divisor, int2* __restrict__ cand) {
@@ -261,15 +271,17 @@ sim_topk_split_kernel(const float* __restrict__ qk,
   for (int t0 = n_begin; t0 < n_end; t0 += NT) {
     for (int x = tid; x < NT * CK_MAX; x += THREADS) {
       const int nl = x / CK_MAX, c = x % CK_MAX, n = t0 + nl;
-      const float mv = (n < n_end && c < ck) ? mk[(size_t)n * ck + c] : 0.f;
+      const float mv =
+          (n < n_end && c < ck) ? widen(mk[(size_t)n * ck + c]) : 0.f;
       s.u.tile.m[c][nl] = mv;
       if (HAS_QE) s.u.tile.m2[c][nl] = __fmul_rn(mv, mv);
     }
     for (int x = tid; x < NT; x += THREADS) {
       const int n = t0 + x;
       const bool present = n < n_end;
-      s.msv[x] = present ? __fdiv_rn(ms != nullptr ? ms[n] : 1.f, divisor)
-                         : 0.f;
+      s.msv[x] =
+          present ? __fdiv_rn(ms != nullptr ? widen(ms[n]) : 1.f, divisor)
+                  : 0.f;
       s.flag[x] = !present ? -1 : ((valid == nullptr || valid[n]) ? 1 : 0);
     }
     __syncthreads();
@@ -415,7 +427,7 @@ sim_topk_merge_kernel(const int2* __restrict__ cand, int splits, int Q,
 
 // The selection kernel's dynamic shared memory exceeds the 48 KB default:
 // raise its limit once per template instance and device.
-template <bool HAS_QE>
+template <bool HAS_QE, typename T>
 cudaError_t allow_smem() {
   static std::atomic<unsigned long long> done{0};
   int dev = 0;
@@ -423,38 +435,40 @@ cudaError_t allow_smem() {
   if (err != cudaSuccess) return err;
   const unsigned long long bit = 1ull << (dev % 64);
   if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(sim_topk_split_kernel<HAS_QE>,
+  err = cudaFuncSetAttribute(sim_topk_split_kernel<HAS_QE, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)sizeof(Smem));
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
   return err;
 }
 
-template <bool HAS_QE>
+template <bool HAS_QE, typename T>
 cudaError_t launch_split(dim3 grid, cudaStream_t st, const float* qk,
-                         const float* qe, const float* mk, const float* ms,
+                         const float* qe, const void* mk, const void* ms,
                          const uint8_t* valid, int Q, int N, int ck, int k,
                          int split_len, float divisor, int2* cand) {
-  const cudaError_t err = allow_smem<HAS_QE>();
+  const cudaError_t err = allow_smem<HAS_QE, T>();
   if (err != cudaSuccess) return err;
-  sim_topk_split_kernel<HAS_QE><<<grid, THREADS, sizeof(Smem), st>>>(
-      qk, qe, mk, ms, valid, Q, N, ck, k, split_len, divisor, cand);
+  sim_topk_split_kernel<HAS_QE, T><<<grid, THREADS, sizeof(Smem), st>>>(
+      qk, qe, static_cast<const T*>(mk), static_cast<const T*>(ms), valid, Q,
+      N, ck, k, split_len, divisor, cand);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// qe, ms and valid may be null. The token axis is cut into `splits` splits
-// of split_len tokens (a multiple of NT). scratch holds [splits, Q, k]
-// (value bits, index) pairs. Returns the CUDA error code of the two
-// launches.
+// qe, ms and valid may be null. mk and ms are float (ring_bf16 = 0) or
+// bf16 (1). The token axis is cut into `splits` splits of split_len tokens
+// (a multiple of NT). scratch holds [splits, Q, k] (value bits, index)
+// pairs. Returns the CUDA error code of the two launches.
 extern "C" int deva_sim_topk(const float* qk, const float* qe,
-                             const float* mk, const float* ms,
-                             const uint8_t* valid, int Q, int N, int ck,
-                             int k, int splits, int split_len, float divisor,
-                             int* scratch, float* out_v, int* out_i,
-                             void* stream) {
-  if (Q <= 0 || N <= 0 || ck <= 0 || ck > CK_MAX || k <= 0 || k > K_MAX ||
+                             const void* mk, const void* ms,
+                             const uint8_t* valid, int ring_bf16, int Q,
+                             int N, int ck, int k, int splits, int split_len,
+                             float divisor, int* scratch, float* out_v,
+                             int* out_i, void* stream) {
+  if ((ring_bf16 != 0 && ring_bf16 != 1) || Q <= 0 || N <= 0 || ck <= 0 ||
+      ck > CK_MAX || k <= 0 || k > K_MAX ||
       k > N || splits <= 0 || splits > MAX_SPLITS || split_len <= 0 ||
       split_len % NT != 0 || (long long)splits * split_len < N ||
       (long long)(splits - 1) * split_len >= N || !(divisor > 0.f))
@@ -462,12 +476,13 @@ extern "C" int deva_sim_topk(const float* qk, const float* qe,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int2* cand = reinterpret_cast<int2*>(scratch);
   const dim3 grid((Q + QT - 1) / QT, splits);
-  cudaError_t err =
-      qe != nullptr
-          ? launch_split<true>(grid, st, qk, qe, mk, ms, valid, Q, N, ck, k,
-                               split_len, divisor, cand)
-          : launch_split<false>(grid, st, qk, qe, mk, ms, valid, Q, N, ck, k,
-                                split_len, divisor, cand);
+  auto go = qe != nullptr
+                ? (ring_bf16 ? launch_split<true, bf16>
+                             : launch_split<true, float>)
+                : (ring_bf16 ? launch_split<false, bf16>
+                             : launch_split<false, float>);
+  cudaError_t err = go(grid, st, qk, qe, mk, ms, valid, Q, N, ck, k,
+                       split_len, divisor, cand);
   if (err != cudaSuccess) return (int)err;
   sim_topk_merge_kernel<<<(Q + MERGE_WARPS - 1) / MERGE_WARPS,
                           MERGE_WARPS * 32, 0, st>>>(cand, splits, Q, k,

@@ -37,6 +37,15 @@
 // outside [0, n_a + n_b) contribute nothing; an index repeated in a query's
 // list counts each time.
 //
+// The ring's elements are float or bf16 (ring.cuh), one template instance
+// each. On bf16 rings a row segment takes half the bytes, staged and read
+// as bf16 (the 16-byte path carries 8 elements, so it needs C % 8 == 0),
+// each weight is rounded to bf16 once, with its pair, and each element is
+// widened in the loop. The product of two bf16 numbers is exact in f32 and
+// the sum runs in the same r order, so the result is bitwise the f32
+// kernel's on (w rounded to bf16, V widened). The tile constants below are
+// in elements, the same for both types.
+//
 // On the H100 this design is slower than the query-per-block gather it
 // replaced (PERF.md): a block spends about as long on its pairs and its
 // dedup as the gather spends on its rows, and with CAP = 64 (four blocks
@@ -51,7 +60,11 @@
 
 #include <atomic>
 
+#include "ring.cuh"
+
 namespace {
+
+using deva_ring::bf16;
 
 constexpr int QT = 16;   // queries per block
 constexpr int CS = 128;  // value columns per block (floats)
@@ -63,7 +76,7 @@ constexpr int PPT = (QT * K_MAX + THREADS - 1) / THREADS;  // pairs a thread
 constexpr int EMPTY = -1;
 constexpr unsigned FULL = 0xffffffffu;
 
-static_assert(CS % 4 == 0, "a slice holds whole 16-byte vectors");
+static_assert(CS % 8 == 0, "a slice holds whole 16-byte vectors");
 
 // Hash table entries for `pairs` pairs: a power of two of at least twice
 // as many, so linear probing stays short.
@@ -75,38 +88,47 @@ int table_bits(int pairs) {
 
 // Dynamic shared memory of a block: the staged rows; each pair's row
 // pointer and weight; the row of each slot; the table's keys and slots.
+template <typename T>
 size_t smem_bytes(int k) {
   const int pairs = QT * k;
-  return (size_t)CAP * CS * sizeof(float) + (size_t)pairs * 16 +
+  return (size_t)CAP * CS * sizeof(T) + (size_t)pairs * 16 +
          ((size_t)8 << table_bits(pairs));
 }
 
 // MIN_BLOCKS blocks fit an SM of the H100 (228 KB) at k <= 32 (the serving
 // k is 30), with the static shared memory and the 1 KB reserved per block
+// (counted for float rows, the larger)
 static_assert(MIN_BLOCKS * ((size_t)CAP * CS * 4 + QT * 32 * 16 +
                             8 * 2 * QT * 32 + CS * 4 + 4 + 1024) <= 233472,
               "MIN_BLOCKS blocks fit an SM at k = 32");
 
-__device__ __forceinline__ const float* row_ptr(const float* va, int n_a,
-                                                const float* vb, int C,
-                                                int i) {
+template <typename T>
+__device__ __forceinline__ const T* row_ptr(const T* va, int n_a,
+                                            const T* vb, int C, int i) {
   return i < n_a ? va + (size_t)i * C : vb + (size_t)(i - n_a) * C;
 }
 
-// V floats of a row segment, global -> shared, asynchronously (.ca, the form
-// that also takes the scalar path's 4-byte copies).
-template <int V>
-__device__ __forceinline__ void cp_async(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
-               "l"(src), "n"(V * 4));
+// V elements of a row segment, global -> shared, asynchronously (.ca, the
+// form that also takes the scalar path's 4-byte copies); cp.async moves no
+// fewer than 4 bytes, so a single bf16 is copied by a plain load and store.
+template <typename T, int V>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  if constexpr (V * sizeof(T) >= 4) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(V * (int)sizeof(T)));
+  } else {
+    *dst = *src;
+  }
 }
 
-template <int V>
+// A thread's accumulators for V neighbouring columns, f32; fma() adds w
+// times the V elements of T at p (shared or global memory).
+template <typename T, int V>
 struct Vec;
 
 template <>
-struct Vec<4> {
+struct Vec<float, 4> {
   float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
   __device__ __forceinline__ void fma(float w, const float* p) {
     const float4 v = *reinterpret_cast<const float4*>(p);
@@ -121,7 +143,7 @@ struct Vec<4> {
 };
 
 template <>
-struct Vec<1> {
+struct Vec<float, 1> {
   float a = 0.f;
   __device__ __forceinline__ void fma(float w, const float* p) {
     a = fmaf(w, *p, a);
@@ -129,20 +151,44 @@ struct Vec<1> {
   __device__ __forceinline__ void store(float* p) const { *p = a; }
 };
 
-template <int V>
+template <>
+struct Vec<bf16, 8> {
+  float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  __device__ __forceinline__ void fma(float w, const bf16* p) {
+    float v[8];
+    deva_ring::load16(p, v);
+#pragma unroll
+    for (int x = 0; x < 8; ++x) a[x] = fmaf(w, v[x], a[x]);
+  }
+  __device__ __forceinline__ void store(float* p) const {
+    reinterpret_cast<float4*>(p)[0] = make_float4(a[0], a[1], a[2], a[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(a[4], a[5], a[6], a[7]);
+  }
+};
+
+template <>
+struct Vec<bf16, 1> {
+  float a = 0.f;
+  __device__ __forceinline__ void fma(float w, const bf16* p) {
+    a = fmaf(w, deva_ring::widen(*p), a);
+  }
+  __device__ __forceinline__ void store(float* p) const { *p = a; }
+};
+
+template <typename T, int V>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 topk_readout_kernel(const int* __restrict__ idx, const float* __restrict__ w,
-                    const float* __restrict__ va, int n_a,
-                    const float* __restrict__ vb, int n_b, int Q, int k,
+                    const T* __restrict__ va, int n_a,
+                    const T* __restrict__ vb, int n_b, int Q, int k,
                     int C, int bits, float* __restrict__ out) {
   constexpr int SV = CS / V;                             // vectors a segment
   constexpr int ITEMS = (QT * SV + THREADS - 1) / THREADS;  // a thread's
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ __align__(16) float s_zero[CS];  // the row of absent indices
-  __shared__ int s_used;                      // slots claimed
+  __shared__ __align__(16) T s_zero[CS];  // the row of absent indices
+  __shared__ int s_used;                  // slots claimed
   const int table = 1 << bits;
-  float* s_v = reinterpret_cast<float*>(smem);                    // [CAP][CS]
-  const float** s_ptr = reinterpret_cast<const float**>(s_v + CAP * CS);
+  T* s_v = reinterpret_cast<T*>(smem);                            // [CAP][CS]
+  const T** s_ptr = reinterpret_cast<const T**>(s_v + CAP * CS);
   float* s_wt = reinterpret_cast<float*>(s_ptr + QT * k);         // [QT*k]
   int* s_rows = reinterpret_cast<int*>(s_wt + QT * k);            // [QT*k]
   int* h_key = s_rows + QT * k;                                   // [table]
@@ -173,7 +219,7 @@ topk_readout_kernel(const int* __restrict__ idx, const float* __restrict__ w,
     }
   }
   for (int t = tid; t < table; t += THREADS) h_key[t] = EMPTY;
-  for (int c = tid; c < CS; c += THREADS) s_zero[c] = 0.f;
+  for (int c = tid; c < CS; c += THREADS) s_zero[c] = T(0.f);
   if (tid == 0) s_used = 0;
   __syncthreads();
 
@@ -213,22 +259,22 @@ topk_readout_kernel(const int* __restrict__ idx, const float* __restrict__ w,
   for (int f = tid; f < staged * SV; f += THREADS) {
     const int u = f / SV, c = f % SV;
     if (c < units)
-      cp_async<V>(s_v + u * CS + c * V,
-                  row_ptr(va, n_a, vb, C, s_rows[u]) + col0 + c * V);
+      cp_async<T, V>(s_v + u * CS + c * V,
+                     row_ptr(va, n_a, vb, C, s_rows[u]) + col0 + c * V);
   }
   asm volatile("cp.async.commit_group;\n" ::);
 #pragma unroll
   for (int j = 0; j < PPT; ++j) {
     const int p = j * THREADS + tid;
     if (p >= pairs) continue;
-    const float* src = s_zero;
+    const T* src = s_zero;
     if (row[j] != EMPTY) {
       const int slot = h_slot[pos[j]];
       src = slot < CAP ? s_v + slot * CS
                        : row_ptr(va, n_a, vb, C, row[j]) + col0;
     }
     s_ptr[p] = src;
-    s_wt[p] = wt[j];
+    s_wt[p] = deva_ring::weight<T>(wt[j]);
   }
   asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
@@ -236,11 +282,11 @@ topk_readout_kernel(const int* __restrict__ idx, const float* __restrict__ w,
   // the readout: fmaf over r in order, for the thread's items (query,
   // vector) at once; an item past the tile or the slice reads the first
   // query's rows and stores nothing
-  const float* const* pp[ITEMS];
+  const T* const* pp[ITEMS];
   const float* pw[ITEMS];
   int off[ITEMS];
   bool ok[ITEMS];
-  Vec<V> acc[ITEMS];
+  Vec<T, V> acc[ITEMS];
 #pragma unroll
   for (int i = 0; i < ITEMS; ++i) {
     const int it = tid + i * THREADS, ql = it / SV, c = it % SV;
@@ -263,7 +309,7 @@ topk_readout_kernel(const int* __restrict__ idx, const float* __restrict__ w,
 
 // The dynamic shared memory exceeds the 48 KB default: raise the limit of
 // each template instance once per device, to what k = K_MAX needs.
-template <int V>
+template <typename T, int V>
 cudaError_t allow_smem() {
   static std::atomic<unsigned long long> done{0};
   int dev = 0;
@@ -271,41 +317,50 @@ cudaError_t allow_smem() {
   if (err != cudaSuccess) return err;
   const unsigned long long bit = 1ull << (dev % 64);
   if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(topk_readout_kernel<V>,
+  err = cudaFuncSetAttribute(topk_readout_kernel<T, V>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_bytes(K_MAX));
+                             (int)smem_bytes<T>(K_MAX));
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
   return err;
 }
 
-template <int V>
+template <typename T, int V>
 cudaError_t launch(cudaStream_t st, const int* idx, const float* w,
-                   const float* va, int n_a, const float* vb, int n_b, int Q,
+                   const void* va, int n_a, const void* vb, int n_b, int Q,
                    int k, int C, float* out) {
-  const cudaError_t err = allow_smem<V>();
+  const cudaError_t err = allow_smem<T, V>();
   if (err != cudaSuccess) return err;
   const dim3 grid((Q + QT - 1) / QT, (C + CS - 1) / CS);
-  topk_readout_kernel<V><<<grid, THREADS, smem_bytes(k), st>>>(
-      idx, w, va, n_a, vb, n_b, Q, k, C, table_bits(QT * k), out);
+  topk_readout_kernel<T, V><<<grid, THREADS, smem_bytes<T>(k), st>>>(
+      idx, w, static_cast<const T*>(va), n_a, static_cast<const T*>(vb),
+      n_b, Q, k, C, table_bits(QT * k), out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // idx/w: [Q, k]; the ring: va [n_a, C] then vb [n_b, C] (either may be
-// empty; vb may be null when n_b = 0); out: [Q, C]. vec4 requires C % 4 == 0
-// and 16-byte aligned va, vb and out. Returns the CUDA error code of the
-// launch.
+// empty; vb may be null when n_b = 0), float (ring_bf16 = 0) or bf16 (1);
+// out: [Q, C]. vec selects the 16-byte path: it requires C % 4 == 0 (float)
+// or C % 8 == 0 (bf16) and 16-byte aligned va, vb and out. Returns the CUDA
+// error code of the launch.
 extern "C" int deva_topk_readout(const int* idx, const float* w,
-                                 const float* va, int n_a, const float* vb,
-                                 int n_b, int Q, int k, int C, int vec4,
-                                 float* out, void* stream) {
+                                 const void* va, int n_a, const void* vb,
+                                 int n_b, int ring_bf16, int Q, int k, int C,
+                                 int vec, float* out, void* stream) {
+  const int per16 = ring_bf16 ? 8 : 4;  // elements in 16 bytes
   if (Q <= 0 || n_a < 0 || n_b < 0 || (long long)n_a + n_b <= 0 ||
       (long long)n_a + n_b > INT32_MAX || C <= 0 || k <= 0 || k > K_MAX ||
-      (vec4 && C % 4 != 0) || (n_a > 0 && va == nullptr) ||
-      (n_b > 0 && vb == nullptr))
+      (ring_bf16 != 0 && ring_bf16 != 1) || (vec && C % per16 != 0) ||
+      (n_a > 0 && va == nullptr) || (n_b > 0 && vb == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(vec4 ? launch<4>(st, idx, w, va, n_a, vb, n_b, Q, k, C, out)
-                    : launch<1>(st, idx, w, va, n_a, vb, n_b, Q, k, C, out));
+  cudaError_t err;
+  if (ring_bf16)
+    err = vec ? launch<bf16, 8>(st, idx, w, va, n_a, vb, n_b, Q, k, C, out)
+              : launch<bf16, 1>(st, idx, w, va, n_a, vb, n_b, Q, k, C, out);
+  else
+    err = vec ? launch<float, 4>(st, idx, w, va, n_a, vb, n_b, Q, k, C, out)
+              : launch<float, 1>(st, idx, w, va, n_a, vb, n_b, Q, k, C, out);
+  return (int)err;
 }

@@ -13,6 +13,10 @@ orchestration around the model's four modes and the memory engine:
 propagation frame, under deva_tpu's eligibility rules, and the composed path
 otherwise; `step_chunk` steps a memory period per call through the fused
 block body. Not ported yet: object-axis sharding and detection fusion.
+
+Frames enter as f32 in every configuration (the model's first conv casts
+them to its compute dtype, as deva_tpu's does); the probabilities and
+last_mask are f32, the rings in InferenceConfig.ring_dtype.
 """
 from __future__ import annotations
 

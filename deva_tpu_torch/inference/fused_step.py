@@ -15,11 +15,14 @@ approx_kernels.attend_approx{,_multi}; the hand-written kernels on a CUDA
 device, their plain twins on the CPU.
 
 Where deva_tpu donates the ring buffers to its jitted step, this port writes
-the new tokens into the rings in place (Bucket.append) and adds the usage
-counts in place. The per-frame body makes no host synchronisation (ring
-sizes and capacities are host integers), so a later change can capture it
-as a CUDA graph. deva_tpu's lax.scan over a block's read-only frames is a
-Python loop here.
+the new tokens into the rings in place (Bucket.append, which rounds them to
+the ring dtype, as deva_tpu's fused_step.py:198-205,409-417 casts them) and
+adds the usage counts in place. The model's features are in its compute
+dtype; the readout, the probabilities, last_mask and the sensory carry are
+f32 in every configuration. The per-frame body makes no host
+synchronisation (ring sizes and capacities are host integers), so a later
+change can capture it as a CUDA graph. deva_tpu's lax.scan over a block's
+read-only frames is a Python loop here.
 """
 from __future__ import annotations
 

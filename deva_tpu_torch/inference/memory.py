@@ -8,6 +8,10 @@ token-major rings
     use_cnt / life_cnt [cap]
 
 with a host-side integer `size` as the single source of truth for validity.
+key, shrinkage, selection and value are stored in the ring dtype
+(InferenceConfig.ring_dtype; appends round to it), use_cnt and life_cnt in
+f32 (deva_tpu/inference/memory.py:172-182,233-241). Long-term consolidation
+reads and writes the rings in their dtype; every readout is f32.
 Appends write in place at the cursor; capacities grow geometrically in
 whole-frame quanta (`ensure_capacity`).
 
@@ -51,9 +55,11 @@ def _grow(arr: torch.Tensor, new_cap: int) -> torch.Tensor:
 
 
 def _readout_token_major(aff: torch.Tensor, value: torch.Tensor):
-    """aff [Q, N]; value [N, O, Cv] -> [O, Q, Cv] (one [Q,N]@[N,O*Cv])."""
+    """aff [Q, N]; value [N, O, Cv] -> [O, Q, Cv] (one [Q,N]@[N,O*Cv], f32).
+    As memory_attention.readout, the affinity is rounded to the ring's
+    dtype (deva_tpu/inference/memory.py:83-89)."""
     n, o, cv = value.shape
-    out = aff.float() @ value.reshape(n, o * cv).float()
+    out = ma.readout(aff, value.reshape(n, o * cv))
     return out.reshape(aff.shape[0], o, cv).transpose(0, 1)
 
 

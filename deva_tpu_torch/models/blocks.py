@@ -9,6 +9,13 @@ deva_tpu's `_SharedCatResBlock` (blocks.py:163-204) is a TPU rescheduling of
 a GroupResBlock over cat([x broadcast over objects, g]); it has that block's
 parameters. Here the block computes the plain concatenated conv, upstream's
 form; the two differ by float summation order only.
+
+Dtypes follow flax's `dtype=` (models/layers.py): every conv and dense
+layer computes in the compute dtype, and the blocks cast where deva_tpu's
+cast (deva_tpu/models/blocks.py:95,181-182,267-268), so residual adds, CBAM
+and the upsample run in the compute dtype. The GRU takes its gates in the
+compute dtype and the sensory state h in f32, so the new state is f32 by
+promotion (deva_tpu/models/blocks.py:301-307).
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from deva_tpu_torch.models.layers import Conv2d, Linear
 from deva_tpu_torch.ops.resize import upsample_bilinear
 
 
@@ -29,7 +37,7 @@ def distribute_cat(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, g], dim=2)
 
 
-class GConv2D(nn.Conv2d):
+class GConv2D(Conv2d):
     """Conv over grouped tensors (object axis folded into the batch)."""
 
     def forward(self, g: torch.Tensor) -> torch.Tensor:
@@ -40,7 +48,9 @@ class GConv2D(nn.Conv2d):
 
 class GroupResBlock(nn.Module):
     """Pre-activation residual block over grouped tensors, with a 1x1
-    projection shortcut when channels change."""
+    projection shortcut when channels change. The input is cast to the
+    compute dtype first, so the residual add runs in it."""
+    compute_dtype = torch.float32
 
     def __init__(self, in_dim: int, out_dim: int):
         super().__init__()
@@ -50,6 +60,7 @@ class GroupResBlock(nn.Module):
         self.conv2 = GConv2D(out_dim, out_dim, 3, padding=1)
 
     def forward(self, g: torch.Tensor) -> torch.Tensor:
+        g = g.to(self.compute_dtype)
         out = self.conv1(F.relu(g))
         out = self.conv2(F.relu(out))
         if self.downsample is not None:
@@ -61,10 +72,10 @@ class ChannelGate(nn.Module):
     def __init__(self, gate_channels: int, reduction_ratio: int = 16):
         super().__init__()
         self.mlp = nn.Sequential(
-            nn.Flatten(), nn.Linear(gate_channels,
-                                    gate_channels // reduction_ratio),
-            nn.ReLU(), nn.Linear(gate_channels // reduction_ratio,
-                                 gate_channels))
+            nn.Flatten(), Linear(gate_channels,
+                                 gate_channels // reduction_ratio),
+            nn.ReLU(), Linear(gate_channels // reduction_ratio,
+                              gate_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         avg = x.mean(dim=(2, 3))
@@ -76,8 +87,8 @@ class ChannelGate(nn.Module):
 class BasicConv(nn.Module):
     def __init__(self, in_planes: int, out_planes: int, kernel_size: int):
         super().__init__()
-        self.conv = nn.Conv2d(in_planes, out_planes, kernel_size,
-                              padding=kernel_size // 2)
+        self.conv = Conv2d(in_planes, out_planes, kernel_size,
+                           padding=kernel_size // 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
@@ -131,9 +142,9 @@ class KeyProjection(nn.Module):
 
     def __init__(self, in_dim: int, key_dim: int):
         super().__init__()
-        self.key_proj = nn.Conv2d(in_dim, key_dim, 3, padding=1)
-        self.d_proj = nn.Conv2d(in_dim, 1, 3, padding=1)
-        self.e_proj = nn.Conv2d(in_dim, key_dim, 3, padding=1)
+        self.key_proj = Conv2d(in_dim, key_dim, 3, padding=1)
+        self.d_proj = Conv2d(in_dim, 1, 3, padding=1)
+        self.e_proj = Conv2d(in_dim, key_dim, 3, padding=1)
 
     def forward(self, x: torch.Tensor, need_s: bool = True,
                 need_e: bool = True):
@@ -143,7 +154,9 @@ class KeyProjection(nn.Module):
 
 
 class MaskUpsampleBlock(nn.Module):
-    """x2 bilinear upsample of grouped features + skip add + GroupResBlock."""
+    """x2 bilinear upsample of grouped features + skip add + GroupResBlock,
+    in the compute dtype."""
+    compute_dtype = torch.float32
 
     def __init__(self, up_dim: int, out_dim: int, scale_factor: int = 2):
         super().__init__()
@@ -151,8 +164,9 @@ class MaskUpsampleBlock(nn.Module):
         self.scale_factor = scale_factor
 
     def forward(self, skip_f: torch.Tensor, up_g: torch.Tensor):
-        g = upsample_bilinear(up_g, self.scale_factor)
-        return self.out_conv(skip_f[:, None] + g)
+        dt = self.compute_dtype
+        g = upsample_bilinear(up_g.to(dt), self.scale_factor)
+        return self.out_conv(skip_f.to(dt)[:, None] + g)
 
 
 class DecoderFeatureProcessor(nn.Module):
@@ -161,7 +175,7 @@ class DecoderFeatureProcessor(nn.Module):
     def __init__(self, in_dims: Sequence[int], out_dims: Sequence[int]):
         super().__init__()
         self.transforms = nn.ModuleList(
-            [nn.Conv2d(i, o, 1) for i, o in zip(in_dims, out_dims)])
+            [Conv2d(i, o, 1) for i, o in zip(in_dims, out_dims)])
 
     def forward(self, multi_scale_features) -> List[torch.Tensor]:
         return [t(x) for t, x in zip(self.transforms, multi_scale_features)]

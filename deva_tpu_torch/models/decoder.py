@@ -2,7 +2,11 @@
 pixel features, two x2 upsampling stages, per-object 1-channel logits, and a
 multi-scale GRU update of the sensory memory. NCHW.
 
-Port of deva_tpu/models/decoder.py. The logits conv runs in float32.
+Port of deva_tpu/models/decoder.py (dtypes as in its lines 52-82): the f32
+memory readout is cast to the compute dtype before the sensory_compress
+add; the logits conv (`pred`, a plain nn.Conv2d) runs in f32 on
+relu(p4) widened to f32; the logits are cast to p4's dtype before they
+join the sensory update.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ from deva_tpu_torch.ops.resize import downsample_area
 
 
 class MaskDecoder(nn.Module):
+    compute_dtype = torch.float32
+
     def __init__(self, val_dim: int = 512, pix_feat_dim: int = 512):
         super().__init__()
         self.decoder_feat_proc = DecoderFeatureProcessor([512, 256],
@@ -42,7 +48,7 @@ class MaskDecoder(nn.Module):
         f16, f8, f4 = multi_scale_features
         skip8, skip4 = self.decoder_feat_proc([f8, f4])
 
-        p16 = memory_readout + self.sensory_compress(
+        p16 = memory_readout.to(self.compute_dtype) + self.sensory_compress(
             torch.cat([sensory, last_mask], dim=2))
         p16 = self.fuser(f16, p16)
         p8 = self.up_16_8(skip8, p16)
@@ -57,7 +63,8 @@ class MaskDecoder(nn.Module):
             # area means commute with the channel concat, so each part is
             # downsampled on its own (as in deva_tpu/models/decoder.py:76-82)
             p4_with_logit_s16 = torch.cat(
-                [downsample_area(p4, 4), downsample_area(logits_g, 4)],
+                [downsample_area(p4, 4),
+                 downsample_area(logits_g.to(p4.dtype), 4)],
                 dim=2)
             new_sensory = self.sensory_update(
                 p16, downsample_area(p8, 2), p4_with_logit_s16, sensory)

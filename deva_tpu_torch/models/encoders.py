@@ -8,7 +8,8 @@ Port of deva_tpu/models/encoders.py.
     fused with the pixel f16 by a GroupFeatureFusionBlock, plus a deep GRU
     update of the sensory memory. Attribute names: conv1, bn1, layer1..3,
     fuser, sensory_update.
-All object slots run as one folded batch.
+All object slots run as one folded batch. Frames and masks enter in f32;
+the first conv casts them to the compute dtype, as in deva_tpu.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch.nn as nn
 
 from deva_tpu_torch.models.blocks import (GroupFeatureFusionBlock,
                                           SensoryDeepUpdater)
+from deva_tpu_torch.models.layers import Conv2d
 from deva_tpu_torch.models.resnet import (BasicBlock, Bottleneck, make_stage,
                                           stem, stem_forward)
 
@@ -30,8 +32,8 @@ class PixelEncoder(nn.Module):
         self.res2 = make_stage(Bottleneck, 64, 64, 3, 1)
         self.layer2 = make_stage(Bottleneck, 256, 128, 4, 2)
         self.layer3 = make_stage(Bottleneck, 512, 256, 6, 2)
-        self.proj1 = nn.Conv2d(1024, pix_feat_dim, 1)
-        self.proj2 = nn.Conv2d(1024, pix_feat_dim, 1)
+        self.proj1 = Conv2d(1024, pix_feat_dim, 1)
+        self.proj2 = Conv2d(1024, pix_feat_dim, 1)
 
     def forward(self, image: torch.Tensor):
         """image [B, 3, H, W] -> ((f16_proj, f8, f4), key_feat)"""

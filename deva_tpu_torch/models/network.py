@@ -10,7 +10,11 @@ Port of deva_tpu/models/network.py with its four inference modes:
 Grouped tensors are [B, O, C, H, W]. `selector` [B, O] masks padded object
 slots. Submodule names are upstream DEVA's, so an upstream state dict (or
 deva_tpu variables through models/convert.py) loads with strict=True.
-Logit aggregation and the final x4 upsample run in float32.
+The convolutions and dense layers compute in config.compute_dtype (flax's
+`dtype=`, models/layers.py); the parameters stay f32, so the state dict is
+the same in every dtype. Logit aggregation, the sigmoid, the selector and
+the final x4 upsample run in float32 (deva_tpu/models/network.py:106-140):
+`prob` is f32 whatever the compute dtype, and so is the sensory state.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from deva_tpu_torch.config import ModelConfig
 from deva_tpu_torch.models.blocks import KeyProjection
 from deva_tpu_torch.models.decoder import MaskDecoder
 from deva_tpu_torch.models.encoders import MaskEncoder, PixelEncoder
+from deva_tpu_torch.models.layers import set_compute_dtype
 from deva_tpu_torch.ops.aggregate import aggregate_logits
 from deva_tpu_torch.ops.resize import downsample_area, upsample_bilinear
 
@@ -38,6 +43,7 @@ class DEVANetwork(nn.Module):
         self.key_proj = KeyProjection(config.pix_feat_dim, config.key_dim)
         self.mask_decoder = MaskDecoder(config.value_dim,
                                         config.pix_feat_dim)
+        set_compute_dtype(self, config.compute_dtype)
 
     def encode_image(self, image: torch.Tensor):
         """image [B, 3, H, W] -> ((f16, f8, f4), key_feat [B, Cp, h, w])"""

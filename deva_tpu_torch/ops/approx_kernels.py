@@ -23,6 +23,14 @@ Port of the approx half of deva_tpu/ops/pallas_attention.py (`_prep2`,
   CUDA kernel takes rmax and th itself, so nothing runs between the two
   kernels.
 
+Ring dtypes: mk and ms may be f32 or bf16; `prep2` builds mcat in f32 from
+the widened keys, as deva_tpu's `_prep2` does (pallas_attention.py:388-394;
+mk^2 of a bf16 key is exact in f32), so segmax and denom_readout see the
+same float per (q, n) on either ring. The value ring may be f32 or bf16:
+on bf16, denom_readout rounds the normalised weight aff = e * invd to bf16
+before the product (pallas_attention.py:524-532), sums in f32, and takes
+usage from the f32 aff; the twin does the same.
+
 Dispatch is by device only, as in attention_kernels.py: CPU tensors take the
 plain twins (`*_plain`), CUDA tensors launch csrc/segmax.cu and
 csrc/denom_readout.cu or raise. Launches count in attention_kernels.LAUNCHES.
@@ -35,8 +43,9 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from deva_tpu_torch.ops import memory_attention as ma
-from deva_tpu_torch.ops.attention_kernels import (LAUNCHES, _on_cuda, _ptr,
-                                                  _require, _stream)
+from deva_tpu_torch.ops.attention_kernels import (LAUNCHES, RING_DTYPES,
+                                                  _on_cuda, _ptr, _require,
+                                                  _ring_dtype, _stream)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -218,10 +227,11 @@ def _support_weights(sim, rmax, th):
 def denom_readout_plain(ops: Operands, geom: Geometry, seg, rmax, th,
                         values2d):
     """The dense form of denom_readout at a given rmax and th [Q, 1]: e,
-    the denominator, aff @ V and aff.sum(0). (seg and geom are what the
-    kernel reads to find the support; the dense form needs neither.)"""
+    the denominator, aff @ V and aff.sum(0); aff is rounded to the value
+    ring's dtype for the product only. (seg and geom are what the kernel
+    reads to find the support; the dense form needs neither.)"""
     aff = _support_weights(similarity2_plain(ops), rmax, th)
-    return aff @ values2d.float(), aff.sum(dim=0)
+    return aff.to(values2d.dtype).float() @ values2d.float(), aff.sum(dim=0)
 
 
 def gap_threshold(sim: torch.Tensor, th: torch.Tensor,
@@ -248,7 +258,8 @@ def _denom_readout_cuda(ops: Operands, geom: Geometry, seg, values2d,
     query selects th from the candidates of its row of group maxima (those
     at or above a lower bound from the lanes' maxima), recomputes the
     support's similarities with segmax's device function and gathers their
-    rows (see the source note)."""
+    rows (see the source note). bf16 value rows are widened at load, each
+    normalised weight rounded to bf16 first."""
     from deva_tpu_torch.ops import cuda_build
     _check_cuda_operands(ops, "denom_readout")
     q, kc = ops.qcat.shape
@@ -257,20 +268,23 @@ def _denom_readout_cuda(ops: Operands, geom: Geometry, seg, values2d,
         raise ValueError(f"denom_readout: top_k={top_k} < 1")
     f32 = torch.float32
     _require(seg, "segmax", f32, (q, geom.nseg))
-    _require(values2d, "values", f32, (geom.n, c))
+    rdt = _ring_dtype((values2d,), "denom_readout")
+    _require(values2d, "values", rdt, (geom.n, c))
     if th is not None:
         _require(th, "th", f32, (q, 1))
     dev = values2d.device
-    vec4 = c % 4 == 0 and values2d.data_ptr() % 16 == 0
+    # the 16-byte path: whole 16-byte vectors per row, an aligned ring
+    vec = c % (16 // values2d.element_size()) == 0 and \
+        values2d.data_ptr() % 16 == 0
     out = torch.empty((q, c), dtype=f32, device=dev)
     usage = torch.zeros((n,), dtype=f32, device=dev)
     used = torch.empty((2, q, 1), dtype=f32, device=dev)  # rmax, th
     err = cuda_build.load().deva_denom_readout(
         _ptr(ops.qcat), _ptr(ops.mcat), _ptr(ops.bsq), _ptr(ops.msq),
         _ptr(ops.msv), _ptr(_valid_u8(ops)), _ptr(seg), _ptr(th),
-        _ptr(values2d), q, n, kc, geom.n_tile, geom.folds, c, top_k,
-        int(vec4), _ptr(out), _ptr(usage), _ptr(used[0]), _ptr(used[1]),
-        _stream(dev))
+        _ptr(values2d), RING_DTYPES[rdt], q, n, kc, geom.n_tile,
+        geom.folds, c, top_k, int(vec), _ptr(out), _ptr(usage),
+        _ptr(used[0]), _ptr(used[1]), _stream(dev))
     if err != 0:
         raise RuntimeError(
             f"denom_readout kernel launch failed: CUDA error {err}")

@@ -20,6 +20,14 @@ here (`*_plain`), with the same semantics:
   values may likewise be a pair of [n_i, O, Cv] rings ([long-term ;
   working]), which it never concatenates.
 
+Ring dtypes: the rings (mk, ms and the value segments) may be f32 or bf16,
+one dtype per call; the queries qk and qe f32 or bf16, widened to f32 by
+the wrapper (Q x Ck, small). On bf16 rings sim_topk widens each key at
+load, exactly, and topk_readout rounds each weight to bf16 before the
+product (deva_tpu's `aff.astype(v_ref.dtype)`,
+pallas_attention.py:265) and sums in f32; the twins do the same. Any other
+dtype raises: a wrapper never casts a ring to make a call work.
+
 Dispatch is by device only. Tensors on the CPU take the plain version.
 Tensors on a CUDA device launch the hand-written kernels of
 deva_tpu_torch/csrc (built by cuda_build at first use) or raise: there is no
@@ -59,6 +67,10 @@ def _on_cuda(*tensors) -> bool:
     raise ValueError(f"tensors on mixed or unsupported devices: {kinds}")
 
 
+# the dtypes a ring may have on the card, and the code the kernels take
+RING_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -67,6 +79,22 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def _ring_dtype(rings, name: str) -> torch.dtype:
+    """The one dtype of the ring tensors given (None entries skipped);
+    raises TypeError for a dtype the kernels do not take or for a mix."""
+    kinds = {t.dtype for t in rings if t is not None}
+    if len(kinds) != 1 or not kinds <= RING_DTYPES.keys():
+        raise TypeError(f"{name}: ring tensors must all be float32 or all "
+                        f"bfloat16, got {sorted(map(str, kinds))}")
+    return kinds.pop()
+
+
+def _widen_query(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A bf16 query side (qk or qe, Q x Ck) widened to f32, exactly; any
+    other tensor as it is (the caller's checks reject a wrong dtype)."""
+    return t.float() if t is not None and t.dtype == torch.bfloat16 else t
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -133,11 +161,12 @@ def _sm_count(index: int) -> int:
 def _sim_topk_cuda(qk, qe, mk, ms, valid, top_k: int, plan=None):
     """Launches csrc/sim_topk.cu, the port of the Pallas `_sim_topk_kernel`
     and its candidate merge (deva_tpu/ops/pallas_attention.py:177-242): a
-    selection kernel and a merge kernel, and no other device work. It is
-    bound by the f32 FFMA rate (2*Q*N*Ck FFMAs, no TF32) and by the
-    selection; it keeps a running top-k per query in shared memory, merges
-    each tile into it with warp-wide bitonic or rank merges, and splits the
-    token axis across blocks by `plan` ((splits, split_len), by default
+    selection kernel and a merge kernel, and no other device work. bf16
+    rings are widened to f32 as each token tile is loaded. It is bound by
+    the f32 FFMA rate (2*Q*N*Ck FFMAs, no TF32) and by the selection; it
+    keeps a running top-k per query in shared memory, merges each tile
+    into it with warp-wide bitonic or rank merges, and splits the token
+    axis across blocks by `plan` ((splits, split_len), by default
     _sim_topk_plan's; see the source note)."""
     q, ck = qk.shape
     n = mk.shape[0]
@@ -148,12 +177,14 @@ def _sim_topk_cuda(qk, qe, mk, ms, valid, top_k: int, plan=None):
     _check_ring(n)
     top_k = min(top_k, n)  # as the twin's sort-and-slice
     f32 = torch.float32
+    qk, qe = _widen_query(qk), _widen_query(qe)
     _require(qk, "qk", f32, (q, ck))
-    _require(mk, "mk", f32, (n, ck))
+    rdt = _ring_dtype((mk, ms), "sim_topk")
+    _require(mk, "mk", rdt, (n, ck))
     if qe is not None:
         _require(qe, "qe", f32, (q, ck))
     if ms is not None:
-        _require(ms, "ms", f32, (n,))
+        _require(ms, "ms", rdt, (n,))
     if valid is not None:
         _require(valid, "valid", torch.bool, (n,))
         valid = valid.view(torch.uint8)
@@ -168,9 +199,9 @@ def _sim_topk_cuda(qk, qe, mk, ms, valid, top_k: int, plan=None):
     scratch = torch.empty((splits, q, top_k, 2), dtype=torch.int32,
                           device=dev)
     err = lib.deva_sim_topk(
-        _ptr(qk), _ptr(qe), _ptr(mk), _ptr(ms), _ptr(valid), q, n, ck, top_k,
-        splits, split_len, msv_divisor(ck), _ptr(scratch), _ptr(out[0]),
-        _ptr(out[1]), _stream(dev))
+        _ptr(qk), _ptr(qe), _ptr(mk), _ptr(ms), _ptr(valid), RING_DTYPES[rdt],
+        q, n, ck, top_k, splits, split_len, msv_divisor(ck), _ptr(scratch),
+        _ptr(out[0]), _ptr(out[1]), _stream(dev))
     if err != 0:
         raise RuntimeError(f"sim_topk kernel launch failed: CUDA error {err}")
     LAUNCHES["sim_topk"] += 1
@@ -202,7 +233,8 @@ def topk_readout_plain(indices, weights, values):
     """Plain twin of topk_readout: gather the k rows and sum. With two
     segments each row is gathered from its own segment by index arithmetic,
     so the result is bitwise that on the concatenated ring. Indices outside
-    the ring contribute nothing."""
+    the ring contribute nothing. Each weight is rounded to the ring's dtype
+    before the product."""
     idx = indices.long()
     rows, start = None, 0  # rows: [Q, K, C]
     for seg in _segments(values):
@@ -213,7 +245,7 @@ def topk_readout_plain(indices, weights, values):
             rows = got if rows is None else torch.where(
                 ((local >= 0) & (local < n))[..., None], got, rows)
         start += n
-    w = weights.float()
+    w = weights.to(_segments(values)[0].dtype).float()
     w = torch.where((idx >= 0) & (idx < start), w, torch.zeros_like(w))
     return torch.einsum("qk,qkc->qc", w, rows)
 
@@ -224,7 +256,8 @@ def _topk_readout_cuda(indices, weights, values):
     bound by the bytes of the value rows; a block of 16 queries stages the
     first 64 distinct rows of its queries in shared memory with cp.async,
     once each, and reads the others from global memory (see the source
-    note). A ring in two segments is read in place."""
+    note). A ring in two segments is read in place. bf16 rows are
+    widened at load and each weight rounded to bf16 first."""
     from deva_tpu_torch.ops import cuda_build
     q, k = indices.shape
     segs = _segments(values)
@@ -233,16 +266,19 @@ def _topk_readout_cuda(indices, weights, values):
     c = segs[0].shape[1]
     _require(indices, "indices", torch.int32, (q, k))
     _require(weights, "weights", torch.float32, (q, k))
+    rdt = _ring_dtype(segs, "topk_readout")
     for i, seg in enumerate(segs):
-        _require(seg, f"values[{i}]", torch.float32, (seg.shape[0], c))
+        _require(seg, f"values[{i}]", rdt, (seg.shape[0], c))
     (va, n_a), (vb, n_b) = [(s, s.shape[0]) for s in segs] + \
         [(None, 0)] * (2 - len(segs))
     lib = cuda_build.load()
     out = torch.empty((q, c), dtype=torch.float32, device=va.device)
-    vec4 = c % 4 == 0 and all(s.data_ptr() % 16 == 0 for s in segs)
+    # the 16-byte path: whole 16-byte vectors per row, aligned segments
+    vec = c % (16 // va.element_size()) == 0 and \
+        all(s.data_ptr() % 16 == 0 for s in segs)
     err = lib.deva_topk_readout(_ptr(indices), _ptr(weights), _ptr(va), n_a,
-                                _ptr(vb), n_b, q, k, c, int(vec4), _ptr(out),
-                                _stream(va.device))
+                                _ptr(vb), n_b, RING_DTYPES[rdt], q, k, c,
+                                int(vec), _ptr(out), _stream(va.device))
     if err != 0:
         raise RuntimeError(
             f"topk_readout kernel launch failed: CUDA error {err}")

@@ -126,8 +126,12 @@ def full_softmax(sim: torch.Tensor,
 
 
 def readout(affinity: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """affinity [Q, N]; values [..., N, Cv] -> out [..., Q, Cv] (f32)."""
-    return torch.matmul(affinity.float(), values.float())
+    """affinity [Q, N]; values [..., N, Cv] -> out [..., Q, Cv] (f32).
+    The affinity is rounded down to the values' dtype, and the product is
+    summed in f32 (deva_tpu/ops/memory_attention.py:184-194): on bf16 rings
+    each term is a product of two bf16 numbers, exact in f32; f32 rings
+    stay f32."""
+    return torch.matmul(affinity.to(values.dtype).float(), values.float())
 
 
 def attend(mk: torch.Tensor, ms: Optional[torch.Tensor], values: torch.Tensor,

@@ -2,9 +2,14 @@
 axes ([..., H, W], NCHW style).
 
 Port of deva_tpu/ops/resize.py (which works on NHWC):
-- area downsampling by an integer factor is average pooling (exact);
+- area downsampling by an integer factor is average pooling (exact), in the
+  input's dtype;
 - bilinear upsampling with align_corners=False by an integer factor equals
-  the JAX 2-tap stencil (deva_tpu/ops/resize.py:46-92).
+  the JAX 2-tap stencil (deva_tpu/ops/resize.py:46-92). A bf16 input is
+  upsampled in bf16 (deva_tpu/ops/resize.py:57-64), every other dtype in
+  f32; the result has the input's dtype. deva_tpu rounds the stencil to
+  bf16 after each multiply and add, F.interpolate once per output, so the
+  two differ by a few bf16 ulps.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ def upsample_bilinear(x: torch.Tensor, factor: int) -> torch.Tensor:
     integer factor."""
     h, w = x.shape[-2:]
     lead = x.shape[:-2]
-    y = F.interpolate(x.reshape((-1, 1, h, w)), scale_factor=factor,
+    cdt = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    y = F.interpolate(x.reshape((-1, 1, h, w)).to(cdt), scale_factor=factor,
                       mode="bilinear", align_corners=False)
-    return y.reshape(lead + y.shape[-2:])
+    return y.reshape(lead + y.shape[-2:]).to(x.dtype)

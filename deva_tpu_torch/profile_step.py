@@ -2,7 +2,9 @@
 device.
 
 Runs the main path (the default InferenceConfig with --topk_method, two
-objects, seeded weights, smooth-noise 854x480 frames like chip_smoke.py)
+objects, seeded weights, smooth-noise 854x480 frames like chip_smoke.py;
+--amp for bf16 compute and bf16 rings, --ring_dtype for the rings alone,
+as in eval_vos_torch.py)
 for --frames frames, the first through InferenceCore.step and the others
 through step (--chunk 1) or step_chunk in chunks of --chunk frames (with
 --preencode_blocks, the pre-encoded block body). Prints
@@ -14,6 +16,7 @@ window's wall time, and the peak allocated device memory of the run.
 
     python -m deva_tpu_torch.profile_step --frames 60 --window 10 \
         --topk_method approx --chunk 5 --trace step_trace.json
+    python -m deva_tpu_torch.profile_step --amp --topk_method approx --chunk 5
 """
 from __future__ import annotations
 
@@ -27,13 +30,23 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from deva_tpu_torch.config import InferenceConfig
+from deva_tpu_torch.config import InferenceConfig, ModelConfig
 from deva_tpu_torch.inference.core import InferenceCore
 from deva_tpu_torch.models.network import DEVANetwork, init_weights
 
 
 LAYERS = ("encode_image", "transform_key", "encode_mask", "segment",
           "attention")
+# kernels summed by kind, by substrings of their names (first match wins):
+# the port's four attention kernels, layout transposes around cuDNN's
+# convolutions, the convolutions and GEMMs, dtype casts
+KERNEL_GROUPS = (
+    ("attention kernels", ("sim_topk", "topk_readout", "segmax",
+                           "denom_readout")),
+    ("layout transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),
+    ("convolutions and GEMMs", ("conv", "xmma", "implicit", "cudnn",
+                                "gemm", "cutlass", "sm90", "sm80")),
+    ("casts", ("copy_kernel", "to_copy")))
 
 
 def _labeled(fn, name):
@@ -59,6 +72,10 @@ def main():
                     help="frames per step_chunk call; 1 = step per frame")
     ap.add_argument("--preencode_blocks", action="store_true",
                     help="step_chunk's pre-encoded block body")
+    ap.add_argument("--amp", action="store_true",
+                    help="bfloat16 compute and (unless --ring_dtype) rings")
+    ap.add_argument("--ring_dtype", default=None,
+                    help="float32/bfloat16; default bfloat16 with --amp")
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the window here")
     args = ap.parse_args()
@@ -79,12 +96,14 @@ def main():
     mask[60:300, 330:520] = 1
     mask[260:450, 250:620] = 2
 
-    net = init_weights(DEVANetwork(), seed=0).to(dev).eval()
+    net = init_weights(DEVANetwork(ModelConfig(
+        dtype="bfloat16" if args.amp else "auto")), seed=0).to(dev).eval()
     for mode in LAYERS[:4]:
         setattr(net, mode, _labeled(getattr(net, mode), mode))
     core = InferenceCore(net, InferenceConfig(
         topk_method=args.topk_method,
-        preencode_blocks=args.preencode_blocks))
+        preencode_blocks=args.preencode_blocks,
+        ring_dtype=args.ring_dtype or ("bfloat16" if args.amp else "auto")))
     # the fused step's attention, and the composed path's
     core._fused._attend_rings = _labeled(core._fused._attend_rings,
                                          "attention")
@@ -134,6 +153,14 @@ def main():
     for name, us in sorted(layers.items(), key=lambda kv: -kv[1]):
         print(f"layer {name}: {us / 1000 / window:.3f} ms/frame on the "
               f"device timeline ({us / (window_s * 1e6):.1%} of the wall)")
+    groups = {}
+    for e in kernels:
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in e.key.lower() for k in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + _device_us(e)
+    for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"group {group}: {us / 1000 / window:.3f} ms/frame "
+              f"({us / max(busy_us, 1e-9):.1%} of the busy time)")
     for e in sorted(kernels, key=_device_us, reverse=True)[:25]:
         print(f"kernel {_device_us(e) / 1000 / window:8.3f} ms/frame "
               f"x{e.count / window:5.1f}  {e.key[:110]}")

@@ -14,7 +14,12 @@ cuda and fails when CUDA is absent; pass --device cpu explicitly to run the
 plain PyTorch path on the CPU. --chunk N steps maskless stretches N frames
 per InferenceCore.step_chunk call; --topk_method approx takes the
 threshold-approx attention (`--chunk 5 --topk_method approx` is deva_tpu's
-serving configuration). --use_pallas_attention is accepted for parity with
+serving configuration). --amp runs the model in bf16 and stores the memory
+rings in bf16 (deva_tpu's serving dtypes); --ring_dtype sets the rings'
+dtype on its own (float32 or bfloat16; by default bfloat16 with --amp,
+else float32), by deva_tpu's rule (deva_tpu/inference/eval_args.py:141-142).
+TF32 stays off on the card, so the f32 layers run in true f32 in every
+configuration. --use_pallas_attention is accepted for parity with
 eval_vos.py and changes nothing: the port has one attention route per
 method (deva_tpu_torch/config.py).
 """
@@ -55,6 +60,12 @@ def get_args(argv=None):
                         help="Save all frames")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; fails without CUDA) or cpu")
+    parser.add_argument("--amp", action="store_true",
+                        help="bfloat16 compute and, unless --ring_dtype "
+                        "says otherwise, bfloat16 memory rings")
+    parser.add_argument("--ring_dtype", default=None,
+                        help="memory ring dtype (float32/bfloat16; default "
+                        "bfloat16 with --amp, else float32)")
     # model dims
     parser.add_argument("--key_dim", type=int, default=64)
     parser.add_argument("--value_dim", type=int, default=512)
@@ -92,7 +103,8 @@ def get_args(argv=None):
 def load_model(args, device: torch.device) -> DEVANetwork:
     """Weights from an upstream .pth or a deva_tpu .npz; else random init."""
     mc = ModelConfig(pix_feat_dim=args.pix_feat_dim, key_dim=args.key_dim,
-                     value_dim=args.value_dim)
+                     value_dim=args.value_dim,
+                     dtype="bfloat16" if args.amp else "auto")
     model = DEVANetwork(mc)
     if args.model and path.exists(args.model):
         if args.model.endswith(".npz"):
@@ -198,7 +210,8 @@ def main(argv=None):
         num_prototypes=args.num_prototypes,
         max_long_term_elements=args.max_long_term_elements, size=args.size,
         topk_method=args.topk_method,
-        use_pallas_attention=args.use_pallas_attention)
+        use_pallas_attention=args.use_pallas_attention,
+        ring_dtype=args.ring_dtype or ("bfloat16" if args.amp else "auto"))
     timer = StepTimer(device)
 
     for vid_reader in meta_dataset.get_datasets():

@@ -67,7 +67,7 @@ def _weights(tmp_path) -> str:
     return weights
 
 
-def _compare_pngs(tmp_path):
+def _compare_pngs(tmp_path, share: float = 0.99):
     names_j, masks_j = _read_pngs(tmp_path / "jax")
     names_t, masks_t = _read_pngs(tmp_path / "torch")
     assert names_t == names_j == ["00000.png", "00001.png", "00002.png",
@@ -76,7 +76,7 @@ def _compare_pngs(tmp_path):
         assert mt.shape == mj.shape == (480, 854)
         assert set(np.unique(mt)) <= {0, 1, 2}
         agree = (mj == mt).mean()
-        assert agree >= 0.99, f"label agreement {agree}"
+        assert agree >= share, f"label agreement {agree}"
 
 
 def test_eval_vos_torch_matches_eval_vos(tmp_path):
@@ -100,6 +100,24 @@ def test_eval_vos_torch_chunk_matches_eval_vos_chunk(tmp_path):
                str(tmp_path / "torch"), "--device", "cpu")
     assert "Total processed frames: 4" in out
     _compare_pngs(tmp_path)
+
+
+def test_eval_vos_torch_amp_matches_eval_vos_amp(tmp_path):
+    """--amp: bf16 compute and bf16 rings in both scripts. The two round
+    bf16 at other places (oneDNN and XLA-CPU convolutions sum in other
+    orders), and this random-init model's probabilities are nearly flat
+    between its two objects over much of the frame, so near-tie pixels
+    flip: budget 75% of the labels per frame. Measured on the CPU: 78.2%,
+    82.1% and 82.0% on the three propagated frames, where deva_tpu's own
+    --amp run agrees with its f32 run on 87.7%, 85.4% and 85.2%, and the
+    two scripts' f32 runs on 99.99% or more."""
+    common = ["--dataset", "G", "--generic_path", CLIP, "--size", "120",
+              "--model", _weights(tmp_path), "--amp"]
+    _run("eval_vos.py", *common, "--output", str(tmp_path / "jax"))
+    out = _run("eval_vos_torch.py", *common, "--output",
+               str(tmp_path / "torch"), "--device", "cpu")
+    assert "FPS:" in out
+    _compare_pngs(tmp_path, share=0.75)
 
 
 def test_eval_vos_torch_refuses_missing_cuda(tmp_path):
