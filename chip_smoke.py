@@ -1,8 +1,9 @@
 """Smoke test of deva_tpu_torch on one NVIDIA GPU: builds the CUDA kernels from
 this checkout and drives the port's main paths (semi-supervised VOS
 propagation through InferenceCore.step with exact top-k, and through
-InferenceCore.step_chunk with threshold-approx top-k) on the card, in f32
-and in deva_tpu's serving dtypes (bf16 compute, bf16 memory rings).
+InferenceCore.step_chunk with threshold-approx top-k; and four videos in
+lockstep through BatchedPropagator) on the card, in f32 and in deva_tpu's
+serving dtypes (bf16 compute, bf16 memory rings).
 
     python3 chip_smoke.py
 
@@ -66,6 +67,27 @@ Phases 3 and 4 then run again with bf16 compute and bf16 rings on the same
 frames and weights: each bf16 kernel of the method launches once per
 propagated frame (59 in 59), and the probabilities meet
 tests/test_amp.py's whole-clip budget against the f32 run, frame by frame.
+1b. The kernels' video axis (the batched propagator's launches): B4 = 4
+   videos in one launch at N = 1620 and 16712 per video, with per-video
+   long-term sizes 512, 384, 0 and 512 at 16712, on f32 and bf16 rings:
+   sim_topk, topk_readout (one and two segments) and segmax bitwise four
+   single-video launches, denom_readout's rmax and th bitwise and its out
+   and usage within 1e-5; each against its batched twin at phase 1's
+   budgets; timed beside four single launches, with four times the
+   single-video bound.
+2b. The batched slice (inference/batched.py) on the card against the CPU,
+   both methods, long-term memory on (three 64x96 videos exact, through
+   step_all and step_block by 2; two 128x192 videos approx), within phase
+   2's tolerances, one launch of each kernel of the method per lockstep
+   step; then the same in bf16.
+5. Four 480p videos in lockstep at the default InferenceConfig (video 0
+   is phase 3's clip; video 1 has one object): f32 exact through
+   step_all, f32 approx and bf16 approx through step_block by 5. Each
+   kernel of the method launches once per lockstep frame (59 for 59);
+   each video meets tests/test_batched.py's budgets against its own
+   single-stream run; the bf16 run meets tests/test_amp.py's budget
+   against the f32 run. Prints the median ms per lockstep step, the
+   aggregate video-frames/s and the peak memory beside the single stream.
 
 The second-to-last line of output is a JSON object with each kernel's
 launches (phase 3 for the exact pair, phase 4 for the approx pair), largest
@@ -73,8 +95,10 @@ error against its plain twin, and its time, its plain twin's, its bound and
 what sets it, the library call's (null where no single call computes the
 function) and the product's (null where none applies) at N=16712, once on
 f32 rings and once on bf16 rings (names suffixed ".bf16", launches from
-the bf16 runs); the last line is {"ok": true, "device": {...}}. Exits
-non-zero without CUDA.
+the bf16 runs), and again for the batched launch (names suffixed ".b4",
+and ".bf16.b4" for the approx pair on bf16 rings; launches from phase 5,
+with the time of four single launches as singles_ms); the last line is
+{"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
 from __future__ import annotations
 
@@ -119,6 +143,11 @@ EXACT_PAIR = ("sim_topk", "topk_readout")
 # few bf16 ulps apart; about three times the largest |dprob| the H100 gave
 # (tests/test_torch_cuda.py: 0.0126 exact, 0.0172 approx at 64x96)
 BF16_SLICE_TOL = 0.05
+# phase 1b and phase 5: videos in one lockstep batch (deva_tpu's --batch
+# default), and phase 1b's per-video long-term tokens in the 512 long-term
+# slots of the N=16712 ring (video 2 attends over an all-invalid segment)
+B4 = 4
+BATCH_LT_SIZES = (512, 384, 0, 512)
 # NVIDIA H100 SXM data sheet: f32 FFMA peak outside the tensor cores, and
 # HBM3 bandwidth (both at the 700 W limit)
 F32_FLOPS, HBM_BYTES = 67e12, 3.35e12
@@ -677,6 +706,225 @@ def phase_kernels_bf16(ak, apx, dev) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 1b: the kernels' video axis (the batched propagator's launches)
+# --------------------------------------------------------------------------
+
+def batched_validity(n, dev):
+    """[B4, n] validity of phase 1b's rings: at N=16712 each video's
+    [long-term ; working] ring holds BATCH_LT_SIZES long-term tokens beside
+    ring_validity's working part; at N=1620 every video one memory frame."""
+    if n != 16712:
+        return ring_validity(n, dev).repeat(B4, 1)
+    lt = torch.arange(LT_SLOTS, device=dev)
+    work = ring_validity(n, dev)[LT_SLOTS:]
+    return torch.stack([torch.cat([lt < s, work]) for s in BATCH_LT_SIZES])
+
+
+def per_video(x, b):
+    """Video b's part of a batched argument: a tensor's row b, each field
+    of an Operands or tuple, None as it is."""
+    if isinstance(x, tuple):
+        return type(x)(*(per_video(t, b) for t in x)) \
+            if hasattr(x, "_fields") else tuple(per_video(t, b) for t in x)
+    return None if x is None else x[b]
+
+
+def singles(fn, *args):
+    """fn once per video on its part of args (B4 single-video launches),
+    each output stacked over the videos."""
+    outs = [fn(*(per_video(a, b) for a in args)) for b in range(B4)]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.stack(outs)
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def phase_kernels_batched(ak, apx, dev, ring: str = "float32") -> dict:
+    """The four kernels' video axis: B4 videos in one launch at phase 1's
+    shapes (N = 1620 and 16712 per video, per-video long-term sizes
+    BATCH_LT_SIZES at 16712, so one video attends over an all-invalid
+    long-term segment), on `ring` rings. sim_topk, topk_readout (one and
+    two segments) and segmax bitwise B4 single-video launches;
+    denom_readout's rmax and th bitwise, its out and usage within 1e-5
+    (the usage atomics add in another order). Each held to its batched
+    plain twin at phase 1's budgets. Timed beside B4 single launches, the
+    twin and (f32, N=16712) the library call and the product, with B4 times
+    the single-video bound."""
+    q, ck, k, o, cv = 1620, 64, 30, 2, 512
+    c, kc = o * cv, 2 * ck
+    dt = getattr(torch, ring)
+    isz = torch.finfo(dt).bits // 8  # ring bytes per element
+    gen = torch.Generator(device=dev).manual_seed(3)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    rand = lambda *s: torch.rand(s, generator=gen, device=dev)
+    qk, qe = randn(B4, q, ck), rand(B4, q, ck)
+    n_tile = apx.default_n_tile(c, isz)
+    err = dict.fromkeys(KERNELS, 0.0)
+    times, bounds = {}, {}
+    for n in (1620, 16712):
+        valid = batched_validity(n, dev)
+        mk, ms = randn(B4, n, ck).to(dt), (1 + 3 * rand(B4, n)).to(dt)
+        v2 = randn(B4, n, c).to(dt)
+        # [long-term ; working] value rings, each its own tensor (as the
+        # propagator keeps them)
+        pair = (v2[:, :LT_SLOTS].contiguous(), v2[:, LT_SLOTS:].contiguous())
+
+        gv, gi = ak.sim_topk(qk, qe, mk, ms, valid, k)
+        sv, si = singles(lambda *a: ak.sim_topk(*a, k), qk, qe, mk, ms,
+                         valid)
+        pv, pi = ak.sim_topk_plain(qk, qe, mk, ms, valid, k)
+        torch.cuda.synchronize()
+        assert same_bits(gv, sv) and torch.equal(gi, si), \
+            f"sim_topk B={B4} N={n}: not bitwise the single launches"
+        torch.testing.assert_close(gv, pv, rtol=1e-5, atol=1e-5)
+        mism = (gi != pi).float().mean().item()
+        assert mism < 1e-3, f"sim_topk B={B4} N={n}: mismatch {mism}"
+        assert int(gi.min()) >= 0 and int(gi.max()) < n
+        err["sim_topk"] = max(err["sim_topk"], (gv - pv).abs().max().item())
+
+        w = torch.softmax(gv, dim=-1)
+        out = ak.topk_readout(gi, w, v2)
+        out2 = ak.topk_readout(gi, w, pair)
+        so = singles(ak.topk_readout, gi, w, v2)
+        so2 = singles(ak.topk_readout, gi, w, pair)
+        plain = ak.topk_readout_plain(gi, w, v2)
+        torch.cuda.synchronize()
+        assert same_bits(out, so) and same_bits(out2, so2) and \
+            same_bits(out2, out), f"topk_readout B={B4} N={n}: not bitwise"
+        torch.testing.assert_close(out, plain, rtol=1e-4, atol=1e-4)
+        err["topk_readout"] = max(err["topk_readout"],
+                                  (out - plain).abs().max().item())
+
+        ops = apx.prep2(qk, qe, mk, ms, valid)
+        geom = apx.Geometry.of(n, n_tile)
+        seg = apx.segmax(ops, geom)
+        sseg = singles(lambda x: apx.segmax(x, geom), ops)
+        seg_ref = apx.segmax_plain(ops, geom)
+        torch.cuda.synchronize()
+        assert same_bits(seg, sseg), f"segmax B={B4} N={n}: not bitwise"
+        fin = torch.isfinite(seg_ref)
+        assert torch.equal(torch.isfinite(seg), fin)
+        torch.testing.assert_close(seg[fin], seg_ref[fin], rtol=1e-5,
+                                   atol=1e-5)
+        err["segmax"] = max(err["segmax"],
+                            (seg[fin] - seg_ref[fin]).abs().max().item())
+
+        dr = apx.denom_readout(ops, geom, seg, v2, k)
+        sdr = singles(lambda x, s_, v: apx.denom_readout(x, geom, s_, v, k),
+                      ops, seg, v2)
+        torch.cuda.synchronize()
+        out_d, u_d, rmax, th = dr
+        assert same_bits(rmax, sdr[2]) and same_bits(th, sdr[3]), \
+            f"denom_readout B={B4} N={n}: rmax or th not bitwise"
+        torch.testing.assert_close(out_d, sdr[0], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(u_d, sdr[1], rtol=1e-5, atol=1e-5)
+        # against the twin at a threshold no similarity lies near
+        sim = apx.similarity2_plain(ops)
+        th_gap = apx.gap_threshold(sim, th, 1e-3)
+        og, ug, _, _ = apx.denom_readout(ops, geom, seg, v2, k, th_gap)
+        rg, rug = apx.denom_readout_plain(ops, geom, seg, rmax, th_gap, v2)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(ug, rug, rtol=1e-4, atol=1e-4)
+        diff = (og - rg).abs()
+        if ring == "float32":
+            torch.testing.assert_close(og, rg, rtol=1e-4, atol=1e-4)
+        else:  # one bf16 ulp of the weights (phase 1's bf16 budget)
+            aff_gap = apx._support_weights(sim, rmax, th_gap)
+            tight = (diff <= 1e-5 + 1e-5 * rg.abs()).float().mean().item()
+            assert tight >= 0.99 and bool((diff <= 2.0 ** -7 * (
+                aff_gap @ v2.float().abs()) + 1e-5).all()), \
+                f"denom_readout bf16 B={B4} N={n}: twin {tight:.4f}"
+            del aff_gap
+        err["denom_readout"] = max(err["denom_readout"], diff.max().item(),
+                                   (ug - rug).abs().max().item())
+        support = (sim >= th) & torch.isfinite(sim)
+        entries, rows = int(support.sum()), int(support.any(-2).sum())
+        del sim, support
+        rows_r = sum(int(torch.unique(gi[b]).numel()) for b in range(B4))
+
+        # B4 times the single-video work (rows and support summed over the
+        # videos); bf16: ring bytes halve, as in phase 1
+        bounds[n] = {
+            "sim_topk": bound(B4 * 4 * q * n * ck, B4 * (
+                4 * 2 * q * ck + isz * (n * ck + n) + n + 8 * q * k)),
+            "topk_readout": bound(B4 * 2 * q * k * c, B4 * (
+                8 * q * k + 4 * q * c) + isz * rows_r * c),
+            "segmax": bound(B4 * 2 * q * n * kc, B4 * (
+                4 * (q * kc + n * kc + n + q) + n + 4 * q * geom.nseg)),
+            "denom_readout": bound(
+                2 * entries * (kc + c),
+                B4 * (4 * q * (geom.nseg + kc + 1 + c) + 4 * n) +
+                rows * (isz * c + 4 * kc + 4 + 1))}
+        run_singles = lambda fn, *a: [fn(*(per_video(x, b) for x in a))
+                                      for b in range(B4)]
+        # B4 launches a call: 3 calls a window keep the host's enqueueing
+        # (up to ~0.13 ms a launch) inside the sleeping kernel's ~2.5 ms lead
+        singles_ms = lambda fn: cuda_ms(fn, iters=3)
+        t = {
+            "sim_topk": cuda_ms(lambda: ak.sim_topk(qk, qe, mk, ms, valid,
+                                                    k)),
+            "sim_topk_singles": singles_ms(lambda: run_singles(
+                lambda *a: ak.sim_topk(*a, k), qk, qe, mk, ms, valid)),
+            "topk_readout": cuda_ms(lambda: ak.topk_readout(gi, w, v2)),
+            "topk_readout_two_segments": cuda_ms(
+                lambda: ak.topk_readout(gi, w, pair)),
+            "topk_readout_singles": singles_ms(lambda: run_singles(
+                ak.topk_readout, gi, w, v2)),
+            "segmax": cuda_ms(lambda: apx.segmax(ops, geom)),
+            "segmax_singles": singles_ms(lambda: run_singles(
+                lambda x: apx.segmax(x, geom), ops)),
+            "denom_readout": cuda_ms(lambda: apx.denom_readout(
+                ops, geom, seg, v2, k)),
+            "denom_readout_singles": singles_ms(lambda: run_singles(
+                lambda x, s_, v: apx.denom_readout(x, geom, s_, v, k), ops,
+                seg, v2)),
+        }
+        if n == 16712:  # the twins and yardsticks at the main shape
+            t.update({
+                "sim_topk_plain": cuda_ms(lambda: ak.sim_topk_plain(
+                    qk, qe, mk, ms, valid, k), iters=5),
+                "sim_topk_product": cuda_ms(lambda: torch.bmm(
+                    ops.qcat, ops.mcat.transpose(1, 2))),
+                "topk_readout_plain": cuda_ms(
+                    lambda: ak.topk_readout_plain(gi, w, v2), iters=5),
+                "segmax_plain": cuda_ms(lambda: apx.segmax_plain(ops, geom),
+                                        iters=5),
+                "segmax_product": cuda_ms(lambda: torch.bmm(
+                    ops.qcat, ops.mcat.transpose(1, 2))),
+                "denom_readout_plain": cuda_ms(
+                    lambda: apx._denom_readout_twin(ops, geom, seg, v2, k),
+                    iters=5),
+            })
+            if ring == "float32":
+                # the library call with topk_readout's function over all
+                # the videos: one bag of k weighted rows per query, the
+                # rings as one table
+                flat_idx = (gi.long() + n * torch.arange(
+                    B4, device=dev)[:, None, None]).reshape(B4 * q, k)
+                table = v2.reshape(B4 * n, c)
+                bag = torch.nn.functional.embedding_bag(
+                    flat_idx, table, mode="sum",
+                    per_sample_weights=w.reshape(B4 * q, k))
+                torch.testing.assert_close(bag.reshape(B4, q, c), plain,
+                                           rtol=1e-4, atol=1e-4)
+                t["topk_readout_library"] = cuda_ms(
+                    lambda: torch.nn.functional.embedding_bag(
+                        flat_idx, table, mode="sum",
+                        per_sample_weights=w.reshape(B4 * q, k)))
+        times[n] = t
+        print(f"phase 1b B={B4} {ring} rings N={n} per video (long-term "
+              f"tokens {BATCH_LT_SIZES if n == 16712 else 'none'}): "
+              "sim_topk, topk_readout (one and two segments) and segmax "
+              "bitwise four single launches; denom_readout rmax, th bitwise, "
+              "out and usage within 1e-5; err vs batched twins " +
+              ", ".join(f"{name} {v:.3g}" for name, v in err.items()) +
+              "; ms " + ", ".join(f"{name} {v:.4f}" for name, v in t.items())
+              + "; bound ms " +
+              ", ".join(f"{name} {b:.4f} ({by})"
+                        for name, (b, by) in bounds[n].items()), flush=True)
+    return {"err": err, "times": times, "bounds": bounds}
+
+
+# --------------------------------------------------------------------------
 # phase 2: the slice on the card against the slice on the CPU
 # --------------------------------------------------------------------------
 
@@ -843,6 +1091,93 @@ def phase_slice_parity_approx(ak, apx, net_cpu, dev, ring_dtype="float32",
           f"{launches}; {composed}", flush=True)
 
 
+def batched_slice_videos(h, w, t, seeds):
+    """Phase 2b's videos: phase 2's clip (the first seed) and others, the
+    second of them with one object. Returns (frames [B, t, h, w, 3] numpy,
+    masks, objects)."""
+    frames, masks, objects = [], [], []
+    for i, seed in enumerate(seeds):
+        frames.append(np.stack(synthetic_video(np.random.default_rng(seed),
+                                               h, w, t)))
+        mask = two_object_mask(h, w, (h // 8, h * 7 // 16),
+                               (w // 10, w * 5 // 12), (h * 9 // 16,
+                                                        h * 15 // 16),
+                               (w * 25 // 48, w * 15 // 16))
+        if i == 1:
+            mask[mask == 2] = 0
+        masks.append(mask)
+        objects.append([1] if i == 1 else [1, 2])
+    return np.stack(frames), masks, objects
+
+
+def phase_batched_slice(ak, net_cpu, dev, ring_dtype="float32",
+                        tol: float = 5e-3):
+    """Phase 2b: the batched slice (inference/batched.py) on the card
+    against the same batched slice on the CPU, long-term memory on, for
+    both methods: exact on three videos of 64x96 (phase 2's clip and two
+    more, one with a single object) through step_all, and through step_block
+    by 2 on the card; approx on two videos of 128x192 through step_all,
+    with a [long-term ; working] ring in groups of tokens. Probabilities
+    within tol; one launch of each kernel of the method per lockstep step;
+    ring and long-term sizes equal on both devices."""
+    from deva_tpu_torch.config import InferenceConfig
+    from deva_tpu_torch.inference.batched import BatchedPropagator
+    net_gpu = copy.deepcopy(net_cpu).to(dev)
+    cases = (
+        ("exact", 64, 96, 9, (7, 8, 9), dict(
+            mem_every=2, top_k=8, max_mid_term_frames=3,
+            min_mid_term_frames=1, num_prototypes=16,
+            max_long_term_elements=96)),
+        ("approx", 128, 192, 10, (21, 22), dict(
+            mem_every=1, top_k=30, max_mid_term_frames=7,
+            min_mid_term_frames=2, num_prototypes=16,
+            max_long_term_elements=96)))
+    for method, h, w, t, seeds, kw in cases:
+        cfg = InferenceConfig(enable_long_term=True,
+                              enable_long_term_count_usage=True,
+                              topk_method=method, ring_dtype=ring_dtype, **kw)
+        frames, masks, objects = batched_slice_videos(h, w, t, seeds)
+        runs = {}
+        for name, net, device in (("cpu", net_cpu, "cpu"),
+                                  ("card", net_gpu, dev)):
+            bp = BatchedPropagator(net, cfg)
+            bp.initialize(frames[:, 0], masks, objects)
+            ak.reset_launch_counts()
+            probs = [bp.step_all(frames[:, ti]).cpu() for ti in range(1, t)]
+            runs[name] = (bp, probs, dict(ak.LAUNCHES))
+        cpu_bp, p_cpu, _ = runs["cpu"]
+        card_bp, p_card, launches = runs["card"]
+        worst = max((a - b).abs().max().item() for a, b in zip(p_card, p_cpu))
+        assert worst <= tol, f"batched {method}: |card - cpu| = {worst}"
+        pair = ("sim_topk", "topk_readout") if method == "exact" else \
+            ("segmax", "denom_readout")
+        assert all(launches[k] == t - 1 for k in pair) and \
+            sum(launches.values()) == 2 * (t - 1), launches
+        assert np.array_equal(card_bp.sizes, cpu_bp.sizes) and \
+            np.array_equal(card_bp.lt_sizes, cpu_bp.lt_sizes)
+        assert card_bp._lt_engaged, "long-term memory never engaged"
+        note = ""
+        if method == "exact":
+            # the same frames through step_block by 2 (a memory period per
+            # block) on the card
+            blk = BatchedPropagator(net_gpu, cfg)
+            blk.initialize(frames[:, 0], masks, objects)
+            p_blk = []
+            for t0 in range(1, t, 2):
+                p_blk += list(blk.step_block(frames[:, t0:t0 + 2])
+                              .cpu().unbind(1))
+            worst_blk = max((a - b).abs().max().item()
+                            for a, b in zip(p_blk, p_cpu))
+            assert worst_blk <= tol, f"step_block: |card - cpu| {worst_blk}"
+            assert np.array_equal(blk.lt_sizes, cpu_bp.lt_sizes)
+            note = f", step_block by 2 {worst_blk:.3g}"
+        print(f"phase 2b batched {method}{dtype_label(net_cpu, ring_dtype)}: "
+              f"B={len(seeds)} videos of {h}x{w}, card vs cpu max |dprob| "
+              f"step_all {worst:.3g}{note} over {t - 1} lockstep frames "
+              f"(bound {tol:g}); launches {launches}; long-term tokens "
+              f"{card_bp.lt_sizes.tolist()}", flush=True)
+
+
 # --------------------------------------------------------------------------
 # phase 3: the 480p main path
 # --------------------------------------------------------------------------
@@ -929,12 +1264,14 @@ def report_main_path(label, core, step_ms, launches, dev, n_frames):
           f"{max(steady):.3f}); FPS {1000 / med:.2f}; first frame "
           f"{step_ms[0]:.1f} ms; peak allocated {peak / 2**20:.1f} MiB",
           flush=True)
+    return {"median_ms": med, "peak_mib": peak / 2**20}
 
 
 def phase_main_path(ak, net_cpu, dev, n_frames: int = 60,
                     ring_dtype: str = "float32"):
     """Phase 3: exact top-k through step (the fused step) at 480p. Returns
-    the launch counts and the probabilities (on the host)."""
+    the launch counts, the probabilities (on the host) and the run's median
+    ms/frame and peak memory."""
     from deva_tpu_torch.config import InferenceConfig
     from deva_tpu_torch.inference.core import InferenceCore
     frames, mask, net = main_path_setup(net_cpu, dev, n_frames)
@@ -978,8 +1315,8 @@ def phase_main_path(ak, net_cpu, dev, n_frames: int = 60,
     propagated = n_frames - 1
     assert launches["sim_topk"] >= propagated and \
         launches["topk_readout"] >= propagated, launches
-    report_main_path(label, core, step_ms, launches, dev, n_frames)
-    return launches, out
+    return launches, out, report_main_path(label, core, step_ms, launches,
+                                           dev, n_frames)
 
 
 def phase_main_path_approx(ak, net_cpu, dev, n_frames: int = 60,
@@ -990,7 +1327,8 @@ def phase_main_path_approx(ak, net_cpu, dev, n_frames: int = 60,
     video), as eval_vos_torch.py --chunk buffers them. A chunk's time is
     shared equally by its frames. preencode: the pre-encoded block body
     (InferenceConfig.preencode_blocks), one attention per block. Returns
-    the launch counts and the probabilities."""
+    the launch counts, the probabilities and the run's median ms/frame and
+    peak memory."""
     from deva_tpu_torch.config import InferenceConfig
     from deva_tpu_torch.inference.core import InferenceCore
     frames, mask, net = main_path_setup(net_cpu, dev, n_frames)
@@ -1026,10 +1364,10 @@ def phase_main_path_approx(ak, net_cpu, dev, n_frames: int = 60,
     assert launches["segmax"] >= calls and \
         launches["denom_readout"] >= calls, launches
     body = ", pre-encoded blocks" if preencode else ""
-    report_main_path(f"phase 4 approx, step_chunk by {chunk}{body}"
-                     f"{dtype_label(net, ring_dtype)}", core, step_ms,
-                     launches, dev, n_frames)
-    return launches, out
+    return launches, out, report_main_path(
+        f"phase 4 approx, step_chunk by {chunk}{body}"
+        f"{dtype_label(net, ring_dtype)}", core, step_ms, launches, dev,
+        n_frames)
 
 
 def compare_preencoded(per_frame, preencoded):
@@ -1048,6 +1386,189 @@ def compare_preencoded(per_frame, preencoded):
     print(f"phase 4 pre-encoded vs per-frame body: max |dprob| {worst:.3g}, "
           f"pixels moved > 5e-3 at most {moved:.2%}, argmax changed at most "
           f"{flips:.2%} of a frame (budget 2%)", flush=True)
+
+
+# --------------------------------------------------------------------------
+# phase 5: B4 videos at 480p in lockstep
+# --------------------------------------------------------------------------
+
+# phase 5's videos: video 0 is phases 3 and 4's clip (seed 11, its mask),
+# the others have their own seeds and boxes, and video 1 one object
+PHASE5_SEEDS = (11, 12, 13, 14)
+PHASE5_BOXES = (((60, 300), (330, 520), (260, 450), (250, 620)),
+                ((100, 380), (200, 500), (0, 0), (0, 0)),
+                ((40, 240), (100, 400), (250, 470), (450, 800)),
+                ((150, 420), (500, 820), (20, 140), (30, 300)))
+
+
+def batched_main_setup(dev, n_frames):
+    """Phase 5's frames [B4, T, H, W, 3] on the card (set-up), masks and
+    objects."""
+    gc.collect()
+    frames = torch.stack([
+        torch.from_numpy(np.stack(synthetic_video(
+            np.random.default_rng(seed), H480, W480, n_frames)))
+        for seed in PHASE5_SEEDS]).to(dev)
+    masks = [two_object_mask(H480, W480, *boxes) for boxes in PHASE5_BOXES]
+    objects = [[int(o) for o in np.unique(m) if o] for m in masks]
+    return frames, masks, objects
+
+
+def single_stream(net, frames, mask, objects, method: str):
+    """One video through InferenceCore at the default InferenceConfig, as
+    phases 3 (exact, step) and 4 (approx, step_chunk by 5) drive it. Returns
+    the propagated frames' probabilities on the host."""
+    from deva_tpu_torch.config import InferenceConfig
+    from deva_tpu_torch.inference.core import InferenceCore
+    core = InferenceCore(net, InferenceConfig(topk_method=method))
+    core.step(frames[0], mask, objects)
+    n = frames.shape[0]
+    if method == "exact":
+        return [core.step(frames[t], end=t == n - 1).cpu()
+                for t in range(1, n)]
+    out = []
+    for start in range(1, n, 5):
+        block = list(frames[start:start + 5])
+        out += [p.cpu() for p in core.step_chunk(
+            block, end=start + len(block) == n)]
+    return out
+
+
+def batched_run(ak, net, frames, masks, objects, dev, method: str,
+                chunk: int, ring_dtype: str):
+    """The B4 videos through BatchedPropagator at the default
+    InferenceConfig (long-term memory on): step_all per lockstep frame
+    (chunk 1) or step_block by `chunk`. Returns the launch counts of the
+    run, each video's propagated probabilities (on the host, live channels)
+    and the per-frame wall ms (a block's time shared by its frames)."""
+    from deva_tpu_torch.config import InferenceConfig
+    from deva_tpu_torch.inference.batched import BatchedPropagator
+    bp = BatchedPropagator(net, InferenceConfig(topk_method=method,
+                                                ring_dtype=ring_dtype))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ak.reset_launch_counts()
+    bp.initialize(frames[:, 0], masks, objects)
+    n = frames.shape[1]
+    step_ms, out = [], [[] for _ in objects]
+    t = 1
+    while t < n:
+        k = min(chunk, n - t)
+        t0 = time.perf_counter()
+        if chunk == 1:
+            probs = bp.step_all(frames[:, t], end=t == n - 1)[:, None]
+        else:
+            probs = bp.step_block(frames[:, t:t + k], end=t + k == n)
+        torch.cuda.synchronize()
+        step_ms += [(time.perf_counter() - t0) * 1000 / k] * k
+        assert probs.shape == (B4, k, 1 + bp.o_cap, H480, W480)
+        assert bool(torch.isfinite(probs).all()), f"frame {t}: non-finite"
+        torch.testing.assert_close(probs.sum(2), torch.ones_like(
+            probs[:, :, 0]), rtol=0, atol=1e-4)
+        for b, objs in enumerate(objects):  # on the host, out of the peak
+            out[b] += list(probs[b, :, :len(objs) + 1].cpu().unbind(0))
+        t += k
+    launches = dict(ak.LAUNCHES)
+    assert bp._lt_engaged, "long-term memory never engaged"
+    return launches, out, step_ms, bp
+
+
+def compare_single(batched, single, label: str) -> str:
+    """A video's batched run against its single-stream run, with
+    tests/test_batched.py's budgets per frame: at most 2% of the pixels
+    off by more than 5e-3, at most 2% argmax flips (batch-4 convolutions
+    round differently from batch-1 ones)."""
+    worst = moved = flips = 0.0
+    assert len(batched) == len(single)
+    for ti, (g, w) in enumerate(zip(batched, single), start=1):
+        assert g.shape == w.shape, (label, ti, g.shape, w.shape)
+        diff = (g - w).abs()
+        m = (diff > 5e-3).any(0).float().mean().item()
+        f = (g.argmax(0) != w.argmax(0)).float().mean().item()
+        assert m <= 0.02 and f <= 0.02, (label, ti, m, f)
+        worst = max(worst, diff.max().item())
+        moved, flips = max(moved, m), max(flips, f)
+    return f"{label} max |dprob| {worst:.3g}, moved {moved:.2%}, argmax " \
+        f"{flips:.2%}"
+
+
+def phase_batched_main(ak, net_cpu, net_cpu16, dev, single_runs,
+                       n_frames: int = 60) -> dict:
+    """Phase 5: B4 synthetic 480p videos in lockstep, long-term memory on,
+    at full width: f32 exact through step_all, f32 approx through
+    step_block by 5, bf16 approx through step_block by 5. Each kernel of
+    the method launches once per lockstep frame (59 for 59 frames, not
+    4 x 59); each video meets tests/test_batched.py's budgets against its
+    own single-stream run (video 0: phases 3 and 4, `single_runs`
+    {method: (probabilities, stats)}); the bf16 run meets
+    tests/test_amp.py's whole-clip budget against the f32 run. Prints the
+    median ms per lockstep step, the aggregate video-frames/s and the peak
+    memory beside the single-stream figures of this call. Returns each
+    run's launch counts."""
+    frames, masks, objects = batched_main_setup(dev, n_frames)
+    frame_mib = frames.numel() * 4 / 2**20
+    launches, probs = {}, {}
+    for key, method, chunk, ring in (
+            ("exact", "exact", 1, "float32"),
+            ("approx", "approx", 5, "float32"),
+            ("approx.bf16", "approx", 5, "bfloat16")):
+        # one model on the card at a time, so a run's peak holds its own
+        model = copy.deepcopy(net_cpu if ring == "float32" else net_cpu16) \
+            .to(dev)
+        runs, out, step_ms, bp = batched_run(ak, model, frames, masks,
+                                             objects, dev, method, chunk,
+                                             ring)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        pair = EXACT_PAIR if method == "exact" else \
+            tuple(k for k in KERNELS if k not in EXACT_PAIR)
+        assert all(runs[k] == n_frames - 1 for k in pair) and \
+            sum(runs.values()) == 2 * (n_frames - 1), \
+            f"phase 5 {key}: not one launch per lockstep frame: {runs}"
+        launches[key], probs[key] = runs, out
+        steady = step_ms[9:]  # frames 10 onwards
+        med = statistics.median(steady)
+        how = "step_all" if chunk == 1 else f"step_block by {chunk}"
+        label = f"phase 5 {method}, {how}{dtype_label(model, ring)}"
+        counts = "/".join(str(len(objs)) for objs in objects)
+        print(f"{label}: B={B4} videos ({counts} objects), {n_frames} "
+              f"frames: launches {runs}; long-term "
+              f"tokens {bp.lt_sizes.tolist()}, working {bp.sizes.tolist()}",
+              flush=True)
+        line = (f"{label}: median {med:.3f} ms per lockstep step (frames "
+                f"10-{n_frames - 1}; mean {statistics.mean(steady):.3f}, min "
+                f"{min(steady):.3f}, max {max(steady):.3f}), aggregate "
+                f"{B4 * 1000 / med:.2f} video-frames/s; peak allocated "
+                f"{peak:.1f} MiB ({frame_mib:.1f} of it the {B4} videos' "
+                f"input frames)")
+        if ring == "float32":
+            single = single_runs[method][1]
+            line += (f"; single stream in this call (phase "
+                     f"{3 if method == 'exact' else 4}): "
+                     f"{single['median_ms']:.3f} ms/frame, "
+                     f"{1000 / single['median_ms']:.2f} frames/s, peak "
+                     f"{single['peak_mib']:.1f} MiB ({frame_mib / B4:.1f} of "
+                     f"it input frames): aggregate x"
+                     f"{B4 * single['median_ms'] / med:.2f}")
+        print(line, flush=True)
+        del bp, model
+        gc.collect()
+    # each video against its own single-stream run
+    net = copy.deepcopy(net_cpu).to(dev)
+    for method in ("exact", "approx"):
+        notes = [compare_single(probs[method][0], single_runs[method][0][1:],
+                                "video 0")]
+        for b in range(1, B4):
+            single = single_stream(net, frames[b], masks[b], objects[b],
+                                   method)
+            notes.append(compare_single(probs[method][b], single,
+                                        f"video {b}"))
+        print(f"phase 5 {method} batched vs single stream "
+              f"(tests/test_batched.py's budgets: moved > 5e-3 <= 2%, "
+              f"argmax <= 2%): " + "; ".join(notes), flush=True)
+    compare_dtypes([p for v in probs["approx"] for p in v],
+                   [p for v in probs["approx.bf16"] for p in v],
+                   "phase 5 approx, bf16")
+    return launches
 
 
 def main() -> int:
@@ -1078,6 +1599,8 @@ def main() -> int:
     exact = phase_kernels(ak, apx, dev)
     approx = phase_approx_kernels(ak, apx, dev)
     bf16 = phase_kernels_bf16(ak, apx, dev)
+    batched = phase_kernels_batched(ak, apx, dev)
+    batched16 = phase_kernels_batched(ak, apx, dev, "bfloat16")
     net_cpu = init_weights(DEVANetwork(), seed=0).eval()
     net_cpu16 = with_dtype(net_cpu, "bfloat16")
     phase_slice_parity(ak, net_cpu, dev)
@@ -1085,41 +1608,59 @@ def main() -> int:
     phase_slice_parity(ak, net_cpu16, dev, "bfloat16", BF16_SLICE_TOL)
     phase_slice_parity_approx(ak, apx, net_cpu16, dev, "bfloat16",
                               BF16_SLICE_TOL)
-    launches, probs = phase_main_path(ak, net_cpu, dev)
-    launches16, probs16 = phase_main_path(ak, net_cpu16, dev,
-                                          ring_dtype="bfloat16")
-    compare_dtypes(probs, probs16, "phase 3 exact, bf16")
-    del probs, probs16
-    launches_approx, probs = phase_main_path_approx(ak, net_cpu, dev)
-    compare_preencoded(probs, phase_main_path_approx(ak, net_cpu, dev,
-                                                     preencode=True)[1])
-    launches_approx16, probs16 = phase_main_path_approx(
+    phase_batched_slice(ak, net_cpu, dev)
+    phase_batched_slice(ak, net_cpu16, dev, "bfloat16", BF16_SLICE_TOL)
+    launches, probs_exact, single_exact = phase_main_path(ak, net_cpu, dev)
+    launches16, probs16, _ = phase_main_path(ak, net_cpu16, dev,
+                                             ring_dtype="bfloat16")
+    compare_dtypes(probs_exact, probs16, "phase 3 exact, bf16")
+    del probs16
+    launches_approx, probs_approx, single_approx = phase_main_path_approx(
+        ak, net_cpu, dev)
+    compare_preencoded(probs_approx, phase_main_path_approx(
+        ak, net_cpu, dev, preencode=True)[1])
+    launches_approx16, probs16, _ = phase_main_path_approx(
         ak, net_cpu16, dev, ring_dtype="bfloat16")
-    compare_dtypes(probs, probs16, "phase 4 approx, bf16")
-    del probs, probs16
+    compare_dtypes(probs_approx, probs16, "phase 4 approx, bf16")
+    del probs16
     for runs in (launches16, launches_approx16):
         used = [name for name, count in runs.items() if count]
         assert all(runs[name] == 59 for name in used) and len(used) == 2, \
             f"bf16 run: not one launch per propagated frame: {runs}"
+    launches5 = phase_batched_main(
+        ak, net_cpu, net_cpu16, dev,
+        {"exact": (probs_exact, single_exact),
+         "approx": (probs_approx, single_approx)})
+    del probs_exact, probs_approx
 
     rows = []
-    for ring, res_exact, res_approx, run_exact, run_approx in (
-            ("float32", exact, approx, launches, launches_approx),
-            ("bfloat16", bf16, bf16, launches16, launches_approx16)):
+    for ring, res_exact, res_approx, run_exact, run_approx, suffix in (
+            ("float32", exact, approx, launches, launches_approx, ""),
+            ("bfloat16", bf16, bf16, launches16, launches_approx16, ".bf16"),
+            ("float32", batched, batched, launches5["exact"],
+             launches5["approx"], f".b{B4}"),
+            ("bfloat16", batched16, batched16, None,
+             launches5["approx.bf16"], f".bf16.b{B4}")):
         for name, (src, tpu) in KERNELS.items():
             res, runs = (res_exact, run_exact) if name in EXACT_PAIR \
                 else (res_approx, run_approx)
+            if runs is None:  # phase 5 runs the bf16 exact pair nowhere
+                continue
             main_shape = res["times"][16712]
             bound_ms, bound_by = res["bounds"][16712][name]
-            rows.append({
-                "name": name if ring == "float32" else name + ".bf16",
+            row = {
+                "name": name + suffix,
                 "ring_dtype": ring, "route": "cuda", "source": src,
                 "replaces": tpu, "launches": runs[name],
                 "max_abs_err": res["err"][name], "ms": main_shape[name],
                 "plain_ms": main_shape[name + "_plain"],
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": main_shape.get(name + "_library"),
-                "product_ms": main_shape.get(name + "_product")})
+                "product_ms": main_shape.get(name + "_product")}
+            if suffix.endswith(f".b{B4}"):
+                row.update(videos=B4,
+                           singles_ms=main_shape[name + "_singles"])
+            rows.append(row)
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": rows}))

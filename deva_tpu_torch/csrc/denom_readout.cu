@@ -55,6 +55,18 @@
 // round by round, for the readout. A row with no valid token gets a zero
 // denominator, clamped, and writes zeros.
 //
+// A video axis (the batched propagator's B videos): the grid's y dimension
+// is the video b. Query q of video b reads and writes the query-side rows
+// b*Q + q (qcat, bsq, seg, th_in, out, rmax, th) and token n of its ring
+// the token-side rows b*N + n (mcat, msq, msv, valid, values, usage), so
+// its usage atomics go to its own row. Each video runs the single-video
+// code: its rmax and th are bitwise those of its own launch, its output and
+// usage equal to them up to the order of the usage atomics. The rows are
+// 32-bit indices, as the single-video code's were, and the pointers stay
+// kernel parameters: offsetting each pointer, or 64-bit row offsets, took
+// more registers in the 16-byte instances, and the lost occupancy slowed
+// the single-video launch on the H100 (PERF.md).
+//
 // The value ring is float or bf16 (ring.cuh), one template instance each.
 // On bf16 the normalised weight aff = e * inv is rounded to bf16 before the
 // product, as the Pallas kernel casts its normalised affinity tile
@@ -169,6 +181,9 @@ denom_readout_kernel(const float* __restrict__ qcat,
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int q = blockIdx.x * ROWS + warp;
   if (q >= Q) return;  // the whole warp: no block-wide barrier follows
+  // this block's video: its query-side row and its ring's first token row
+  const int qrow = blockIdx.y * Q + q;
+  const int n0 = blockIdx.y * N;
   float* s_q = smem + (size_t)warp * WARP_WORDS;
   unsigned* hist = reinterpret_cast<unsigned*>(s_q + KC_MAX);
   int* glist = reinterpret_cast<int*>(hist + BINS);
@@ -178,9 +193,9 @@ denom_readout_kernel(const float* __restrict__ qcat,
   float* cval = reinterpret_cast<float*>(cidx + CCAP);
   const unsigned lt = (1u << lane) - 1u;
 
-  for (int c = lane; c < kc; c += 32) s_q[c] = qcat[(size_t)q * kc + c];
+  for (int c = lane; c < kc; c += 32) s_q[c] = qcat[(size_t)qrow * kc + c];
   // the row max and each lane's max
-  const float* row = seg + (size_t)q * nseg;
+  const float* row = seg + (size_t)qrow * nseg;
   const float4* row4 = reinterpret_cast<const float4*>(row);
   float lmax = -INFINITY;
   for (int i = lane; i < nseg / 4; i += 32) {
@@ -195,7 +210,7 @@ denom_readout_kernel(const float* __restrict__ qcat,
   // a lower bound on th: th_in, or the kk-th largest lane max
   float lo = -INFINITY;
   if (th_in != nullptr) {
-    lo = th_in[q];
+    lo = th_in[qrow];
   } else if (kk <= 32) {
     int above = 0;  // lane maxima ahead of this lane's, ties by lane
     for (int l = 0; l < 32; ++l) {
@@ -229,10 +244,10 @@ denom_readout_kernel(const float* __restrict__ qcat,
                   : over ? kth_largest(row, nseg, kk, hist, lane)
                          : kth_largest(cval, ncand, kk, hist, lane);
   if (lane == 0) {
-    rmax_out[q] = rm;
-    th_out[q] = t;
+    rmax_out[qrow] = rm;
+    th_out[qrow] = t;
   }
-  const float sub_q = HAS_QE ? bsq[q] : 0.f;
+  const float sub_q = HAS_QE ? bsq[qrow] : 0.f;
   const float4* q4 = reinterpret_cast<const float4*>(s_q);
 
   // the qualifying groups from position *pos of the candidates (the row when
@@ -272,7 +287,7 @@ denom_readout_kernel(const float* __restrict__ qcat,
                                                  s % groups, n_tile, width)
                                   : N;
         live[j] = n < N;
-        tk[j] = live[j] ? n : 0;
+        tk[j] = n0 + (live[j] ? n : 0);  // the video's token row
         m4[j] = reinterpret_cast<const float4*>(mcat + (size_t)tk[j] * kc);
       }
       float acc[ILP];
@@ -367,7 +382,7 @@ denom_readout_kernel(const float* __restrict__ qcat,
       }
       __syncwarp();  // the next round rewrites glist, tok and w
     } while (pos < len);
-    float* orow = out + (size_t)q * C;
+    float* orow = out + (size_t)qrow * C;
 #pragma unroll
     for (int v = 0; v < VL; ++v) {
       const int col = col0 + (v * 32 + lane) * V;
@@ -412,15 +427,16 @@ template <bool HAS_QE, bool VEC16, typename T>
 cudaError_t launch(const float* qcat, const float* mcat, const float* bsq,
                    const float* msq, const float* msv, const uint8_t* valid,
                    const float* seg, const float* th_in, const void* values,
-                   int Q, int N, int kc, int n_tile, int width, int groups,
-                   int nseg, int C, int kk, float* out, float* usage,
-                   float* rmax, float* th, cudaStream_t st) {
+                   int B, int Q, int N, int kc, int n_tile, int width,
+                   int groups, int nseg, int C, int kk, float* out,
+                   float* usage, float* rmax, float* th, cudaStream_t st) {
   const size_t smem = (size_t)ROWS * WARP_WORDS * sizeof(float);
   auto kernel = denom_readout_kernel<HAS_QE, VEC16, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<(Q + ROWS - 1) / ROWS, 32 * ROWS, smem, st>>>(
+  const dim3 grid((Q + ROWS - 1) / ROWS, B);
+  kernel<<<grid, 32 * ROWS, smem, st>>>(
       qcat, mcat, bsq, msq, msv, valid, seg, th_in,
       static_cast<const T*>(values), Q, N, kc, n_tile, width, groups, nseg, C,
       kk, out, usage, rmax, th);
@@ -438,20 +454,23 @@ bool bad_operands(const float* bsq, const float* msq, int Q, int N, int kc,
 
 }  // namespace
 
-// Operands as deva_segmax, plus seg [Q, nseg] (its output), th_in [Q] or
-// null, values [N, C] float (ring_bf16 = 0) or bf16 (1), k >= 1; out
-// [Q, C]; usage [N], zeroed by the caller; rmax and th [Q], the row max and
-// threshold used. vec selects the 16-byte path: it requires C % 4 == 0
-// (float) or C % 8 == 0 (bf16) and 16-byte aligned values/out. qcat and mcat
-// rows must be 16-byte aligned (kc % 4 == 0), as must the rows of seg
-// (nseg % 4 == 0). Returns the CUDA error code of the launch.
+// B videos (B = 1: one): operands as deva_segmax, plus seg [B, Q, nseg]
+// (its output), th_in [B, Q] or null, values [B, N, C] float (ring_bf16 =
+// 0) or bf16 (1), k >= 1; out [B, Q, C]; usage [B, N], zeroed by the
+// caller; rmax and th [B, Q], the row max and threshold used. vec selects
+// the 16-byte path: it requires C % 4 == 0 (float) or C % 8 == 0 (bf16) and
+// 16-byte aligned values/out. qcat and mcat rows must be 16-byte aligned (kc
+// % 4 == 0), as must the rows of seg (nseg % 4 == 0). Returns the CUDA
+// error code of the launch.
 extern "C" int deva_denom_readout(
     const float* qcat, const float* mcat, const float* bsq, const float* msq,
     const float* msv, const uint8_t* valid, const float* seg,
-    const float* th_in, const void* values, int ring_bf16, int Q, int N,
-    int kc, int n_tile, int folds, int C, int k, int vec, float* out,
+    const float* th_in, const void* values, int ring_bf16, int B, int Q,
+    int N, int kc, int n_tile, int folds, int C, int k, int vec, float* out,
     float* usage, float* rmax, float* th, void* stream) {
-  if (bad_operands(bsq, msq, Q, N, kc, n_tile, folds) || C <= 0 || k <= 0 ||
+  if (bad_operands(bsq, msq, Q, N, kc, n_tile, folds) || B <= 0 ||
+      B > 65535 || (long long)B * Q > INT32_MAX ||
+      (long long)B * N > INT32_MAX || C <= 0 || k <= 0 ||
       (ring_bf16 != 0 && ring_bf16 != 1) ||
       (vec && C % (ring_bf16 ? 8 : 4) != 0))
     return (int)cudaErrorInvalidValue;
@@ -470,8 +489,8 @@ extern "C" int deva_denom_readout(
                                        : launch<true, false, float>)
                                 : (vec ? launch<false, true, float>
                                        : launch<false, false, float>));
-  return (int)go(qcat, mcat, bsq, msq, msv, valid, seg, th_in, values, Q, N,
-                 kc, n_tile, width, groups, nseg, C, kk, out, usage, rmax,
+  return (int)go(qcat, mcat, bsq, msq, msv, valid, seg, th_in, values, B, Q,
+                 N, kc, n_tile, width, groups, nseg, C, kk, out, usage, rmax,
                  th, st);
 }
 

@@ -37,6 +37,11 @@
 // is sim2.cuh's fmaf chain over c = 0..kc-1 from 0.f, as in
 // denom_readout.cu, so every group max is bitwise the max of the floats
 // that kernel recomputes.
+//
+// A video axis (the batched propagator's B videos): the grid's z dimension
+// is the video, whose operands start at qcat + b*Q*kc, mcat + b*N*kc,
+// bsq + b*Q, msq/msv/valid + b*N and whose output starts at out +
+// b*Q*nseg; each video's group maxima are bitwise those of its own launch.
 #include <stdint.h>
 
 #include "sim2.cuh"
@@ -91,6 +96,15 @@ segmax_kernel(const float* __restrict__ qcat, const float* __restrict__ mcat,
               float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);
+
+  // this block's video
+  const size_t b = blockIdx.z;
+  qcat += b * Q * kc;
+  mcat += b * N * kc;
+  if (HAS_QE) bsq += b * Q; else msq += b * N;
+  msv += b * N;
+  if (valid != nullptr) valid += b * N;
+  out += b * Q * nseg;
 
   const int tid = threadIdx.x;
   const int tx = tid % TX, ty = tid / TX;
@@ -203,18 +217,20 @@ segmax_kernel(const float* __restrict__ qcat, const float* __restrict__ mcat,
 
 }  // namespace
 
-// qcat [Q, kc], mcat [N, kc], msv [N]; with a selection (has_qe) bsq [Q] and
-// msq null, without one msq [N] and bsq null; valid [N] or null. qcat and
-// mcat 16-byte aligned, kc % 4 == 0. out [Q, nseg] with nseg = ceil(N /
-// n_tile) * (n_tile >> folds). Returns the CUDA error code of the launch.
+// B videos (B = 1: one): qcat [B, Q, kc], mcat [B, N, kc], msv [B, N];
+// with a selection (has_qe) bsq [B, Q] and msq null, without one msq [B, N]
+// and bsq null; valid [B, N] or null. qcat and mcat 16-byte aligned, kc % 4
+// == 0. out [B, Q, nseg] with nseg = ceil(N / n_tile) * (n_tile >> folds).
+// Returns the CUDA error code of the launch.
 extern "C" int deva_segmax(const float* qcat, const float* mcat,
                            const float* bsq, const float* msq,
-                           const float* msv, const uint8_t* valid, int Q,
-                           int N, int kc, int n_tile, int folds, float* out,
-                           void* stream) {
+                           const float* msv, const uint8_t* valid, int B,
+                           int Q, int N, int kc, int n_tile, int folds,
+                           float* out, void* stream) {
   const int width = folds >= 0 && folds <= 2 ? n_tile >> folds : 0;
   const bool has_qe = bsq != nullptr;
-  if (Q <= 0 || N <= 0 || kc <= 0 || kc > KC_MAX || kc % 4 != 0 ||
+  if (B <= 0 || B > 65535 || Q <= 0 || N <= 0 || kc <= 0 || kc > KC_MAX ||
+      kc % 4 != 0 ||
       width <= 0 || width % GT != 0 || (width << folds) != n_tile ||
       (has_qe ? msq != nullptr : msq == nullptr) ||
       reinterpret_cast<uintptr_t>(qcat) % 16 != 0 ||
@@ -224,7 +240,7 @@ extern "C" int deva_segmax(const float* qcat, const float* mcat,
   const int nseg = tiles * width;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = sizeof(Smem);
-  const dim3 grid((Q + QT - 1) / QT, nseg / GT);
+  const dim3 grid((Q + QT - 1) / QT, nseg / GT, B);
   auto kernel = has_qe ? segmax_kernel<true> : segmax_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -63,6 +63,12 @@
 //   same float in any block, so the result is bitwise the same under any
 //   plan.
 // - cudaFuncSetAttribute runs once per template instance and device.
+// - A video axis (the batched propagator's B videos in lockstep): the grid's
+//   z dimension (the merge kernel's y) is the video, whose tensors start at
+//   qk + b*Q*Ck, mk + b*N*Ck, ms/valid + b*N and its scratch at
+//   b*splits*Q*k. Each video runs the single-video code on its own bases,
+//   so its result is bitwise that of its own launch. B = 1 is the
+//   single-video call.
 // - The ring (mk, ms) is float or bf16 (ring.cuh), one template instance
 //   each. A bf16 key is widened as its tile is loaded into the same f32
 //   shared-memory tile, exactly, so the key bytes per tile halve and every
@@ -231,6 +237,15 @@ sim_topk_split_kernel(const float* __restrict__ qk,
                       float divisor, int2* __restrict__ cand) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);
+
+  // this block's video: its own queries, ring and scratch
+  const size_t b = blockIdx.z;
+  qk += b * Q * ck;
+  if (HAS_QE) qe += b * Q * ck;
+  mk += b * N * ck;
+  if (ms != nullptr) ms += b * N;
+  if (valid != nullptr) valid += b * N;
+  cand += b * gridDim.y * Q * k;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -406,6 +421,10 @@ sim_topk_merge_kernel(const int2* __restrict__ cand, int splits, int Q,
   const int lane = threadIdx.x % 32;
   const int q = blockIdx.x * MERGE_WARPS + threadIdx.x / 32;
   if (q >= Q) return;  // the whole warp
+  const size_t b = blockIdx.y;  // the video
+  cand += b * splits * Q * k;
+  out_v += b * Q * k;
+  out_i += b * Q * k;
   float v0, v1;
   int i0, i1;
   load_list(cand + (size_t)q * k, k, lane, v0, i0, v1, i1);
@@ -457,17 +476,20 @@ cudaError_t launch_split(dim3 grid, cudaStream_t st, const float* qk,
 
 }  // namespace
 
-// qe, ms and valid may be null. mk and ms are float (ring_bf16 = 0) or
-// bf16 (1). The token axis is cut into `splits` splits of split_len tokens
-// (a multiple of NT). scratch holds [splits, Q, k] (value bits, index)
-// pairs. Returns the CUDA error code of the two launches.
+// B videos: qk, qe [B, Q, ck]; mk [B, N, ck]; ms, valid [B, N]; out_v,
+// out_i [B, Q, k] (B = 1: one video). qe, ms and valid may be null. mk and
+// ms are float (ring_bf16 = 0) or bf16 (1). The token axis is cut into
+// `splits` splits of split_len tokens (a multiple of NT). scratch holds
+// [B, splits, Q, k] (value bits, index) pairs. Returns the CUDA error code
+// of the two launches.
 extern "C" int deva_sim_topk(const float* qk, const float* qe,
                              const void* mk, const void* ms,
-                             const uint8_t* valid, int ring_bf16, int Q,
-                             int N, int ck, int k, int splits, int split_len,
-                             float divisor, int* scratch, float* out_v,
-                             int* out_i, void* stream) {
-  if ((ring_bf16 != 0 && ring_bf16 != 1) || Q <= 0 || N <= 0 || ck <= 0 ||
+                             const uint8_t* valid, int ring_bf16, int B,
+                             int Q, int N, int ck, int k, int splits,
+                             int split_len, float divisor, int* scratch,
+                             float* out_v, int* out_i, void* stream) {
+  if ((ring_bf16 != 0 && ring_bf16 != 1) || B <= 0 || B > 65535 || Q <= 0 ||
+      N <= 0 || ck <= 0 ||
       ck > CK_MAX || k <= 0 || k > K_MAX ||
       k > N || splits <= 0 || splits > MAX_SPLITS || split_len <= 0 ||
       split_len % NT != 0 || (long long)splits * split_len < N ||
@@ -475,7 +497,7 @@ extern "C" int deva_sim_topk(const float* qk, const float* qe,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int2* cand = reinterpret_cast<int2*>(scratch);
-  const dim3 grid((Q + QT - 1) / QT, splits);
+  const dim3 grid((Q + QT - 1) / QT, splits, B);
   auto go = qe != nullptr
                 ? (ring_bf16 ? launch_split<true, bf16>
                              : launch_split<true, float>)
@@ -484,8 +506,8 @@ extern "C" int deva_sim_topk(const float* qk, const float* qe,
   cudaError_t err = go(grid, st, qk, qe, mk, ms, valid, Q, N, ck, k,
                        split_len, divisor, cand);
   if (err != cudaSuccess) return (int)err;
-  sim_topk_merge_kernel<<<(Q + MERGE_WARPS - 1) / MERGE_WARPS,
-                          MERGE_WARPS * 32, 0, st>>>(cand, splits, Q, k,
-                                                     out_v, out_i);
+  const dim3 merge_grid((Q + MERGE_WARPS - 1) / MERGE_WARPS, B);
+  sim_topk_merge_kernel<<<merge_grid, MERGE_WARPS * 32, 0, st>>>(
+      cand, splits, Q, k, out_v, out_i);
   return (int)cudaGetLastError();
 }

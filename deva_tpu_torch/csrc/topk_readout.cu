@@ -37,6 +37,14 @@
 // outside [0, n_a + n_b) contribute nothing; an index repeated in a query's
 // list counts each time.
 //
+// A video axis (the batched propagator's B videos): the grid's z dimension
+// is the video. Video b's pairs start at idx/w + b*Q*k, its segments at
+// V_a + b*n_a*C and V_b + b*n_b*C, its output at out + b*Q*C; indices are
+// local to their video, and the dedup table and the staging belong to one
+// 16-query tile of one video. So each video's result is bitwise that of
+// its own launch. The per-video bases keep the 16-byte alignment of the
+// vector path whenever C is a whole number of 16-byte vectors.
+//
 // The ring's elements are float or bf16 (ring.cuh), one template instance
 // each. On bf16 rings a row segment takes half the bytes, staged and read
 // as bf16 (the 16-byte path carries 8 elements, so it needs C % 8 == 0),
@@ -194,6 +202,14 @@ topk_readout_kernel(const int* __restrict__ idx, const float* __restrict__ w,
   int* h_key = s_rows + QT * k;                                   // [table]
   int* h_slot = h_key + table;                                    // [table]
 
+  // this block's video
+  const size_t b = blockIdx.z;
+  idx += b * Q * k;
+  w += b * Q * k;
+  if (va != nullptr) va += b * n_a * C;
+  if (vb != nullptr) vb += b * n_b * C;
+  out += b * Q * C;
+
   const int tid = threadIdx.x, lane = tid % 32;
   const int q0 = blockIdx.x * QT;
   const int qn = min(QT, Q - q0);
@@ -326,11 +342,11 @@ cudaError_t allow_smem() {
 
 template <typename T, int V>
 cudaError_t launch(cudaStream_t st, const int* idx, const float* w,
-                   const void* va, int n_a, const void* vb, int n_b, int Q,
-                   int k, int C, float* out) {
+                   const void* va, int n_a, const void* vb, int n_b, int B,
+                   int Q, int k, int C, float* out) {
   const cudaError_t err = allow_smem<T, V>();
   if (err != cudaSuccess) return err;
-  const dim3 grid((Q + QT - 1) / QT, (C + CS - 1) / CS);
+  const dim3 grid((Q + QT - 1) / QT, (C + CS - 1) / CS, B);
   topk_readout_kernel<T, V><<<grid, THREADS, smem_bytes<T>(k), st>>>(
       idx, w, static_cast<const T*>(va), n_a, static_cast<const T*>(vb),
       n_b, Q, k, C, table_bits(QT * k), out);
@@ -339,17 +355,19 @@ cudaError_t launch(cudaStream_t st, const int* idx, const float* w,
 
 }  // namespace
 
-// idx/w: [Q, k]; the ring: va [n_a, C] then vb [n_b, C] (either may be
-// empty; vb may be null when n_b = 0), float (ring_bf16 = 0) or bf16 (1);
-// out: [Q, C]. vec selects the 16-byte path: it requires C % 4 == 0 (float)
-// or C % 8 == 0 (bf16) and 16-byte aligned va, vb and out. Returns the CUDA
-// error code of the launch.
+// B videos: idx/w [B, Q, k]; the ring: va [B, n_a, C] then vb [B, n_b, C]
+// (either may be empty; va or vb may be null when its length is 0), float
+// (ring_bf16 = 0) or bf16 (1); out: [B, Q, C] (B = 1: one video). vec
+// selects the 16-byte path: it requires C % 4 == 0 (float) or C % 8 == 0
+// (bf16) and 16-byte aligned va, vb and out. Returns the CUDA error code of
+// the launch.
 extern "C" int deva_topk_readout(const int* idx, const float* w,
                                  const void* va, int n_a, const void* vb,
-                                 int n_b, int ring_bf16, int Q, int k, int C,
-                                 int vec, float* out, void* stream) {
+                                 int n_b, int ring_bf16, int B, int Q, int k,
+                                 int C, int vec, float* out, void* stream) {
   const int per16 = ring_bf16 ? 8 : 4;  // elements in 16 bytes
-  if (Q <= 0 || n_a < 0 || n_b < 0 || (long long)n_a + n_b <= 0 ||
+  if (B <= 0 || B > 65535 || Q <= 0 || n_a < 0 || n_b < 0 ||
+      (long long)n_a + n_b <= 0 ||
       (long long)n_a + n_b > INT32_MAX || C <= 0 || k <= 0 || k > K_MAX ||
       (ring_bf16 != 0 && ring_bf16 != 1) || (vec && C % per16 != 0) ||
       (n_a > 0 && va == nullptr) || (n_b > 0 && vb == nullptr))
@@ -357,10 +375,14 @@ extern "C" int deva_topk_readout(const int* idx, const float* w,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (ring_bf16)
-    err = vec ? launch<bf16, 8>(st, idx, w, va, n_a, vb, n_b, Q, k, C, out)
-              : launch<bf16, 1>(st, idx, w, va, n_a, vb, n_b, Q, k, C, out);
+    err = vec ? launch<bf16, 8>(st, idx, w, va, n_a, vb, n_b, B, Q, k, C,
+                                out)
+              : launch<bf16, 1>(st, idx, w, va, n_a, vb, n_b, B, Q, k, C,
+                                out);
   else
-    err = vec ? launch<float, 4>(st, idx, w, va, n_a, vb, n_b, Q, k, C, out)
-              : launch<float, 1>(st, idx, w, va, n_a, vb, n_b, Q, k, C, out);
+    err = vec ? launch<float, 4>(st, idx, w, va, n_a, vb, n_b, B, Q, k, C,
+                                 out)
+              : launch<float, 1>(st, idx, w, va, n_a, vb, n_b, B, Q, k, C,
+                                 out);
   return (int)err;
 }

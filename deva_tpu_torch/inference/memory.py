@@ -81,6 +81,28 @@ def _consolidate_prototypes(cand_key, cand_shr, cand_sel, cand_value,
     return proto_key, proto_shr, proto_value.contiguous()
 
 
+def consolidate_prototypes_batched(cand_key, cand_shr, cand_sel, cand_value,
+                                   cand_usage, num_prototypes: int):
+    """_consolidate_prototypes for B videos at once, with tensor ops over the
+    video axis (deva_tpu vmaps the 2-D form, inference/batched.py:337-341):
+    cand_key [B, n, Ck], cand_shr [B, n], cand_sel [B, n, Ck], cand_value
+    [B, n, O, Cv], cand_usage [B, n] -> prototype key [B, P, Ck], shrinkage
+    [B, P], value [B, P, O, Cv], each video's as the 2-D form selects and
+    potentiates them (the readout rounds the affinity to the ring dtype)."""
+    b, n = cand_usage.shape
+    num_prototypes = min(num_prototypes, n)
+    _, idx = ma.topk_sorted(cand_usage, num_prototypes)  # [B, P]
+    videos = torch.arange(b, device=idx.device)[:, None]
+    proto_key = cand_key[videos, idx]
+    proto_sel = cand_sel[videos, idx]
+    sim = ma.get_similarity(cand_key, cand_shr, proto_key, proto_sel)
+    aff = ma.full_softmax(sim)  # [B, P, n]
+    o, cv = cand_value.shape[-2:]
+    proto_value = ma.readout(aff, cand_value.reshape(b, n, o * cv))
+    proto_shr = ma.readout(aff, cand_shr[..., None])[..., 0]
+    return proto_key, proto_shr, proto_value.reshape(b, -1, o, cv)
+
+
 class Bucket:
     """One working-memory bucket: a key timeline shared by the objects that
     first appeared together, plus per-object values (rows follow obj_ids)."""

@@ -23,6 +23,14 @@ Port of the approx half of deva_tpu/ops/pallas_attention.py (`_prep2`,
   CUDA kernel takes rmax and th itself, so nothing runs between the two
   kernels.
 
+A video axis, as in attention_kernels.py: every function also takes B
+videos with their own rings (a leading B on every operand: qcat [B, Q, Kc],
+mcat [B, N, Kc], seg [B, Q, nseg], out [B, Q, C], usage [B, N], rmax and th
+[B, Q, 1]); on a CUDA device one launch of each kernel serves them all, and
+each video's rmax, th and group maxima are bitwise those of its own launch.
+The geometry (N, n_tile) is shared; rmax and th are per query row, so per
+video without further work.
+
 Ring dtypes: mk and ms may be f32 or bf16; `prep2` builds mcat in f32 from
 the widened keys, as deva_tpu's `_prep2` does (pallas_attention.py:388-394;
 mk^2 of a bf16 key is exact in f32), so segmax and denom_readout see the
@@ -45,7 +53,8 @@ import torch
 from deva_tpu_torch.ops import memory_attention as ma
 from deva_tpu_torch.ops.attention_kernels import (LAUNCHES, RING_DTYPES,
                                                   _on_cuda, _ptr, _require,
-                                                  _ring_dtype, _stream)
+                                                  _ring_dtype, _stream,
+                                                  _videos)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -96,7 +105,7 @@ def default_n_tile(c: int, itemsize: int) -> int:
 class Operands(NamedTuple):
     """`prep2`'s operands, unpadded: qcat [Q, Kc], mcat [N, Kc], bsq [Q]
     (with a selection) or msq [N] (without one), msv [N], valid [N] bool or
-    None."""
+    None; each with a leading B for B videos."""
     qcat: torch.Tensor
     mcat: torch.Tensor
     bsq: Optional[torch.Tensor]
@@ -107,8 +116,8 @@ class Operands(NamedTuple):
 
 def prep2(qk, qe, mk, ms, valid) -> Operands:
     """The operands of the one-product similarity (pallas_attention.py:
-    380-415), in the same operation order."""
-    ck = qk.shape[1]
+    380-415), in the same operation order; per video for B videos."""
+    ck = qk.shape[-1]
     qk = qk.float()
     mk = mk.float()
     if qe is not None:
@@ -123,35 +132,41 @@ def prep2(qk, qe, mk, ms, valid) -> Operands:
         bsq = None
         msq = torch.sum(mk * mk, dim=-1)
     msv = ms.float() / math.sqrt(ck) if ms is not None else \
-        torch.full((mk.shape[0],), 1.0 / math.sqrt(ck), device=mk.device)
+        torch.full(mk.shape[:-1], 1.0 / math.sqrt(ck), device=mk.device)
     return Operands(qcat, mcat, bsq, msq, msv.contiguous(), valid)
 
 
 def similarity2_plain(ops: Operands) -> torch.Tensor:
-    """The dense [Q, N] similarity of the pair, -inf on invalid slots."""
-    sim = ops.qcat @ ops.mcat.T
-    sub = ops.bsq[:, None] if ops.bsq is not None else ops.msq[None, :]
-    return ma.mask_invalid((sim - sub) * ops.msv[None, :], ops.valid)
+    """The dense [Q, N] similarity of the pair ([B, Q, N] for B videos),
+    -inf on invalid slots."""
+    sim = ops.qcat @ ops.mcat.transpose(-1, -2)
+    sub = ops.bsq[..., :, None] if ops.bsq is not None else \
+        ops.msq[..., None, :]
+    return ma.mask_invalid((sim - sub) * ops.msv[..., None, :], ops.valid)
 
 
-def _check_cuda_operands(ops: Operands, kernel: str) -> None:
-    q, kc = ops.qcat.shape
-    n = ops.mcat.shape[0]
+def _check_cuda_operands(ops: Operands, kernel: str):
+    """Raises for operands the kernels do not take; returns the leading
+    video shape (() or (B,))."""
+    lead = _videos(ops.qcat, 2)
+    q, kc = ops.qcat.shape[-2:]
+    n = ops.mcat.shape[-2]
     if kc > 128 or kc % 4:
         raise ValueError(f"{kernel}: operand width {kc} must be a multiple "
                          "of 4 and at most 128")
     f32 = torch.float32
-    _require(ops.qcat, "qcat", f32, (q, kc))
-    _require(ops.mcat, "mcat", f32, (n, kc))
+    _require(ops.qcat, "qcat", f32, (*lead, q, kc))
+    _require(ops.mcat, "mcat", f32, (*lead, n, kc))
     if ops.qcat.data_ptr() % 16 or ops.mcat.data_ptr() % 16:
         raise ValueError(f"{kernel}: qcat and mcat must be 16-byte aligned")
-    _require(ops.msv, "msv", f32, (n,))
+    _require(ops.msv, "msv", f32, (*lead, n))
     if ops.bsq is not None:
-        _require(ops.bsq, "bsq", f32, (q,))
+        _require(ops.bsq, "bsq", f32, (*lead, q))
     else:
-        _require(ops.msq, "msq", f32, (n,))
+        _require(ops.msq, "msq", f32, (*lead, n))
     if ops.valid is not None:
-        _require(ops.valid, "valid", torch.bool, (n,))
+        _require(ops.valid, "valid", torch.bool, (*lead, n))
+    return lead
 
 
 def _valid_u8(ops: Operands):
@@ -166,28 +181,28 @@ def segmax_plain(ops: Operands, geom: Geometry) -> torch.Tensor:
     """Plain twin of segmax: the dense similarity, padded with -inf to whole
     tiles and reduced over each tile's strided groups."""
     sim = similarity2_plain(ops)
-    q = sim.shape[0]
+    lead, q = sim.shape[:-2], sim.shape[-2]
     pad = geom.tiles * geom.n_tile - geom.n
     sim = torch.nn.functional.pad(sim, (0, pad), value=float("-inf"))
-    return sim.reshape(q, geom.tiles, geom.group, geom.width).amax(2) \
-              .reshape(q, geom.nseg)
+    return sim.reshape(*lead, q, geom.tiles, geom.group, geom.width) \
+              .amax(-2).reshape(*lead, q, geom.nseg)
 
 
 def _segmax_cuda(ops: Operands, geom: Geometry) -> torch.Tensor:
     """Launches csrc/segmax.cu, the port of the Pallas `_segmax_kernel`
-    (deva_tpu/ops/pallas_attention.py:451-488). It is bound by the f32 FFMA
-    rate (Q*N*Kc FFMAs, no TF32); it folds each tile to its group maxima in
-    registers, so only [Q, nseg] reaches device memory (see the source
-    note)."""
+    (deva_tpu/ops/pallas_attention.py:451-488), for one video or B (a grid
+    dimension). It is bound by the f32 FFMA rate (Q*N*Kc FFMAs per video,
+    no TF32); it folds each tile to its group maxima in registers, so only
+    [Q, nseg] reaches device memory (see the source note)."""
     from deva_tpu_torch.ops import cuda_build
-    _check_cuda_operands(ops, "segmax")
-    q, kc = ops.qcat.shape
-    out = torch.empty((q, geom.nseg), dtype=torch.float32,
+    lead = _check_cuda_operands(ops, "segmax")
+    q, kc = ops.qcat.shape[-2:]
+    out = torch.empty((*lead, q, geom.nseg), dtype=torch.float32,
                       device=ops.qcat.device)
     err = cuda_build.load().deva_segmax(
         _ptr(ops.qcat), _ptr(ops.mcat), _ptr(ops.bsq), _ptr(ops.msq),
-        _ptr(ops.msv), _ptr(_valid_u8(ops)), q, geom.n, kc, geom.n_tile,
-        geom.folds, _ptr(out), _stream(out.device))
+        _ptr(ops.msv), _ptr(_valid_u8(ops)), lead[0] if lead else 1, q,
+        geom.n, kc, geom.n_tile, geom.folds, _ptr(out), _stream(out.device))
     if err != 0:
         raise RuntimeError(f"segmax kernel launch failed: CUDA error {err}")
     LAUNCHES["segmax"] += 1
@@ -195,7 +210,8 @@ def _segmax_cuda(ops: Operands, geom: Geometry) -> torch.Tensor:
 
 
 def segmax(ops: Operands, geom: Geometry) -> torch.Tensor:
-    """Group maxima of the similarity: [Q, geom.nseg] f32."""
+    """Group maxima of the similarity: [Q, geom.nseg] f32 ([B, Q, nseg] for
+    B videos)."""
     if _on_cuda(*ops):
         return _segmax_cuda(ops, geom)
     return segmax_plain(ops, geom)
@@ -209,7 +225,7 @@ def threshold(seg: torch.Tensor, top_k: int):
     rmax = seg.amax(dim=-1, keepdim=True)
     rmax = torch.where(torch.isfinite(rmax), rmax, torch.zeros_like(rmax))
     kk = min(top_k, seg.shape[-1])
-    th = torch.topk(seg, kk, dim=-1).values[:, -1:]
+    th = torch.topk(seg, kk, dim=-1).values[..., -1:]
     return rmax.contiguous(), th.contiguous()
 
 
@@ -231,7 +247,8 @@ def denom_readout_plain(ops: Operands, geom: Geometry, seg, rmax, th,
     ring's dtype for the product only. (seg and geom are what the kernel
     reads to find the support; the dense form needs neither.)"""
     aff = _support_weights(similarity2_plain(ops), rmax, th)
-    return aff.to(values2d.dtype).float() @ values2d.float(), aff.sum(dim=0)
+    return aff.to(values2d.dtype).float() @ values2d.float(), \
+        aff.sum(dim=-2)
 
 
 def gap_threshold(sim: torch.Tensor, th: torch.Tensor,
@@ -242,9 +259,9 @@ def gap_threshold(sim: torch.Tensor, th: torch.Tensor,
     entries reach it does not depend on how a similarity was rounded, so the
     kernel and the twin keep the same support."""
     s = sim.sort(dim=-1, descending=True).values
-    ok = (s[:, :-1] <= th) & (s[:, :-1] - s[:, 1:] > 2 * eps)
+    ok = (s[..., :-1] <= th) & (s[..., :-1] - s[..., 1:] > 2 * eps)
     first = ok.float().argmax(dim=-1, keepdim=True)
-    mid = (s.gather(1, first) + s.gather(1, first + 1)) / 2
+    mid = (s.gather(-1, first) + s.gather(-1, first + 1)) / 2
     return torch.where(ok.any(-1, keepdim=True), mid, th)
 
 
@@ -252,38 +269,39 @@ def _denom_readout_cuda(ops: Operands, geom: Geometry, seg, values2d,
                         top_k: int, th=None):
     """Launches csrc/denom_readout.cu, the port of the Pallas
     `_denom_readout_kernel` (deva_tpu/ops/pallas_attention.py:491-575) with
-    the row max and threshold taken between deva_tpu's two kernels. It is
-    bound by the bytes of the group maxima and of the support's value rows;
-    instead of the TPU's dense affinity-times-values product, a warp per
-    query selects th from the candidates of its row of group maxima (those
-    at or above a lower bound from the lanes' maxima), recomputes the
-    support's similarities with segmax's device function and gathers their
-    rows (see the source note). bf16 value rows are widened at load, each
-    normalised weight rounded to bf16 first."""
+    the row max and threshold taken between deva_tpu's two kernels, for one
+    video or B (a grid dimension). It is bound by the bytes of the group
+    maxima and of the support's value rows; instead of the TPU's dense
+    affinity-times-values product, a warp per query selects th from the
+    candidates of its row of group maxima (those at or above a lower bound
+    from the lanes' maxima), recomputes the support's similarities with
+    segmax's device function and gathers their rows (see the source note).
+    bf16 value rows are widened at load, each normalised weight rounded to
+    bf16 first."""
     from deva_tpu_torch.ops import cuda_build
-    _check_cuda_operands(ops, "denom_readout")
-    q, kc = ops.qcat.shape
-    n, c = values2d.shape
+    lead = _check_cuda_operands(ops, "denom_readout")
+    q, kc = ops.qcat.shape[-2:]
+    n, c = values2d.shape[-2:]
     if top_k < 1:
         raise ValueError(f"denom_readout: top_k={top_k} < 1")
     f32 = torch.float32
-    _require(seg, "segmax", f32, (q, geom.nseg))
+    _require(seg, "segmax", f32, (*lead, q, geom.nseg))
     rdt = _ring_dtype((values2d,), "denom_readout")
-    _require(values2d, "values", rdt, (geom.n, c))
+    _require(values2d, "values", rdt, (*lead, geom.n, c))
     if th is not None:
-        _require(th, "th", f32, (q, 1))
+        _require(th, "th", f32, (*lead, q, 1))
     dev = values2d.device
     # the 16-byte path: whole 16-byte vectors per row, an aligned ring
     vec = c % (16 // values2d.element_size()) == 0 and \
         values2d.data_ptr() % 16 == 0
-    out = torch.empty((q, c), dtype=f32, device=dev)
-    usage = torch.zeros((n,), dtype=f32, device=dev)
-    used = torch.empty((2, q, 1), dtype=f32, device=dev)  # rmax, th
+    out = torch.empty((*lead, q, c), dtype=f32, device=dev)
+    usage = torch.zeros((*lead, n), dtype=f32, device=dev)
+    used = torch.empty((2, *lead, q, 1), dtype=f32, device=dev)  # rmax, th
     err = cuda_build.load().deva_denom_readout(
         _ptr(ops.qcat), _ptr(ops.mcat), _ptr(ops.bsq), _ptr(ops.msq),
         _ptr(ops.msv), _ptr(_valid_u8(ops)), _ptr(seg), _ptr(th),
-        _ptr(values2d), RING_DTYPES[rdt], q, n, kc, geom.n_tile,
-        geom.folds, c, top_k, int(vec), _ptr(out), _ptr(usage),
+        _ptr(values2d), RING_DTYPES[rdt], lead[0] if lead else 1, q, n, kc,
+        geom.n_tile, geom.folds, c, top_k, int(vec), _ptr(out), _ptr(usage),
         _ptr(used[0]), _ptr(used[1]), _stream(dev))
     if err != 0:
         raise RuntimeError(
@@ -307,7 +325,7 @@ def denom_readout(ops: Operands, geom: Geometry, seg: torch.Tensor,
     """Threshold softmax + readout from the group maxima seg: out [Q, C]
     f32, usage [N] f32, and the rmax [Q, 1] and th [Q, 1] it used. th, if
     given, replaces the k-th largest group max. values2d: [N, C]
-    token-major (C = O*Cv)."""
+    token-major (C = O*Cv). A leading B on every tensor: B videos."""
     if _on_cuda(*ops, seg, values2d, th):
         return _denom_readout_cuda(ops, geom, seg, values2d, top_k, th)
     return _denom_readout_twin(ops, geom, seg, values2d, top_k, th)
@@ -344,38 +362,39 @@ def sim2_at(ops: Operands, idx: torch.Tensor) -> torch.Tensor:
 def _concat_rings(rings):
     """[(mk, ms|None, values, valid|None), ...] -> one ring, as
     attend_pallas_approx_multi concatenates them (pallas_attention.py:
-    597-609)."""
+    597-609), along the token axis (axis 1 for B videos)."""
     if len(rings) == 1:
         return rings[0]
-    mk = torch.cat([r[0] for r in rings])
+    mk = torch.cat([r[0] for r in rings], dim=-2)
     ms = None if all(r[1] is None for r in rings) else torch.cat(
         [r[1] if r[1] is not None else
-         torch.ones((r[0].shape[0],), dtype=r[0].dtype, device=r[0].device)
-         for r in rings])
-    values = torch.cat([r[2] for r in rings])
+         torch.ones(r[0].shape[:-1], dtype=r[0].dtype, device=r[0].device)
+         for r in rings], dim=-1)
+    values = torch.cat([r[2] for r in rings], dim=-3)
     valid = None if all(r[3] is None for r in rings) else torch.cat(
         [r[3] if r[3] is not None else
-         torch.ones((r[0].shape[0],), dtype=torch.bool, device=r[0].device)
-         for r in rings])
+         torch.ones(r[0].shape[:-1], dtype=torch.bool, device=r[0].device)
+         for r in rings], dim=-1)
     return mk, ms, values, valid
 
 
 def _attend_multi(seg_fn, dr_fn, rings, qk, qe, top_k, return_usage, n_tile):
-    q = qk.shape[0]
+    lead = _videos(qk, 2)
+    q = qk.shape[-2]
     mk, ms, values, valid = _concat_rings(rings)
-    n, o, cv = values.shape
+    n, o, cv = values.shape[-3:]
     if n_tile is None:
         n_tile = default_n_tile(o * cv, values.element_size())
     geom = Geometry.of(n, n_tile)
     ops = prep2(qk, qe, mk, ms, valid)
     seg = seg_fn(ops, geom)
-    out, usage, _, _ = dr_fn(ops, geom, seg, values.reshape(n, o * cv),
-                             top_k)
-    out = out.reshape(q, o, cv).transpose(0, 1)
+    out, usage, _, _ = dr_fn(ops, geom, seg,
+                             values.reshape(*lead, n, o * cv), top_k)
+    out = out.reshape(*lead, q, o, cv).transpose(-3, -2)
     if not return_usage:
         return out
-    lens = [r[0].shape[0] for r in rings]
-    return out, list(torch.split(usage, lens))
+    lens = [r[0].shape[-2] for r in rings]
+    return out, list(torch.split(usage, lens, dim=-1))
 
 
 def attend_approx_multi(rings: Sequence, qk: torch.Tensor,
@@ -387,7 +406,8 @@ def attend_approx_multi(rings: Sequence, qk: torch.Tensor,
     axis. rings: sequence of (mk [N, Ck], ms [N] | None, values [N, O, Cv],
     valid [N] | None). Returns out [O, Q, Cv] (f32) and, with return_usage,
     one usage [N_i] per ring. n_tile defaults to deva_tpu's adaptive
-    width."""
+    width. With a leading B on every tensor, B videos in one launch of each
+    kernel (out [B, O, Q, Cv], usage [B, N_i])."""
     return _attend_multi(segmax, denom_readout, rings, qk, qe, top_k,
                          return_usage, n_tile)
 

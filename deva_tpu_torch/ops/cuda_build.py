@@ -28,15 +28,16 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of each exported function (all return a CUDA error code)
 # (the _I after the ring pointers of sim_topk, topk_readout and
-# denom_readout is the ring dtype: 0 float32, 1 bfloat16)
+# denom_readout is the ring dtype: 0 float32, 1 bfloat16; the _I before Q in
+# the four kernels' functions is the number of videos B, 1 for one video)
 _SIGNATURES = {
-    "deva_sim_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                      _P, _P, _P, _P],
-    "deva_topk_readout": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P,
-                          _P],
-    "deva_segmax": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "deva_sim_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _F, _P, _P, _P, _P],
+    "deva_topk_readout": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _P, _P],
+    "deva_segmax": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "deva_denom_readout": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                           _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+                           _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "deva_sim2_at": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 

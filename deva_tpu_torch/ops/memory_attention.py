@@ -29,31 +29,34 @@ def get_similarity(mk: torch.Tensor, ms: Optional[torch.Tensor],
                    qk: torch.Tensor, qe: Optional[torch.Tensor]
                    ) -> torch.Tensor:
     """mk [N, Ck], ms [N] or None, qk [Q, Ck], qe [Q, Ck] or None
-    -> sim [Q, N] (query-major: the top-k reduces the last axis)."""
+    -> sim [Q, N] (query-major: the top-k reduces the last axis). A leading
+    B on every tensor gives B videos' similarities [B, Q, N]."""
     ck = mk.shape[-1]
     mk = mk.float()
     qk = qk.float()
+    mk_t = mk.transpose(-1, -2)
     if qe is not None:
         qe = qe.float()
-        a_sq = qe @ (mk * mk).T
-        two_ab = 2.0 * ((qk * qe) @ mk.T)
+        a_sq = qe @ (mk * mk).transpose(-1, -2)
+        two_ab = 2.0 * ((qk * qe) @ mk_t)
         b_sq = torch.sum(qe * qk * qk, dim=-1, keepdim=True)
         sim = -a_sq + two_ab - b_sq
     else:
-        a_sq = torch.sum(mk * mk, dim=-1)[None, :]
-        two_ab = 2.0 * (qk @ mk.T)
+        a_sq = torch.sum(mk * mk, dim=-1)[..., None, :]
+        two_ab = 2.0 * (qk @ mk_t)
         sim = -a_sq + two_ab
     if ms is not None:
-        return sim * (ms.float()[None, :] / math.sqrt(ck))
+        return sim * (ms.float()[..., None, :] / math.sqrt(ck))
     return sim / math.sqrt(ck)
 
 
 def mask_invalid(sim: torch.Tensor, valid: Optional[torch.Tensor]
                  ) -> torch.Tensor:
-    """-inf on the token slots where valid [N] is False."""
+    """-inf on the token slots where valid [N] (or [B, N] for sim [B, Q,
+    N]) is False."""
     if valid is None:
         return sim
-    return sim.masked_fill(~valid[None, :], float("-inf"))
+    return sim.masked_fill(~valid[..., None, :], float("-inf"))
 
 
 def topk_sorted(x: torch.Tensor, k: int):

@@ -7,16 +7,21 @@ objects, seeded weights, smooth-noise 854x480 frames like chip_smoke.py;
 as in eval_vos_torch.py)
 for --frames frames, the first through InferenceCore.step and the others
 through step (--chunk 1) or step_chunk in chunks of --chunk frames (with
---preencode_blocks, the pre-encoded block body). Prints
-every frame's wall time (a chunk's time shared by its frames), and traces
-the last --window frames (whole chunks) with torch.profiler: device time per
-layer (the model's four modes and the memory attention, as profiler
-ranges), device time per kernel, the device's busy share of the
+--preencode_blocks, the pre-encoded block body). With --batch B, B videos
+in lockstep through inference/batched.py's BatchedPropagator instead
+(video 0 the frames above, the others seeded apart): the first frame
+through initialize, the others through step_all (--chunk 1) or step_block
+by --chunk. Prints every frame's wall time (a chunk's time shared by its
+frames; with --batch, the time of one lockstep step of all B videos), and
+traces the last --window frames (whole chunks) with torch.profiler: device
+time per layer (the model's four modes and the memory attention, as
+profiler ranges), device time per kernel, the device's busy share of the
 window's wall time, and the peak allocated device memory of the run.
 
     python -m deva_tpu_torch.profile_step --frames 60 --window 10 \
         --topk_method approx --chunk 5 --trace step_trace.json
     python -m deva_tpu_torch.profile_step --amp --topk_method approx --chunk 5
+    python -m deva_tpu_torch.profile_step --batch 4 [--amp]
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from deva_tpu_torch.config import InferenceConfig, ModelConfig
+from deva_tpu_torch.inference.batched import BatchedPropagator
 from deva_tpu_torch.inference.core import InferenceCore
 from deva_tpu_torch.models.network import DEVANetwork, init_weights
 
@@ -76,6 +82,9 @@ def main():
                     help="bfloat16 compute and (unless --ring_dtype) rings")
     ap.add_argument("--ring_dtype", default=None,
                     help="float32/bfloat16; default bfloat16 with --amp")
+    ap.add_argument("--batch", type=int, default=1,
+                    help="videos in lockstep (BatchedPropagator); 1 = the "
+                    "single-stream InferenceCore")
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the window here")
     args = ap.parse_args()
@@ -85,13 +94,19 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    rng = np.random.default_rng(11)
     h, w = 480, 854
-    base = rng.standard_normal((h // 8, -(-w // 8), 3)).astype(np.float32)
-    frames = [torch.from_numpy((base + 0.1 * rng.standard_normal(base.shape))
-                               .repeat(8, 0).repeat(8, 1)[:h, :w]
-                               .astype(np.float32)).to(dev)
-              for _ in range(args.frames)]
+
+    def video(seed):
+        rng = np.random.default_rng(seed)
+        base = rng.standard_normal((h // 8, -(-w // 8), 3)).astype(np.float32)
+        return torch.stack([
+            torch.from_numpy((base + 0.1 * rng.standard_normal(base.shape))
+                             .repeat(8, 0).repeat(8, 1)[:h, :w]
+                             .astype(np.float32))
+            for _ in range(args.frames)]).to(dev)
+
+    # [B, T, H, W, 3]: video 0 is the single-stream run's
+    frames = torch.stack([video(11 + v) for v in range(args.batch)])
     mask = np.zeros((h, w), np.int64)
     mask[60:300, 330:520] = 1
     mask[260:450, 250:620] = 2
@@ -100,13 +115,20 @@ def main():
         dtype="bfloat16" if args.amp else "auto")), seed=0).to(dev).eval()
     for mode in LAYERS[:4]:
         setattr(net, mode, _labeled(getattr(net, mode), mode))
-    core = InferenceCore(net, InferenceConfig(
+    cfg = InferenceConfig(
         topk_method=args.topk_method,
         preencode_blocks=args.preencode_blocks,
-        ring_dtype=args.ring_dtype or ("bfloat16" if args.amp else "auto")))
-    # the fused step's attention, and the composed path's
-    core._fused._attend_rings = _labeled(core._fused._attend_rings,
-                                         "attention")
+        ring_dtype=args.ring_dtype or ("bfloat16" if args.amp else "auto"))
+    if args.batch > 1:
+        core = BatchedPropagator(net, cfg)
+        core._attend_and_count = _labeled(core._attend_and_count,
+                                          "attention")
+    else:
+        core = InferenceCore(net, cfg)
+        # the fused step's attention, and the composed path's
+        core._fused._attend_rings = _labeled(core._fused._attend_rings,
+                                             "attention")
+    frames0 = frames[0]
 
     # frame 0 takes the mask; then runs of --chunk frames
     runs = [(0, 1)] + [(i, min(args.chunk, args.frames - i))
@@ -119,24 +141,36 @@ def main():
         if i == start_window:
             prof.start()
             window_t0 = time.perf_counter()
-        if i == 1:
+        if i == 1 and args.batch == 1:
             core.memory.match_memory = _labeled(core.memory.match_memory,
                                                 "attention")
         t0 = time.perf_counter()
-        if i == 0:
-            core.step(frames[0], mask, [1, 2])
+        if args.batch > 1:
+            if i == 0:
+                core.initialize(frames[:, 0], [mask] * args.batch,
+                                [[1, 2]] * args.batch)
+            elif args.chunk == 1:
+                core.step_all(frames[:, i])
+            else:
+                core.step_block(frames[:, i:i + n])
+        elif i == 0:
+            core.step(frames0[0], mask, [1, 2])
         elif args.chunk == 1:
-            core.step(frames[i])
+            core.step(frames0[i])
         else:
-            core.step_chunk(frames[i:i + n])
+            core.step_chunk(frames0[i:i + n])
         torch.cuda.synchronize()
         step_ms += [(time.perf_counter() - t0) * 1000 / n] * n
     window_s = time.perf_counter() - window_t0
     prof.stop()
     window = args.frames - start_window
 
-    print("frame wall ms:", " ".join(f"{t:.1f}" for t in step_ms))
-    print(f"median frames 10+: {statistics.median(step_ms[10:]):.3f} ms")
+    step = f"lockstep step of {args.batch} videos" if args.batch > 1 \
+        else "frame"
+    unit = "step" if args.batch > 1 else "frame"
+    print(f"{step} wall ms:", " ".join(f"{t:.1f}" for t in step_ms))
+    print(f"median frames 10+: {statistics.median(step_ms[10:]):.3f} ms "
+          f"per {step}")
     events = prof.key_averages()
     # on the device timeline, the layer ranges appear as annotations
     # spanning their kernels; keep them apart from the kernels themselves
@@ -144,14 +178,17 @@ def main():
     layers = {e.key: _device_us(e) for e in on_device if e.key in LAYERS}
     kernels = [e for e in on_device if e.key not in LAYERS]
     busy_us = sum(_device_us(e) for e in kernels)
-    print(f"window: {window} frames, wall {window_s * 1000:.1f} ms, "
+    print(f"window: {window} {unit}s, wall {window_s * 1000:.1f} ms, "
           f"device busy {busy_us / 1000:.1f} ms "
           f"({busy_us / (window_s * 1e6):.1%}), idle "
           f"{1 - busy_us / (window_s * 1e6):.1%}")
-    print(f"peak allocated {torch.cuda.max_memory_allocated(dev) / 2**20:.1f}"
-          " MiB over the run")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"peak allocated {peak / 2**20:.1f} MiB over the run, "
+          f"{(peak - frames.numel() * 4) / 2**20:.1f} MiB without the "
+          f"{frames.numel() * 4 / 2**20:.1f} MiB of input frames kept on "
+          "the device")
     for name, us in sorted(layers.items(), key=lambda kv: -kv[1]):
-        print(f"layer {name}: {us / 1000 / window:.3f} ms/frame on the "
+        print(f"layer {name}: {us / 1000 / window:.3f} ms/{unit} on the "
               f"device timeline ({us / (window_s * 1e6):.1%} of the wall)")
     groups = {}
     for e in kernels:
@@ -159,10 +196,10 @@ def main():
                       if any(k in e.key.lower() for k in keys)), "other")
         groups[group] = groups.get(group, 0.0) + _device_us(e)
     for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"group {group}: {us / 1000 / window:.3f} ms/frame "
+        print(f"group {group}: {us / 1000 / window:.3f} ms/{unit} "
               f"({us / max(busy_us, 1e-9):.1%} of the busy time)")
     for e in sorted(kernels, key=_device_us, reverse=True)[:25]:
-        print(f"kernel {_device_us(e) / 1000 / window:8.3f} ms/frame "
+        print(f"kernel {_device_us(e) / 1000 / window:8.3f} ms/{unit} "
               f"x{e.count / window:5.1f}  {e.key[:110]}")
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)),

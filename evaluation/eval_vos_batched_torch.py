@@ -1,0 +1,185 @@
+"""Batched semi-supervised VOS evaluation with deva_tpu_torch (PyTorch + CUDA):
+videos are grouped into lockstep batches and propagated B at a time by
+deva_tpu_torch/inference/batched.py (one batch-B model call per stage, one
+launch of each attention kernel per lockstep frame).
+
+The port's counterpart of evaluation/eval_vos_batched.py, for the generic
+(G) and DAVIS (D16/D17) layouts, with the flags of eval_vos_torch.py plus
+--batch. Grouping: videos are lockstepped only with videos of the same
+processed frame shape, the same object-count bucket (pad_objects) and the
+same long-term usage-counting policy. A video whose masks arrive after its
+first frame runs through the sequential path (InferenceCore.step per
+frame), as do videos with no reachable mask. In a group, the first frame's
+output is its ground-truth mask; shorter videos replay their last frame
+until the group ends and those outputs are discarded. `end` semantics (no
+memory write, no sensory update on the final frame) only change state that
+later frames read, so the per-frame outputs are those of the sequential
+driver.
+
+Usage (the example clip, on the card; --device cpu for the CPU):
+  python evaluation/eval_vos_batched_torch.py --dataset G \
+      --generic_path ./example/vos --output ./out_batched --batch 4
+
+Steps are timed with CUDA events on a CUDA device (the host clock on the
+CPU), and the report gives the aggregate video-frames per second. TF32 stays
+off on the card.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import sys
+from os import path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, path.dirname(path.dirname(path.abspath(__file__))))
+sys.path.insert(0, path.dirname(path.abspath(__file__)))
+
+from deva_tpu_torch.data.transforms import resize_prob_to  # noqa: E402
+from deva_tpu_torch.inference.batched import BatchedPropagator  # noqa: E402
+from deva_tpu_torch.inference.core import InferenceCore  # noqa: E402
+from deva_tpu_torch.utils.prefetch import Prefetcher  # noqa: E402
+from eval_vos_torch import (StepTimer, base_config, count_usage,  # noqa
+                            load_model, make_dataset, make_parser, save_mask,
+                            setup_device)
+
+
+def save_frame(out_path, reader, info, prob, object_manager) -> None:
+    """One output PNG: prob [1 + num_obj, H, W] (tensor or array) resized
+    to the frame's shape when it was resized, argmax, object ids."""
+    if torch.is_tensor(prob):
+        prob = prob.cpu().numpy()
+    if info["need_resize"]:
+        prob = resize_prob_to(prob, tuple(info["shape"]))
+    out_mask = object_manager.tmp_cls_to_obj_cls(np.argmax(prob, axis=0))
+    save_mask(out_mask, reader.get_palette(),
+              path.join(out_path, reader.vid_name), info["frame"])
+
+
+def run_sequential(model, cfg, reader, out_path, save_all, timer) -> None:
+    """The single-stream path, for videos that cannot be lockstepped."""
+    processor = InferenceCore(model, cfg)
+    first_mask_loaded = False
+    for ti in range(len(reader)):
+        data = reader[ti]
+        mask = data.get("mask")
+        if not first_mask_loaded:
+            if mask is None:
+                continue
+            first_mask_loaded = True
+        labels = data.get("valid_labels")
+        labels = None if labels is None else [int(v) for v in labels]
+        with timer:
+            prob = processor.step(data["rgb"], mask, labels,
+                                  end=(ti == len(reader) - 1))
+        if save_all or data["info"]["save"]:
+            save_frame(out_path, reader, data["info"], prob,
+                       processor.object_manager)
+
+
+def run_group(model, cfg, readers, out_path, save_all, timer) -> None:
+    """Lockstep-propagate a group of same-shaped videos."""
+    first = [r[0] for r in readers]
+    images0 = [d["rgb"] for d in first]
+    masks0 = [np.asarray(d["mask"], np.int64) for d in first]
+    objects = [[int(v) for v in d["valid_labels"]] for d in first]
+
+    bp = BatchedPropagator(model, cfg)
+    with timer.frames_of(len(readers)):
+        bp.initialize(images0, masks0, objects)
+    for vi, (r, d) in enumerate(zip(readers, first)):
+        if save_all or d["info"]["save"]:
+            # the first-frame output is the (hard) ground-truth mask itself
+            prob = np.zeros((len(objects[vi]) + 1,) + masks0[vi].shape,
+                            np.float32)
+            for oi, obj in enumerate(objects[vi]):
+                prob[oi + 1] = masks0[vi] == obj
+            prob[0] = 1.0 - prob[1:].sum(0)
+            save_frame(out_path, r, d["info"], prob,
+                       bp.cores[vi].object_manager)
+
+    lengths = [len(r) for r in readers]
+    max_len = max(lengths)
+    if not bp.use_lt:
+        bp.reserve(max_len // cfg.mem_every + 2)
+    last = list(images0)
+    with contextlib.ExitStack() as stack:
+        # per-video background decode: frame ti+1 loads while the device
+        # propagates frame ti
+        iters = [iter(stack.enter_context(Prefetcher(r, start=1)))
+                 for r in readers]
+        for ti in range(1, max_len):
+            datas = [next(iters[vi], None) if ti < lengths[vi] else None
+                     for vi in range(len(readers))]
+            for vi, d in enumerate(datas):
+                if d is not None:
+                    last[vi] = d["rgb"]
+            live = sum(d is not None for d in datas)
+            with timer.frames_of(live):
+                probs = bp.step_all(last, end=(ti == max_len - 1))
+            for vi, d in enumerate(datas):
+                if d is not None and (save_all or d["info"]["save"]):
+                    save_frame(out_path, readers[vi], d["info"],
+                               probs[vi][:len(objects[vi]) + 1],
+                               bp.cores[vi].object_manager)
+
+
+def main(argv=None):
+    parser = make_parser()
+    parser.add_argument("--batch", type=int, default=4,
+                        help="videos per lockstep group")
+    args = parser.parse_args(argv)
+    args.dataset = args.dataset.upper()
+    device = setup_device(args)
+    model = load_model(args, device)
+    if args.output is None:
+        args.output = f"../output/{args.dataset}_{args.split}"
+        print(f"Output path not provided. Defaulting to {args.output}")
+    meta_dataset = make_dataset(args)
+    if args.dataset == "G" and not args.save_all:
+        args.save_all = True
+        print("save_all is forced to be true in generic mode.")
+    base_cfg = base_config(args)
+    timer = StepTimer(device)
+
+    # group keys from each video's mask schedule (a file-existence probe)
+    # and its first frame
+    groups, sequential = {}, []
+    for r in meta_dataset.get_datasets():
+        d0 = r[0] if r.mask_frame_indices() == [0] else None
+        if d0 is None or d0.get("mask") is None:
+            sequential.append(r)  # mid-stream masks, or none reachable
+            continue
+        key = (tuple(np.asarray(d0["rgb"]).shape),
+               base_cfg.pad_objects(len(d0["valid_labels"])),
+               count_usage(base_cfg, len(r)))
+        groups.setdefault(key, []).append(r)
+
+    for (shape, o_bucket, usage), rs in sorted(groups.items(), key=str):
+        cfg = dataclasses.replace(base_cfg,
+                                  enable_long_term_count_usage=usage)
+        for i in range(0, len(rs), args.batch):
+            chunk = rs[i:i + args.batch]
+            print(f"group {shape} x{o_bucket}obj: "
+                  f"{[r.vid_name for r in chunk]}")
+            run_group(model, cfg, chunk, args.output, args.save_all, timer)
+    for r in sequential:
+        cfg = dataclasses.replace(
+            base_cfg, enable_long_term_count_usage=count_usage(base_cfg,
+                                                               len(r)))
+        print(f"sequential: {r.vid_name}")
+        run_sequential(model, cfg, r, args.output, args.save_all, timer)
+
+    print(f"Total processing time: {timer.total_s}")
+    print(f"Total processed frames: {timer.frames}")
+    if timer.total_s > 0:
+        print(f"Aggregate FPS: {timer.frames / timer.total_s}")
+    if device.type == "cuda":
+        print("Max allocated memory (MB): "
+              f"{torch.cuda.max_memory_allocated(device) / 2 ** 20:.1f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -46,7 +46,9 @@ from deva_tpu_torch.models.convert import variables_to_state_dict
 from deva_tpu_torch.models.network import DEVANetwork, init_weights
 
 
-def get_args(argv=None):
+def make_parser() -> ArgumentParser:
+    """The driver's flags (evaluation/eval_vos_batched_torch.py adds
+    --batch to the same set)."""
     parser = ArgumentParser()
     parser.add_argument("--d16_path", default="../DAVIS/2016")
     parser.add_argument("--d17_path", default="../DAVIS/2017")
@@ -97,7 +99,48 @@ def get_args(argv=None):
     parser.add_argument("--use_pallas_attention", action="store_true",
                         help="accepted for eval_vos.py parity; the port's "
                         "attention route is set by --topk_method alone")
-    return parser.parse_args(argv)
+    return parser
+
+
+def get_args(argv=None):
+    return make_parser().parse_args(argv)
+
+
+def setup_device(args) -> torch.device:
+    """--device as a torch.device; refuses cuda without CUDA, and turns TF32
+    off on the card (parity with deva_tpu's f32 needs true f32 convs and
+    matmuls)."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda but CUDA is not available "
+                         "(pass --device cpu to run on the CPU)")
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return device
+
+
+def base_config(args) -> InferenceConfig:
+    """The InferenceConfig of the flags (long-term usage counting is set
+    per video by count_usage)."""
+    return InferenceConfig(
+        mem_every=args.mem_every, top_k=args.top_k,
+        enable_long_term=not args.disable_long_term,
+        max_mid_term_frames=args.max_mid_term_frames,
+        min_mid_term_frames=args.min_mid_term_frames,
+        num_prototypes=args.num_prototypes,
+        max_long_term_elements=args.max_long_term_elements, size=args.size,
+        topk_method=args.topk_method,
+        use_pallas_attention=args.use_pallas_attention,
+        ring_dtype=args.ring_dtype or ("bfloat16" if args.amp else "auto"))
+
+
+def count_usage(cfg: InferenceConfig, vid_length: int) -> bool:
+    """Count long-term usage only when the video can fill long-term
+    memory (upstream DEVA's long-video policy)."""
+    return cfg.enable_long_term and (
+        vid_length / (cfg.max_mid_term_frames - cfg.min_mid_term_frames) *
+        cfg.num_prototypes) >= cfg.max_long_term_elements
 
 
 def load_model(args, device: torch.device) -> DEVANetwork:
@@ -185,14 +228,7 @@ class StepTimer:
 def main(argv=None):
     args = get_args(argv)
     args.dataset = args.dataset.upper()
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda but CUDA is not available "
-                         "(pass --device cpu to run on the CPU)")
-    if device.type == "cuda":
-        # parity with deva_tpu's f32 needs true f32 convs and matmuls
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    device = setup_device(args)
     model = load_model(args, device)
     if args.output is None:
         args.output = f"../output/{args.dataset}_{args.split}"
@@ -202,28 +238,15 @@ def main(argv=None):
         args.save_all = True
         print("save_all is forced to be true in generic mode.")
 
-    base_cfg = InferenceConfig(
-        mem_every=args.mem_every, top_k=args.top_k,
-        enable_long_term=not args.disable_long_term,
-        max_mid_term_frames=args.max_mid_term_frames,
-        min_mid_term_frames=args.min_mid_term_frames,
-        num_prototypes=args.num_prototypes,
-        max_long_term_elements=args.max_long_term_elements, size=args.size,
-        topk_method=args.topk_method,
-        use_pallas_attention=args.use_pallas_attention,
-        ring_dtype=args.ring_dtype or ("bfloat16" if args.amp else "auto"))
+    base_cfg = base_config(args)
     timer = StepTimer(device)
 
     for vid_reader in meta_dataset.get_datasets():
         vid_name = vid_reader.vid_name
         vid_length = len(vid_reader)
-        # count long-term usage only when the video can fill long-term memory
-        count_usage = base_cfg.enable_long_term and (
-            vid_length / (base_cfg.max_mid_term_frames -
-                          base_cfg.min_mid_term_frames) *
-            base_cfg.num_prototypes) >= base_cfg.max_long_term_elements
-        cfg = dataclasses.replace(base_cfg,
-                                  enable_long_term_count_usage=count_usage)
+        cfg = dataclasses.replace(
+            base_cfg,
+            enable_long_term_count_usage=count_usage(base_cfg, vid_length))
         processor = InferenceCore(model, cfg, device=device)
         first_mask_loaded = False
         print(f"{vid_name} ({vid_length} frames)")

@@ -14,7 +14,12 @@ chip_smoke.py's phases (run from the repository root):
         this one) at phase 1's rings N = 1620 and 16712, saved to OUT.pt,
         and that tree's phase 3 (f32, exact) frame time;
     python scripts/torch_probe_frames.py compare A.pt B.pt
-        whether two such sets of outputs are bitwise the same.
+        whether two such sets of outputs are bitwise the same;
+    python scripts/torch_probe_frames.py kernel-times ROOT
+        the single-video device ms of the four kernels of the tree at ROOT
+        at phase 1's shapes (N = 1620 and 16712, f32 and bf16 rings;
+        chip_smoke.cuda_ms), and the registers ptxas gave each instance of
+        its denom_readout kernel.
 
 Each run line prints chip_smoke's median, mean and peak allocated memory.
 """
@@ -23,6 +28,7 @@ from __future__ import annotations
 import contextlib
 import io
 import os
+import re
 import sys
 import time
 
@@ -132,6 +138,44 @@ def kernels(root: str, out: str) -> None:
     _run(f"phase 3 f32 of {root}", lambda: cs.phase_main_path(ak, net, dev))
 
 
+def kernel_times(root: str) -> None:
+    cs, ak, _ = _setup(root)
+    from deva_tpu_torch.ops import approx_kernels as apx
+    from deva_tpu_torch.ops import cuda_build
+    lib = cuda_build.build()
+    log = (cuda_build.BUILD_DIR / (lib.stem + ".log")).read_text() \
+        .splitlines()
+    regs = [re.search(r"Used (\d+) registers", log[i + 3]).group(1)
+            for i, line in enumerate(log)
+            if "Compiling entry" in line and "denom_readout_kernel" in line]
+    print(f"{root}: denom_readout registers per instance {regs}")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q, ck, k, c = 1620, 64, 30, 1024
+    qk = torch.randn((q, ck), generator=gen, device=dev)
+    qe = torch.rand((q, ck), generator=gen, device=dev)
+    for n in (1620, 16712):
+        valid = cs.ring_validity(n, dev)
+        mk = torch.randn((n, ck), generator=gen, device=dev)
+        ms = 1 + 3 * torch.rand((n,), generator=gen, device=dev)
+        v = torch.randn((n, c), generator=gen, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            mk_, ms_, v_ = mk.to(dt), ms.to(dt), v.to(dt)
+            ops = apx.prep2(qk, qe, mk_, ms_, valid)
+            geom = apx.Geometry.of(n, apx.default_n_tile(c, v_.element_size()))
+            seg = apx.segmax(ops, geom)
+            gv, gi = ak.sim_topk(qk, qe, mk_, ms_, valid, k)
+            w = torch.softmax(gv, -1)
+            t = {"sim_topk": lambda: ak.sim_topk(qk, qe, mk_, ms_, valid, k),
+                 "topk_readout": lambda: ak.topk_readout(gi, w, v_),
+                 "segmax": lambda: apx.segmax(ops, geom),
+                 "denom_readout": lambda: apx.denom_readout(ops, geom, seg,
+                                                            v_, k)}
+            print(f"{root} N={n} {str(dt)[6:]} ms: " + ", ".join(
+                f"{name} {cs.cuda_ms(fn):.4f}" for name, fn in t.items()),
+                flush=True)
+
+
 def compare(a_path: str, b_path: str) -> None:
     a, b = torch.load(a_path), torch.load(b_path)
     for n in a:
@@ -147,7 +191,7 @@ def main() -> int:
         print("torch_probe_frames: CUDA is not available", file=sys.stderr)
         return 1
     {"weight-cache": weight_cache, "order": order, "kernels": kernels,
-     "compare": compare}[cmd](*args)
+     "compare": compare, "kernel-times": kernel_times}[cmd](*args)
     return 0
 
 

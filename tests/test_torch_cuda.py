@@ -734,3 +734,109 @@ def test_bf16_step_on_the_card_matches_the_cpu(dev, method):
     mean = max(d.mean().item() for d in diffs)
     print(f"bf16 {method} card vs cpu: max {worst:.4g}, frame mean {mean:.4g}")
     assert worst < 0.05 and mean < 0.006, (worst, mean)
+
+
+# --------------------------------------------------------------------------
+# the video axis: one launch for B videos, each bitwise its own launch
+# --------------------------------------------------------------------------
+
+def _batched_inputs(dev, seed, b, n, q, ring, n_lt=512):
+    """B videos' rings [long-term ; working] with per-video validity; the
+    second video's long-term segment is all invalid."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    dt = getattr(torch, ring)
+    qk = randn(b, q, 64)
+    qe = torch.rand((b, q, 64), generator=gen, device=dev)
+    mk = randn(b, n, 64).to(dt)
+    ms = (1 + 3 * torch.rand((b, n), generator=gen, device=dev)).to(dt)
+    v2 = randn(b, n, 1024).to(dt)
+    ar = torch.arange(n, device=dev)
+    valid = torch.stack([(ar < s) | ((ar >= n_lt) & (ar < n_lt + w))
+                         for s, w in zip((400, 0, 512)[:b],
+                                         (n - n_lt - 100, n - n_lt, 700)[:b])])
+    return qk, qe, mk, ms, v2, valid
+
+
+def _each(fn, *args):
+    """fn per video (row b of every tensor argument, or of each tensor of a
+    tuple argument), stacked."""
+    pick = lambda a, b: tuple(x[b] for x in a) if isinstance(a, tuple) \
+        else (a[b] if isinstance(a, torch.Tensor) else a)
+    outs = [fn(*(pick(a, b) for a in args)) for b in range(args[0].shape[0])]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.stack(outs)
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+@pytest.mark.parametrize("ring", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,q", [(2000, 300), (16712, 1620)])
+def test_batched_exact_kernels_bitwise_per_video(dev, ring, n, q):
+    qk, qe, mk, ms, v2, valid = _batched_inputs(dev, 40, 3, n, q, ring)
+    gv, gi = ak.sim_topk(qk, qe, mk, ms, valid, 30)
+    sv, si = _each(lambda *a: ak.sim_topk(*a, 30), qk, qe, mk, ms, valid)
+    assert torch.equal(_bits(gv), _bits(sv)) and torch.equal(gi, si)
+    assert int(gi[1].min()) >= 512  # the all-invalid long-term segment
+    w = torch.softmax(gv, -1)
+    pair = (v2[:, :512].contiguous(), v2[:, 512:].contiguous())
+    out = ak.topk_readout(gi, w, v2)
+    assert torch.equal(_bits(out), _bits(_each(ak.topk_readout, gi, w, v2)))
+    assert torch.equal(_bits(ak.topk_readout(gi, w, pair)), _bits(out))
+    torch.testing.assert_close(out, ak.topk_readout_plain(gi, w, v2),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("ring", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,q", [(2000, 300), (16712, 1620)])
+def test_batched_approx_kernels_per_video(dev, ring, n, q):
+    qk, qe, mk, ms, v2, valid = _batched_inputs(dev, 41, 3, n, q, ring)
+    ops = apx.prep2(qk, qe, mk, ms, valid)
+    geom = apx.Geometry.of(n, apx.default_n_tile(1024, v2.element_size()))
+    seg = apx.segmax(ops, geom)
+    per = lambda b: ops._replace(**{f: getattr(ops, f)[b]
+                                    for f in ops._fields
+                                    if getattr(ops, f) is not None})
+    singles = [apx.segmax(per(b), geom) for b in range(3)]
+    assert torch.equal(_bits(seg), _bits(torch.stack(singles)))
+    out, usage, rmax, th = apx.denom_readout(ops, geom, seg, v2, 30)
+    for b in range(3):
+        o, u, r, t = apx.denom_readout(per(b), geom, seg[b], v2[b], 30)
+        assert torch.equal(_bits(rmax[b]), _bits(r))
+        assert torch.equal(_bits(th[b]), _bits(t))
+        torch.testing.assert_close(out[b], o, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(usage[b], u, rtol=1e-5, atol=1e-5)
+    assert float(usage[1, :512].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("method", ["exact", "approx"])
+def test_batched_attend_is_one_launch_of_each_kernel(dev, method):
+    """B videos in one call launch each kernel of the method once and
+    match the batched plain twin."""
+    qk, qe, mk, ms, v2, valid = _batched_inputs(dev, 42, 3, 2000, 300,
+                                                "float32")
+    values = v2.reshape(3, 2000, 2, 512)
+    ak.reset_launch_counts()
+    if method == "exact":
+        pair = (values[:, :512].contiguous(), values[:, 512:].contiguous())
+        out, usage = ak.attend_topk(mk, ms, pair, qk, qe, 30, valid,
+                                    return_usage=True)
+        ref, ref_usage = ak.attend_topk_plain(mk, ms, values, qk, qe, 30,
+                                              valid, return_usage=True)
+    else:
+        rings = [tuple(t[:, :512].contiguous() for t in (mk, ms, values,
+                                                          valid)),
+                 tuple(t[:, 512:].contiguous() for t in (mk, ms, values,
+                                                          valid))]
+        out, usage = apx.attend_approx_multi(rings, qk, qe, 30,
+                                             return_usage=True)
+        ref, ref_usage = apx.attend_approx_multi_plain(rings, qk, qe, 30,
+                                                       return_usage=True)
+        usage, ref_usage = torch.cat(usage, -1), torch.cat(ref_usage, -1)
+    torch.cuda.synchronize()
+    kernels = ("sim_topk", "topk_readout") if method == "exact" else \
+        ("segmax", "denom_readout")
+    assert {k: v for k, v in ak.LAUNCHES.items() if v} == \
+        dict.fromkeys(kernels, 1), ak.LAUNCHES
+    assert out.shape == (3, 2, 300, 512)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(usage, ref_usage, rtol=1e-4, atol=1e-4)

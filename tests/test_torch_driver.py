@@ -135,17 +135,24 @@ def test_eval_vos_torch_refuses_missing_cuda(tmp_path):
 
 def test_port_imports_without_jax_or_pil():
     """The port runs where neither jax nor PIL is installed: importing every
-    module of deva_tpu_torch with both blocked must work."""
+    module of deva_tpu_torch, and the batched driver
+    (evaluation/eval_vos_batched_torch.py, by path, which also loads
+    eval_vos_torch.py), with both blocked must work."""
     code = """
 import sys
 sys.modules['jax'] = None
 sys.modules['PIL'] = None
-import importlib, pkgutil
+import importlib, importlib.util, pkgutil
 import deva_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(deva_tpu_torch.__path__,
                                                 'deva_tpu_torch.')]
 for name in names:
     importlib.import_module(name)
+spec = importlib.util.spec_from_file_location(
+    'eval_vos_batched_torch', 'evaluation/eval_vos_batched_torch.py')
+driver = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(driver)
+assert callable(driver.run_group) and callable(driver.run_sequential)
 assert not any(m == 'deva_tpu' or m.startswith(('deva_tpu.', 'jax', 'flax'))
                for m in sys.modules if sys.modules[m] is not None), \\
     sorted(m for m in sys.modules if m.startswith(('deva_tpu.', 'jax')))
