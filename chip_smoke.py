@@ -1,9 +1,11 @@
 """Smoke test of deva_tpu_torch on one NVIDIA GPU: builds the CUDA kernels from
 this checkout and drives the port's main paths (semi-supervised VOS
 propagation through InferenceCore.step with exact top-k, and through
-InferenceCore.step_chunk with threshold-approx top-k; and four videos in
-lockstep through BatchedPropagator) on the card, in f32 and in deva_tpu's
-serving dtypes (bf16 compute, bf16 memory rings).
+InferenceCore.step_chunk with threshold-approx top-k; four videos in
+lockstep through BatchedPropagator; detection fusion through
+InferenceCore.incorporate_detection and vote_in_temporary_buffer) on the
+card, in f32 and in deva_tpu's serving dtypes (bf16 compute, bf16 memory
+rings).
 
     python3 chip_smoke.py
 
@@ -88,6 +90,34 @@ tests/test_amp.py's whole-clip budget against the f32 run, frame by frame.
    single-stream run; the bf16 run meets tests/test_amp.py's budget
    against the f32 run. Prints the median ms per lockstep step, the
    aggregate video-frames/s and the peak memory beside the single stream.
+6. Detection fusion (InferenceCore.spatial_alignment,
+   vote_in_temporary_buffer, incorporate_detection), f32, exact top-k.
+   6a: card against CPU at 64x96 (detection_clips.small_clip,
+   tests/test_detection_parity.py's configuration, equal seeded object-id
+   generators): spatial_alignment within 5e-3 with one launch of each
+   exact kernel; online (a detection every other frame, a segment purged)
+   and semi-online (3 voting frames, a vote every 3), each twice. As the
+   driver runs them, the forward predictions and alignments within 5e-3,
+   and a detection frame or consensus mask may differ beyond it only where
+   the two runs' forward predictions or projections have another argmax,
+   on at most 5% of the frame (the shares are printed). With a perfect
+   forward mask and alignment, no such allowance: every frame within
+   5e-3, consensus masks equal, every sensory row within 5e-3. Equal
+   object tables and selections throughout.
+   6b: online at 480p through eval_with_detections_torch.run_video (an
+   in-memory reader, a saver that writes nothing and checks each frame)
+   at the driver's defaults (max_missed_detection_count 5), 60 synthetic
+   frames with 12 VIPSeg-style segments every 5th frame (one appears at
+   20, one vanishes at 25 and is purged): ms per propagation and per
+   detection frame from the driver's StepTimer (host part apart), objects
+   and buckets over time, launches, peak memory. 6c: semi-online at 480p
+   through run_video, 20 frames: ms per spatial alignment and per host
+   vote, segments in and selected. The exact pair is held to its plain
+   twins on the arguments that 6b's last frame (composed match_memory,
+   one call per bucket) and 6c's last alignment gave it. With random
+   weights each detection frame opens a bucket whose objects are purged
+   after 6 misses, before it holds the 10 memory frames that start
+   long-term memory: 6b's calls each read one segment.
 
 The second-to-last line of output is a JSON object with each kernel's
 launches (phase 3 for the exact pair, phase 4 for the approx pair), largest
@@ -97,7 +127,12 @@ function) and the product's (null where none applies) at N=16712, once on
 f32 rings and once on bf16 rings (names suffixed ".bf16", launches from
 the bf16 runs), and again for the batched launch (names suffixed ".b4",
 and ".bf16.b4" for the approx pair on bf16 rings; launches from phase 5,
-with the time of four single launches as singles_ms); the last line is
+with the time of four single launches as singles_ms), and for the exact
+pair on the detection path, timed on the arguments the path gave it: at
+6b's last frame (names suffixed ".det", launches of 6b and 6c outside the
+alignments) and at 6c's last alignment (Q = N = 1620, C = 16 x 512; names
+suffixed ".det.align", launches of the alignments), each with its
+"shape"; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
 from __future__ import annotations
@@ -1571,6 +1606,714 @@ def phase_batched_main(ak, net_cpu, net_cpu16, dev, single_runs,
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 6: detection fusion
+# --------------------------------------------------------------------------
+
+# phase 6's tolerance, card against CPU (phase 2's)
+DET_TOL = 5e-3
+# the share of a detection frame (or a consensus mask) whose painted ids may
+# differ, card against CPU, because the two runs' forward predictions (or
+# projections), each within DET_TOL of the other, have another argmax
+# there. With random weights the objects that the unmatched detections add
+# are near copies of one another, whose probabilities tie to ~1e-5, and
+# cuDNN's convolutions (FFT and implicit GEMM, TF32 off) sum in other
+# orders than the CPU's: the H100 flipped 3.66% of 6a's online frame 6
+# (nine objects), and 0.2% with cuDNN turned off. The CPU tests hold the
+# port to deva_tpu at 2% (tests/torch_detection_common.py:MAX_FLIP_SHARE).
+DET_FLIP_SHARE = 0.05
+
+
+def det_core_pair(net_cpu, dev, cfg):
+    """A CPU core and a card core on the same weights with equal seeded
+    object-id generators."""
+    from deva_tpu_torch.inference.core import InferenceCore
+    cpu = InferenceCore(net_cpu, cfg)
+    gpu = InferenceCore(copy.deepcopy(net_cpu).to(dev), cfg)
+    for core in (cpu, gpu):
+        core.object_manager._rng = np.random.default_rng(5)
+    return cpu, gpu
+
+
+def det_step_pair(cpu, gpu, image, worst, key, label, end=False):
+    """One propagated frame on both cores, within DET_TOL."""
+    diff = (gpu.step(image, end=end).cpu() -
+            cpu.step(image, end=end)).abs().max().item()
+    worst[key] = max(worst.get(key, 0.0), diff)
+    assert diff <= DET_TOL, f"{label}: |card - cpu| = {diff}"
+
+
+def det_incorporate_pair(cpu, gpu, images, masks, segments, perfect, worst,
+                         key, label, given=None):
+    """incorporate_detection on both cores (images, masks, segments: the
+    CPU's and the card's). perfect: pass detection_clips.perfect_forward
+    as forward_mask=. Otherwise the two forward predictions must agree
+    within DET_TOL, and the probabilities may differ beyond it only where
+    those predictions' argmaxes differ or `given` (pixels whose detection
+    masks differ) is set, on at most DET_FLIP_SHARE of the frame. -> that
+    share."""
+    from deva_tpu_torch import detection_clips as dc
+    out = []
+    for core, image, mask, segs in zip((cpu, gpu), images, masks, segments):
+        kw = {"forward_mask": dc.perfect_forward(core, mask)} if perfect \
+            else {}
+        out.append(dc.incorporate_seen(core, image, mask, segs, **kw))
+    (l_cpu, f_cpu), (l_gpu, f_gpu) = out
+    allowed = given
+    if f_cpu is not None:
+        diff = float(np.abs(f_gpu - f_cpu).max())
+        worst[key + " forward"] = max(worst.get(key + " forward", 0.0), diff)
+        assert diff <= DET_TOL, f"{label}: forward |card - cpu| = {diff}"
+        flips = dc.paint_flips(f_cpu, f_gpu)
+        allowed = flips if given is None else flips | given
+    _, share = dc.check_detection_frame(
+        torch.softmax(l_cpu, 0), torch.softmax(l_gpu, 0), allowed, DET_TOL,
+        DET_FLIP_SHARE, label)
+    assert dc.object_table(gpu) == dc.object_table(cpu), label
+    return share
+
+
+def det_online_pair(cpu, gpu, clip, perfect, worst, key):
+    """The online setting on both cores (a detection every other frame):
+    frames within DET_TOL, detection frames by det_incorporate_pair, equal
+    object tables; segment 4 purged and equal buckets at the end. -> the
+    detection frames' shares."""
+    from deva_tpu_torch import detection_clips as dc
+    frames, masks, infos = clip
+    shares = []
+    for ti, img in enumerate(frames):
+        label = f"phase 6a {key} frame {ti}"
+        if ti % 2:
+            det_step_pair(cpu, gpu, img, worst, key, label)
+            continue
+        segs = [dc.segment_infos(infos[ti]) for _ in range(2)]
+        shares.append(det_incorporate_pair(
+            cpu, gpu, (img, img), (masks[ti], masks[ti]), segs, perfect,
+            worst, key, label))
+    ids = [row[0] for row in dc.object_table(gpu)]
+    assert 4 not in ids, f"{key}: segment 4 was not purged: {ids}"
+    assert [b.obj_ids for b in gpu.memory.buckets.values()] == \
+        [b.obj_ids for b in cpu.memory.buckets.values()], key
+    return shares
+
+
+def vote_recorded(core, precomputed_proj=None):
+    """core.vote_in_temporary_buffer(keyframe_selection='first') -> (its
+    result, the projections its spatial alignments returned)."""
+    out = []
+    align = core.spatial_alignment
+
+    def spy(*args):
+        out.append(align(*args))
+        return out[-1]
+
+    core.spatial_alignment = spy
+    try:
+        return core.vote_in_temporary_buffer(
+            keyframe_selection="first",
+            precomputed_proj=precomputed_proj), out
+    finally:
+        del core.spatial_alignment
+
+
+def det_semionline_pair(cpu, gpu, clip, perfect, worst, key):
+    """The semi-online setting on both cores (3 voting frames, a vote every
+    3). perfect: vote with detection_clips.aligned_proj (no alignment runs:
+    the consensus masks must be equal) and incorporate with
+    perfect_forward. Otherwise the vote's alignments within DET_TOL, and
+    the consensus masks may differ only where two projections' argmaxes
+    differ, on at most DET_FLIP_SHARE of the frame. Selections equal,
+    frames within DET_TOL, detection frames by det_incorporate_pair, equal
+    object tables. -> (selected ids per vote, shares)."""
+    from deva_tpu_torch import detection_clips as dc
+    from deva_tpu_torch.inference.frame_utils import FrameInfo
+    frames, masks, infos = clip
+    n = len(frames)
+    votes, shares = [], []
+    next_voting, num_voting, every = 2, 3, 3
+    for ti, img in enumerate(frames):
+        label = f"phase 6a {key} frame {ti}"
+        if ti + num_voting <= next_voting:
+            det_step_pair(cpu, gpu, img, worst, key, label, end=ti == n - 1)
+            continue
+        info = {"frame": f"{ti:05d}.jpg", "shape": img.shape[:2],
+                "save": True}
+        for core in (cpu, gpu):
+            core.add_to_temporary_buffer(FrameInfo(
+                img, masks[ti], dc.segment_infos(infos[ti]), ti, info))
+        if ti != next_voting:
+            continue
+        res = [vote_recorded(core, dc.aligned_proj(core.frame_buffer)
+                             if perfect else None) for core in (cpu, gpu)]
+        ((_, m_cpu, s_cpu), proj_cpu), ((_, m_gpu, s_gpu), proj_gpu) = res
+        votes.append([o.id for o in s_gpu])
+        assert votes[-1] == [o.id for o in s_cpu], (
+            f"{label}: selected {votes[-1]} on the card, "
+            f"{[o.id for o in s_cpu]} on the cpu")
+        flips = np.zeros(m_cpu.shape, bool)
+        for p_c, p_g in zip(proj_cpu, proj_gpu):
+            diff = float(np.abs(p_g - p_c).max())
+            worst[key + " alignment"] = max(
+                worst.get(key + " alignment", 0.0), diff)
+            assert diff <= DET_TOL, f"{label}: alignment {diff}"
+            flips |= dc.paint_flips(p_c, p_g)
+        differ = m_cpu != m_gpu
+        assert not (differ & ~flips).any() and \
+            flips.mean() <= DET_FLIP_SHARE, (
+                f"{label}: consensus masks differ on {int(differ.sum())} "
+                f"pixels, {int((differ & ~flips).sum())} where the "
+                f"projections paint alike; those differ on "
+                f"{flips.mean():.2%}")
+        shares.append(float(flips.mean()))
+        shares.append(det_incorporate_pair(
+            cpu, gpu, (cpu.frame_buffer[0].image, gpu.frame_buffer[0].image),
+            (m_cpu, m_gpu), (s_cpu, s_gpu), perfect, worst, key,
+            f"{label} (vote)", given=differ if differ.any() else None))
+        for fc, fg in zip(cpu.frame_buffer[1:], gpu.frame_buffer[1:]):
+            diff = (gpu.step(fg.image, end=fg.ti == n - 1).cpu() -
+                    cpu.step(fc.image, end=fc.ti == n - 1)).abs().max().item()
+            worst[key] = max(worst.get(key, 0.0), diff)
+            assert diff <= DET_TOL, f"{key} frame {fc.ti}: {diff}"
+        for core in (cpu, gpu):
+            core.clear_buffer()
+        next_voting += every
+        if next_voting >= n:
+            next_voting = n + num_voting
+    assert dc.object_table(gpu) == dc.object_table(cpu), f"{key} tables"
+    return votes, shares
+
+
+def phase_detection_parity(ak, net_cpu, dev):
+    """Phase 6a: detection fusion on the card against the CPU at 64x96
+    (detection_clips.small_clip, tests/test_detection_parity.py's
+    configuration: top_k 8, mem_every 2, equal seeded id generators).
+    spatial_alignment (top_k 8 and 30 > the 24 tokens) within DET_TOL with
+    one launch of each exact kernel. Online (a detection every other frame
+    over 8 frames; segment 4 is poked at 2, 4 and 6 and purged at 6) and
+    semi-online (3 voting frames, a vote every 3), each twice:
+    - as the driver runs them, the cores predicting the forward mask and
+      aligning the vote's frames: the forward predictions and alignments
+      within DET_TOL, and a detection frame or consensus mask may differ
+      beyond it only where two of them have another argmax (their painted
+      id differs), on at most DET_FLIP_SHARE of the frame (printed);
+    - with a perfect forward mask and a perfect alignment
+      (detection_clips.perfect_forward, aligned_proj), where nothing on the
+      host depends on a device output: every frame within DET_TOL with no
+      such allowance, consensus masks equal, and after the online run every
+      sensory row within DET_TOL.
+    Frames within DET_TOL, equal object tables and selections throughout."""
+    import dataclasses
+    from deva_tpu_torch import detection_clips as dc
+    from deva_tpu_torch.config import InferenceConfig
+    cfg = InferenceConfig(mem_every=2, top_k=8, enable_long_term=False,
+                          max_missed_detection_count=2)
+    clip = dc.small_clip(np.random.default_rng(4), 8)
+    frames, masks, infos = clip
+
+    worst = {}
+    for top_k in (8, 30):
+        cpu, gpu = det_core_pair(net_cpu, dev,
+                                 dataclasses.replace(cfg, top_k=top_k))
+        one_hot = np.stack([masks[0] == d["id"] for d in infos[0]]
+                           ).astype(np.float32)
+        ak.reset_launch_counts()
+        p_gpu = gpu.spatial_alignment(0, frames[0], one_hot, 2, frames[2])
+        torch.cuda.synchronize()
+        runs = {k: v for k, v in ak.LAUNCHES.items() if v}
+        assert runs == dict.fromkeys(EXACT_PAIR, 1), \
+            f"spatial_alignment top_k {top_k}: launches {runs}"
+        p_cpu = cpu.spatial_alignment(0, frames[0], one_hot, 2, frames[2])
+        assert p_gpu.shape == p_cpu.shape == (len(one_hot) + 1, 64, 96)
+        worst[f"alignment k={top_k}"] = float(np.abs(p_gpu - p_cpu).max())
+        assert worst[f"alignment k={top_k}"] <= DET_TOL, worst
+
+    shares, votes = {}, {}
+    for perfect in (False, True):
+        key = "online" + (" perfect" if perfect else "")
+        cpu, gpu = det_core_pair(net_cpu, dev, cfg)
+        shares[key] = det_online_pair(cpu, gpu, clip, perfect, worst, key)
+        if perfect:
+            diff = (gpu.memory.sensory.cpu() -
+                    cpu.memory.sensory).abs().max().item()
+            worst["sensory perfect"] = diff
+            assert diff <= DET_TOL, f"sensory rows: |card - cpu| = {diff}"
+        key = "semionline" + (" perfect" if perfect else "")
+        cpu, gpu = det_core_pair(net_cpu, dev, cfg)
+        votes[key], shares[key] = det_semionline_pair(
+            cpu, gpu, clip, perfect, worst, key)
+    assert all(votes["semionline perfect"]), votes
+    assert not any(any(s) for k, s in shares.items() if "perfect" in k)
+    print(f"phase 6a detection fusion, card vs cpu at 64x96: max |dprob| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f" (bound {DET_TOL:g}); share of each detection frame (and "
+          f"consensus mask) whose painted ids may differ, where the two "
+          f"runs' forward predictions or projections have another argmax "
+          f"(bound {DET_FLIP_SHARE:g}): "
+          + "; ".join(f"{k} " + ", ".join(f"{s:.4f}" for s in v)
+                      for k, v in shares.items())
+          + f"; object tables equal; votes selected {votes} on both",
+          flush=True)
+
+
+class HostTimer:
+    """Host ms spent in one function, patched on an object for a run."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.fn = owner, name, getattr(owner, name)
+        self.ms, self.calls = 0.0, 0
+        setattr(owner, name, self)
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            self.ms += (time.perf_counter() - t0) * 1000
+            self.calls += 1
+
+    def take(self) -> float:
+        ms, self.ms = self.ms, 0.0
+        return ms
+
+    def restore(self):
+        setattr(self.owner, self.name, self.fn)
+
+
+class KernelTap:
+    """The arguments of every call of the exact pair's wrappers
+    (attention_kernels.sim_topk and topk_readout, patched for a run), as
+    (name, args) under the current `tag`. frame() keeps the calls made
+    since the last frame() as `last_frame` and starts anew."""
+
+    def __init__(self, ak):
+        self.ak, self.tag, self.calls, self.last_frame = ak, "memory", {}, []
+        self.fns = {name: getattr(ak, name) for name in EXACT_PAIR}
+        for name in EXACT_PAIR:
+            setattr(ak, name, self._spy(name))
+
+    def _spy(self, name):
+        fn = self.fns[name]
+
+        def spy(*args):
+            self.calls.setdefault(self.tag, []).append((name, args))
+            return fn(*args)
+        return spy
+
+    def frame(self):
+        self.last_frame = self.calls.pop("memory", [])
+
+    def restore(self):
+        for name, fn in self.fns.items():
+            setattr(self.ak, name, fn)
+
+
+class DetReader:
+    """An in-memory video for eval_with_detections_torch.run_video: its
+    frames [H, W, 3] f32 and detection id masks, read as the driver's
+    DetectionVideoReader items are."""
+
+    def __init__(self, frames, masks, name):
+        self.frames, self.masks, self.vid_name = frames, masks, name
+
+    def __len__(self):
+        return len(self.frames)
+
+    def __getitem__(self, i):
+        return {"rgb": self.frames[i], "mask": self.masks[i], "info": {
+            "frame": f"{i:05d}.jpg", "shape": self.frames[i].shape[:2],
+            "need_resize": False, "save": True, "is_rgb": False}}
+
+
+class DetSaver:
+    """run_video's result saver for phase 6: writes nothing. Checks each
+    frame's output (finite, [1 + objects, H, W]; a propagated frame's
+    probabilities sum to 1), keeps the frame order, and calls after(ti)."""
+
+    def __init__(self, core, detection_frame, after=None):
+        self.core, self.detection_frame, self.after = \
+            core, detection_frame, after
+        self.order = []
+
+    def save_mask(self, prob, frame, need_resize=False, shape=None,
+                  path_to_image=None):
+        ti = int(frame[:5])
+        self.order.append(ti)
+        n = self.core.object_manager.num_obj
+        assert prob.shape == (n + 1, *shape), (ti, tuple(prob.shape))
+        assert bool(torch.isfinite(prob).all()), f"frame {ti}"
+        if not self.detection_frame(ti):  # logits on detection frames
+            torch.testing.assert_close(prob.sum(0), torch.ones_like(
+                prob[0]), rtol=0, atol=1e-4)
+        if self.after is not None:
+            self.after(ti)
+
+
+def det_driver(setting: str):
+    """eval_with_detections_torch's module and its flags for phase 6b/6c:
+    the defaults (long-term on, exact top-k, a detection every 5 frames, 3
+    voting frames, max_missed_detection_count 5), `setting` temporal."""
+    sys.path.insert(0, os.path.join(ROOT, "evaluation"))
+    import eval_with_detections_torch as drv
+    args = drv.make_parser().parse_args(
+        ["--temporal_setting", setting, "--device", "cuda"])
+    return drv, args
+
+
+def det_run(drv, args, net, dev, frames, masks, infos, after=None):
+    """One video through the driver's run_video, as its main() runs a
+    video: video_processor, segments_info from the detections' JSON (long
+    ids), timed by a StepTimer. -> (processor, saver, timer, a function
+    that runs the video); `after`, if given, gets the processor and
+    returns the saver's callback."""
+    core = drv.video_processor(net, drv.detection_config(args), len(frames),
+                               dev)
+    core.object_manager._rng = np.random.default_rng(5)
+    timer = drv.StepTimer(dev)
+    # detection frames return logits: in both settings the frames
+    # 0, detection_every, ... (semi-online: each vote's first buffered frame)
+    saver = DetSaver(core, lambda ti: ti % args.detection_every == 0,
+                     after(core) if after else None)
+    return core, saver, timer, lambda: drv.run_video(
+        DetReader(frames, masks, "det480"), core, saver, args, timer,
+        "vipseg", lambda ti, mask, info: (infos[ti], True))
+
+
+def phase_detection_online(ak, net_cpu, dev, n_frames: int = 60,
+                           h: int = H480, w: int = W480):
+    """Phase 6b: the online setting at 480p, timed, through
+    eval_with_detections_torch.run_video (DetReader, DetSaver): 60
+    synthetic frames (seed 31) with detection_clips.detections,
+    incorporate_detection every 5 frames and step otherwise, at the
+    driver's defaults (long-term on, exact top-k, max_missed_detection_count
+    5, long ids). Checks each frame's output (DetSaver), the object made
+    from thing 7 at frame 0 purged by the last frame, and both exact
+    kernels launched. Prints, from the driver's StepTimer (CUDA
+    events), the median ms per propagation frame (frames 10 onwards) and
+    per detection frame, the detection frame's host time in match_and_merge
+    and purge_inactive_objects and the rest, its transfers, the objects and
+    buckets over time, the launches and the peak memory. Returns the
+    launch counts and the exact pair's calls of the last frame (a composed
+    match_memory, one call per bucket)."""
+    import deva_tpu_torch.inference.core as core_mod
+    from deva_tpu_torch.detection_clips import DET_THINGS, detections
+    gc.collect()
+    frames = synthetic_video(np.random.default_rng(31), h, w, n_frames)
+    masks, infos = detections(n_frames, h, w)
+    drv, args = det_driver("online")
+    net = copy.deepcopy(net_cpu).to(dev)
+    category7 = next(cat for tid, cat, *_ in DET_THINGS if tid == 7)
+    history, watch = [], []
+
+    def after(core):
+        def record(ti):
+            table = core.object_manager.obj_to_tmp_id
+            if ti == 0:  # the object made from thing 7
+                watch.extend(o.id for o in table
+                             if o.vote_category_id() == category7)
+                assert len(watch) == 1, watch
+            if ti % args.detection_every == 0:
+                history.append((ti, len(table), len(core.memory.buckets),
+                                core.o_cap, sum(
+                                    lt.size for lt in
+                                    core.memory.long_buckets.values()),
+                                watch[0] in core.object_manager.all_obj_ids))
+            tap.frame()
+        return record
+
+    core, saver, timer, run = det_run(drv, args, net, dev, frames, masks,
+                                      infos, after)
+    merge = HostTimer(core_mod, "match_and_merge")
+    purge = HostTimer(core.object_manager, "purge_inactive_objects")
+    ids = HostTimer(core_mod, "argmax_ids")
+    host_ms = {}
+    incorporate = core.incorporate_detection
+
+    def timed_incorporate(*a, **kw):
+        out = incorporate(*a, **kw)
+        host_ms[core.curr_ti] = merge.take() + purge.take()
+        return out
+
+    core.incorporate_detection = timed_incorporate
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ak.reset_launch_counts()
+    tap = KernelTap(ak)
+    try:
+        run()
+    finally:
+        tap.restore()
+        for t in (merge, purge, ids):
+            t.restore()
+    launches = dict(ak.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    assert saver.order == list(range(n_frames)), saver.order
+    assert all(launches[k] > 0 for k in EXACT_PAIR), launches
+    seen7 = [ti for ti, *_, has7 in history if has7]
+    assert not history[-1][-1] and seen7, \
+        f"thing 7 (gone at frame 25) not purged: in the table at {seen7}"
+    det_ti = range(0, n_frames, args.detection_every)
+    ms = dict(zip(saver.order, timer.steps_ms))
+    prop = [ms[ti] for ti in range(10, n_frames) if ti not in det_ti]
+    det = [ms[ti] for ti in det_ti]
+    steady = [ti for ti in det_ti if ti >= 10]
+    med = statistics.median(ms[ti] for ti in steady)
+    host = statistics.median(host_ms[ti] for ti in steady)
+    print(f"phase 6b online detection fusion at {h}x{w}, {n_frames} frames "
+          f"through eval_with_detections_torch.run_video, a detection every "
+          f"{args.detection_every} ({min(len(i) for i in infos)}-"
+          f"{max(len(i) for i in infos)} segments), ms from its StepTimer "
+          f"(CUDA events): propagation frames median "
+          f"{statistics.median(prop):.3f} ms (frames 10+, mean "
+          f"{statistics.mean(prop):.3f}, max {max(prop):.3f}); detection "
+          f"frames median {med:.3f} ms (10+; each: "
+          + ", ".join(f"{m:.1f}" for m in det)
+          + f"), of it on the host in match_and_merge and "
+          f"purge_inactive_objects median {host:.3f} ms, the rest (device "
+          f"work and its launches) {med - host:.3f} ms; device-to-host "
+          f"copies {ids.calls} of forward ids ({h}x{w} uint8 padded), one "
+          f"host-to-device copy of the merged one-hot per detection frame, "
+          f"one of each frame", flush=True)
+    print(f"phase 6b (frame, objects, buckets, o_cap, long-term tokens) at "
+          f"detection frames: {[row[:5] for row in history]}; the object "
+          f"made from thing 7 at frame 0 last in the table at frame "
+          f"{seen7[-1]} (random weights match no detection again, so every "
+          f"object of a detection frame goes after 6 misses); launches "
+          f"{launches}; peak allocated {peak:.1f} MiB", flush=True)
+    return launches, tap.last_frame
+
+
+def phase_detection_semionline(ak, net_cpu, dev, n_frames: int = 20,
+                               h: int = H480, w: int = W480):
+    """Phase 6c: the semi-online setting at 480p through
+    eval_with_detections_torch.run_video at the driver's defaults (3
+    voting frames, a vote every 5) over 20 synthetic frames (seed 32) with
+    detection_clips.detections. Prints the ms per spatial_alignment and its
+    launches (one of each exact kernel), the ms of the host vote (IoU table
+    and integer program: the vote's time less its alignments), the ms of
+    the timed vote-and-incorporate step, and the segments in and selected.
+    Returns the launch counts, those of the alignments, and the exact
+    pair's calls in the last alignment."""
+    gc.collect()
+    frames = synthetic_video(np.random.default_rng(32), h, w, n_frames)
+    from deva_tpu_torch.detection_clips import detections
+    masks, infos = detections(n_frames, h, w)
+    drv, args = det_driver("semionline")
+    net = copy.deepcopy(net_cpu).to(dev)
+    core, saver, timer, run = det_run(drv, args, net, dev, frames, masks,
+                                      infos)
+    align_ms, align_runs, vote_ms, vote_segs, vote_ti = [], [], [], [], []
+    real_align, real_vote = core.spatial_alignment, \
+        core.vote_in_temporary_buffer
+
+    def timed_align(*a):
+        before = dict(ak.LAUNCHES)
+        tap.tag, tap.calls["align"] = "align", []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = real_align(*a)  # a host array: synchronised
+        finally:
+            tap.tag = "memory"
+        align_ms.append((time.perf_counter() - t0) * 1000)
+        align_runs.append({k: ak.LAUNCHES[k] - before[k] for k in before
+                           if ak.LAUNCHES[k] > before[k]})
+        return out
+
+    def timed_vote(*a, **kw):
+        n_align = len(align_ms)
+        t0 = time.perf_counter()
+        out = real_vote(*a, **kw)
+        vote_ms.append((time.perf_counter() - t0) * 1000 -
+                       sum(align_ms[n_align:]))
+        vote_segs.append((sum(len(f.segments_info)
+                              for f in core.frame_buffer), len(out[2])))
+        vote_ti.append(core.frame_buffer[0].ti)
+        return out
+
+    core.spatial_alignment = timed_align
+    core.vote_in_temporary_buffer = timed_vote
+    ak.reset_launch_counts()
+    tap = KernelTap(ak)
+    try:
+        run()
+    finally:
+        tap.restore()
+    torch.cuda.synchronize()
+    launches = dict(ak.LAUNCHES)
+    assert sorted(saver.order) == list(range(n_frames)), saver.order
+    assert align_runs and all(r == dict.fromkeys(EXACT_PAIR, 1)
+                              for r in align_runs), align_runs
+    step_ms = dict(zip(saver.order, timer.steps_ms))
+    print(f"phase 6c semi-online detection fusion at {h}x{w}, {n_frames} "
+          f"frames through eval_with_detections_torch.run_video, "
+          f"{args.num_voting_frames} voting frames, a vote every "
+          f"{args.detection_every}: {len(align_ms)} spatial alignments, "
+          f"median {statistics.median(align_ms):.3f} ms (each: "
+          + ", ".join(f"{m:.1f}" for m in align_ms)
+          + f"), one launch of each exact kernel per alignment; host vote "
+          f"(IoU table and integer program) median "
+          f"{statistics.median(vote_ms):.3f} ms per vote; vote and "
+          f"incorporate, as the driver times them (StepTimer, CUDA events): "
+          + ", ".join(f"{step_ms[ti]:.1f}" for ti in vote_ti)
+          + f" ms; segments in / selected per vote {vote_segs} (random "
+          f"weights align noise, so few or no segments find support: a zero "
+          f"selection is expected); launches {launches}", flush=True)
+    aligned = {k: sum(r.get(k, 0) for r in align_runs) for k in EXACT_PAIR}
+    return launches, aligned, tap.calls["align"]
+
+
+# the unit roundoff of f32
+F32_U = 2.0 ** -24
+
+
+def gamma(n: int) -> float:
+    """The classic bound on the relative error of an f32 sum of n products
+    (Higham's gamma_n = n u / (1 - n u)) against the sum of their absolute
+    values."""
+    return n * F32_U / (1 - n * F32_U)
+
+
+def sim_scale(qk, qe, mk, ms, valid):
+    """[Q, N]: the similarity's terms in absolute value, |qe| . mk^2 +
+    2 |qk qe| . |mk| + sum |qe qk^2|, times |ms| / sqrt(Ck) (without qe,
+    |mk|^2 + 2 |qk| . |mk| + |qk|^2): what the rounding error of an f32
+    evaluation is relative to; 0 on invalid slots."""
+    qk, mk = qk.float(), mk.float()
+    qe = torch.ones_like(qk) if qe is None else qe.float()
+    t = (qe.abs() @ (mk * mk).T + 2 * (qk * qe).abs() @ mk.abs().T
+         + (qe * qk * qk).abs().sum(-1, keepdim=True))
+    if ms is not None:
+        t = t * ms.float().abs()[None]
+    t = t / mk.shape[-1] ** 0.5
+    return t if valid is None else t.masked_fill(~valid[None], 0.0)
+
+
+def check_pair_on_path(ak, sim_args, read_args, label):
+    """The exact pair against its plain twins on arguments the main path
+    gave it. There the keys come from the network and may be large: the
+    similarity sums terms that cancel, so phase 1's absolute budgets on
+    unit-scale inputs do not apply. Each f32 evaluation of a similarity is
+    within gamma(2 Ck + 4) of its terms' scale (sim_scale), so the j-th
+    largest values of the kernel and the twin lie within twice the row's
+    largest such bound (+1e-5) of each other, and so do the kernel's values
+    and the twin's similarity at the kernel's indices; those indices are
+    distinct and valid. Each readout output is a sum of k products: kernel
+    and twin within 2 gamma(k + 1) sum |w| |V| (+1e-6). -> (max |kernel -
+    twin| of each, and its largest share of the bound)."""
+    from deva_tpu_torch.ops import memory_attention as ma
+    qk, qe, mk, ms, valid, k = sim_args
+    gi, w, values = read_args
+    gv, gx = ak.sim_topk(qk, qe, mk, ms, valid, k)
+    rv, _ = ak.sim_topk_plain(qk, qe, mk, ms, valid, k)
+    scale = sim_scale(qk, qe, mk, ms, valid)
+    tol = 2 * gamma(2 * mk.shape[-1] + 4) * scale.amax(-1, keepdim=True) \
+        + 1e-5
+    sim = ma.mask_invalid(ma.get_similarity(mk, ms, qk, qe), valid)
+    both_inf = lambda a, b: torch.isinf(a) & (a == b)
+    d_sorted = torch.where(both_inf(gv, rv), 0.0, (gv - rv).abs())
+    at = sim.gather(-1, gx.long())
+    d_at = torch.where(both_inf(gv, at), 0.0, (gv - at).abs())
+    assert bool((d_sorted <= tol).all()) and bool((d_at <= tol).all()), (
+        f"{label}: sim_topk off its twin by {d_sorted.max().item():.3g} "
+        f"(sorted) / {d_at.max().item():.3g} (at its indices), over "
+        f"{((torch.maximum(d_sorted, d_at)) / tol).max().item():.3g} of "
+        "the f32 bound")
+    srt = gx.sort(-1).values
+    assert bool((srt[:, 1:] != srt[:, :-1]).all()), f"{label}: repeats"
+    if valid is not None and int(valid.sum()) >= gx.shape[-1]:
+        assert bool(valid[gx.long()].all()), f"{label}: invalid slot"
+    segs = tuple(values) if isinstance(values, (tuple, list)) else (values,)
+    out = ak.topk_readout(gi, w, values)
+    ref = ak.topk_readout_plain(gi, w, values)
+    mag = ak.topk_readout_plain(gi, w.abs(), tuple(v.abs() for v in segs)
+                                if len(segs) > 1 else values.abs())
+    rtol = 2 * gamma(gi.shape[-1] + 1) * mag + 1e-6
+    d_read = (out - ref).abs()
+    assert bool((d_read <= rtol).all()), (
+        f"{label}: topk_readout off its twin by {d_read.max().item():.3g}, "
+        f"over {(d_read / rtol).max().item():.3g} of the f32 bound")
+    return ({"sim_topk": d_sorted.max().item(),
+             "topk_readout": d_read.max().item()},
+            {"sim_topk": (torch.maximum(d_sorted, d_at) / tol).max().item(),
+             "topk_readout": (d_read / rtol).max().item()})
+
+
+def det_kernel_rows(ak, apx, dev, suffix, calls, launches, label):
+    """The exact pair on the arguments the main path gave it (`calls`, as
+    KernelTap recorded them): every call held to its plain twin
+    (check_pair_on_path); of the calls with the most value segments
+    ([long-term ; working] read in place), the one with the most work
+    (Q x N) timed beside its plain twin, its bound (phase 1's form, from
+    these inputs), the library call (embedding_bag, on the ring
+    concatenated outside the timing) and cuBLAS's product.
+    -> the kernels line's rows, named with `suffix`, with `launches`."""
+    sims = [a for name, a in calls if name == "sim_topk"]
+    reads = [a for name, a in calls if name == "topk_readout"]
+    assert sims and len(sims) == len(reads), (len(sims), len(reads))
+    err = {name: 0.0 for name in EXACT_PAIR}
+    share = dict(err)
+    for j, (sim_args, read_args) in enumerate(zip(sims, reads)):
+        e, f = check_pair_on_path(ak, sim_args, read_args,
+                                  f"{label}, call {j}")
+        err = {name: max(err[name], e[name]) for name in EXACT_PAIR}
+        share = {name: max(share[name], f[name]) for name in EXACT_PAIR}
+    n_segs = [len(v) if isinstance(v, (tuple, list)) else 1
+              for _, _, v in reads]
+    i = max(range(len(sims)), key=lambda j: (
+        n_segs[j], sims[j][0].shape[-2] * sims[j][2].shape[-2]))
+    (qk, qe, mk, ms, valid, k), (gi, w, values) = sims[i], reads[i]
+    segs = tuple(values) if n_segs[i] > 1 else (values,)
+    ring = torch.cat(segs) if len(segs) > 1 else segs[0]
+    q, ck = qk.shape
+    n, c, kk = mk.shape[0], ring.shape[1], gi.shape[1]
+    nbytes = lambda *ts: sum(t.numel() * t.element_size()
+                             for t in ts if t is not None)
+    rows = int(torch.unique(gi).numel())  # value rows the readout needs
+    bounds = {
+        "sim_topk": bound(4 * q * n * ck, nbytes(qk, qe, mk, ms, valid)
+                          + 8 * q * kk),
+        "topk_readout": bound(2 * q * kk * c, nbytes(gi, w)
+                              + rows * c * ring.element_size() + 4 * q * c)}
+    ops2 = apx.prep2(qk, qe, mk, ms, valid)
+    gl = gi.long()
+    t = {"sim_topk": cuda_ms(lambda: ak.sim_topk(qk, qe, mk, ms, valid, k)),
+         "sim_topk_plain": cuda_ms(lambda: ak.sim_topk_plain(
+             qk, qe, mk, ms, valid, k)),
+         "sim_topk_product": cuda_ms(lambda: torch.mm(ops2.qcat,
+                                                      ops2.mcat.T)),
+         "topk_readout": cuda_ms(lambda: ak.topk_readout(gi, w, values)),
+         "topk_readout_plain": cuda_ms(lambda: ak.topk_readout_plain(
+             gi, w, values)),
+         "topk_readout_library": cuda_ms(
+             lambda: torch.nn.functional.embedding_bag(
+                 gl, ring, mode="sum", per_sample_weights=w))}
+    shape = (f"Q={q} N={n} C={c} ({len(segs)} segment"
+             f"{'s' if len(segs) > 1 else ''})")
+    print(f"phase 6 kernels, {label}, {len(sims)} calls of each held to "
+          f"the plain twins (value segments per call {n_segs}); timed at "
+          f"{shape}, the largest with the most segments: ms "
+          + ", ".join(f"{name} {v:.4f}" for name, v in t.items())
+          + "; bound ms " + ", ".join(f"{name} {b:.4f} ({by})"
+                                      for name, (b, by) in bounds.items())
+          + f"; readout rows {rows}; max |kernel - twin| {err}, at most "
+          + ", ".join(f"{name} {v:.3g}" for name, v in share.items())
+          + f" of the f32 bound; launches {launches}",
+          flush=True)
+    out_rows = []
+    for name in EXACT_PAIR:
+        src, tpu = KERNELS[name]
+        bound_ms, bound_by = bounds[name]
+        out_rows.append({
+            "name": name + suffix, "ring_dtype": str(ring.dtype)[6:],
+            "route": "cuda", "source": src, "replaces": tpu,
+            "launches": launches[name], "shape": shape,
+            "max_abs_err": err[name], "ms": t[name],
+            "plain_ms": t[name + "_plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": t.get(name + "_library"),
+            "product_ms": t.get(name + "_product")})
+    return out_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1632,6 +2375,17 @@ def main() -> int:
         {"exact": (probs_exact, single_exact),
          "approx": (probs_approx, single_approx)})
     del probs_exact, probs_approx
+    phase_detection_parity(ak, net_cpu, dev)
+    launches6b, memory_calls = phase_detection_online(ak, net_cpu, dev)
+    launches6c, aligned, align_calls = phase_detection_semionline(
+        ak, net_cpu, dev)
+    det_rows = det_kernel_rows(
+        ak, apx, dev, ".det", memory_calls,
+        {k: launches6b[k] + launches6c[k] - aligned[k] for k in EXACT_PAIR},
+        "6b's last frame (composed match_memory)")
+    del memory_calls
+    det_rows += det_kernel_rows(ak, apx, dev, ".det.align", align_calls,
+                                aligned, "6c's last spatial alignment")
 
     rows = []
     for ring, res_exact, res_approx, run_exact, run_approx, suffix in (
@@ -1661,6 +2415,7 @@ def main() -> int:
                 row.update(videos=B4,
                            singles_ms=main_shape[name + "_singles"])
             rows.append(row)
+    rows += det_rows
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": rows}))

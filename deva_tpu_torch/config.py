@@ -81,8 +81,8 @@ class InferenceConfig:
     # image sizing: resize shorter side to `size` (-1 keeps original)
     size: int = 480
 
-    # detection-fusion knobs (kept for flat_config parity; detection fusion
-    # is not ported yet)
+    # detection fusion (InferenceCore.incorporate_detection and
+    # evaluation/eval_with_detections_torch.py)
     max_missed_detection_count: int = 10
     max_num_objects: int = -1
     detection_every: int = 5

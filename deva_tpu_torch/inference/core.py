@@ -1,7 +1,7 @@
 """InferenceCore: the stateful per-video propagation engine.
 
-Port of deva_tpu/inference/core.py (`step` and what it needs). Host-side
-orchestration around the model's four modes and the memory engine:
+Port of deva_tpu/inference/core.py. Host-side orchestration around the
+model's four modes and the memory engine:
 
   - the object axis is padded to a bucket size; a `selector` zeroes the
     padded slots inside `segment`;
@@ -12,7 +12,18 @@ orchestration around the model's four modes and the memory engine:
 `step` takes the fused step (inference/fused_step.py) for a plain
 propagation frame, under deva_tpu's eligibility rules, and the composed path
 otherwise; `step_chunk` steps a memory period per call through the fused
-block body. Not ported yet: object-axis sharding and detection fusion.
+block body.
+
+Detection fusion (deva_tpu/inference/core.py:501-627): `spatial_alignment`
+projects a frame's segments onto another frame (encode mask -> attention over
+the source frame's tokens -> decode; exact attention launches the sim_topk
+and topk_readout kernels on a CUDA device), `vote_in_temporary_buffer` runs
+the in-clip consensus over the buffered frames (inference/consensus.py, on
+the host but for the alignments), and `incorporate_detection` merges a
+detection mask into the tracked objects (inference/segment_merging.py on the
+host, with the forward prediction handed over as argmax ids), purges the
+objects missed too often and writes the merged mask to memory. Not ported
+yet: object-axis sharding (deva_tpu's obj_mesh).
 
 Frames enter as f32 in every configuration (the model's first conv casts
 them to its compute dtype, as deva_tpu's does); the probabilities and
@@ -23,16 +34,21 @@ from __future__ import annotations
 import warnings
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from deva_tpu_torch.config import InferenceConfig
+from deva_tpu_torch.inference.consensus import \
+    find_consensus_auto_association
 from deva_tpu_torch.inference.feature_store import ImageFeatureStore
 from deva_tpu_torch.inference.fused_step import FusedStepper
-from deva_tpu_torch.inference.memory import MemoryEngine
+from deva_tpu_torch.inference.memory import MemoryEngine, attend
+from deva_tpu_torch.inference.object_info import ObjectInfo
 from deva_tpu_torch.inference.object_manager import ObjectManager
+from deva_tpu_torch.inference.segment_merging import match_and_merge
 from deva_tpu_torch.models.network import DEVANetwork
-from deva_tpu_torch.ops.aggregate import aggregate_logits
+from deva_tpu_torch.ops.aggregate import aggregate_logits, argmax_ids
 from deva_tpu_torch.ops.pad import pad_divide_by, unpad
 
 
@@ -60,11 +76,20 @@ class InferenceCore:
             self.model.encode_image, self.model.transform_key)
         self.last_mask: Optional[torch.Tensor] = None  # [O_cap, H, W] probs
         self.pad: Tuple[int, int, int, int] = (0, 0, 0, 0)
+        self.frame_buffer: List = []  # online/semi-online buffering
+        self.next_voting_frame = config.num_voting_frames - 1
         self._fused = FusedStepper(self.model, config.top_k,
                                    topk_method=config.topk_method,
                                    preencode_blocks=config.preencode_blocks)
 
     # -- object-slot management -------------------------------------------
+
+    def enabled_long_id(self) -> None:
+        self.object_manager.use_long_id = True
+
+    @property
+    def use_long_id(self) -> bool:
+        return self.object_manager.use_long_id
 
     def _ensure_capacity(self) -> None:
         """(Re)size the padded object axis to hold num_obj slots."""
@@ -88,6 +113,14 @@ class InferenceCore:
     def _selector(self) -> torch.Tensor:
         n = self.object_manager.num_obj
         return (torch.arange(self.o_cap, device=self.device) < n).float()[None]
+
+    def _image_nchw(self, image):
+        """[H, W, 3] frame (numpy or tensor) -> padded [1, 3, H', W'] on the
+        device, and the pad amounts."""
+        image = torch.as_tensor(image, dtype=torch.float32,
+                                device=self.device)
+        image, pad = pad_divide_by(image.permute(2, 0, 1), 16, -2, -1)
+        return image[None], pad
 
     def _pad_objects(self, x: torch.Tensor) -> torch.Tensor:
         """Zero-pad the object axis (dim 0) of [O, H, W] to o_cap."""
@@ -174,8 +207,7 @@ class InferenceCore:
         if fused is not None:
             return fused
 
-        image, self.pad = pad_divide_by(image.permute(2, 0, 1), 16, -2, -1)
-        image = image[None]
+        image, self.pad = self._image_nchw(image)
 
         need_segment = (mask is None) or (
             self.object_manager.num_obj > 0
@@ -352,3 +384,132 @@ class InferenceCore:
 
         logits = aggregate_logits(merged, axis=0)
         return torch.softmax(logits, dim=0)
+
+    # -- consensus / detection fusion --------------------------------------
+
+    @torch.no_grad()
+    def spatial_alignment(self, src_ti: int, src_image, src_mask, tar_ti: int,
+                          tar_image) -> np.ndarray:
+        """Project src_mask [O, H, W] (one-hot float) from the src frame onto
+        the target frame. The frames are [H, W, 3], already padded to /16.
+        From a fresh zero sensory: encode the mask on the source frame (deep
+        update), attend the target's query over the source frame's tokens,
+        and decode without a sensory update, under a selector of
+        cfg.pad_objects(O) slots. Returns [1 + O, H, W] probabilities
+        (numpy, f32)."""
+        o = src_mask.shape[0]
+        o_pad = self.cfg.pad_objects(o)
+        src_mask = torch.as_tensor(np.asarray(src_mask, np.float32),
+                                   device=self.device)
+        src_mask = F.pad(src_mask, (0, 0, 0, 0, 0, o_pad - o))
+        selector = (torch.arange(o_pad, device=self.device) < o).float()[None]
+        src_image, _ = self._image_nchw(src_image)
+        tar_image, _ = self._image_nchw(tar_image)
+        src_ms, src_key, src_shr, _ = self.image_feature_store.get_features(
+            src_ti, src_image)
+        tar_ms, tar_key, _, tar_sel = self.image_feature_store.get_features(
+            tar_ti, tar_image)
+
+        hq, wq = src_key.shape[-2:]
+        sensory = torch.zeros((1, o_pad, self._mc.value_dim, hq, wq),
+                              device=self.device)
+        value, sensory = self.model.encode_mask(
+            src_image, src_ms[0], sensory, src_mask[None], deep_update=True)
+        mk, ms = _tokens(src_key), src_shr[0].flatten()
+        if mk.dtype != ms.dtype:  # the kernels take one dtype for both
+            mk, ms = mk.float(), ms.float()
+        values = value[0].flatten(2).permute(2, 0, 1).contiguous()  # [HW,O,Cv]
+        readout = attend(self.cfg.resolve_topk_method() == "approx", mk, ms,
+                         values, _tokens(tar_key), _tokens(tar_sel),
+                         self.cfg.top_k)
+        readout = readout.transpose(1, 2).reshape(1, o_pad, -1, hq, wq)
+        _, _, prob = self.model.segment(tar_ms, readout, sensory,
+                                        src_mask[None], selector=selector,
+                                        update_sensory=False)
+        return prob[0, :o + 1].cpu().numpy()
+
+    def vote_in_temporary_buffer(self, keyframe_selection: str = "first",
+                                 precomputed_proj=None):
+        """In-clip consensus over the buffered frames (inference/consensus.py).
+        Returns (keyframe ti, consensus id mask, its ObjectInfos)."""
+        return find_consensus_auto_association(
+            self.frame_buffer, self, keyframe_selection=keyframe_selection,
+            precomputed_proj=precomputed_proj)
+
+    @torch.no_grad()
+    def incorporate_detection(self, image, new_mask: np.ndarray,
+                              segments_info: List[ObjectInfo], *,
+                              image_ti_override: Optional[int] = None,
+                              forward_mask: Optional[np.ndarray] = None,
+                              incremental: bool = False) -> torch.Tensor:
+        """Merge an image-level detection mask (real ids, [H, W]) into the
+        propagated state. forward_mask, if given, is the forward prediction
+        in tmp ids in unpadded space; otherwise the core predicts it (when
+        its memory is engaged). Returns aggregated logits [1 + num_obj, H,
+        W] on the core's device, unpadded."""
+        self.curr_ti += 1
+        image_ti = self.curr_ti if image_ti_override is None else \
+            image_ti_override
+        image, self.pad = self._image_nchw(image)
+        lw, uw, lh, uh = self.pad
+        new_mask = np.pad(np.asarray(new_mask), ((lh, uh), (lw, uw)))
+
+        ms_features, key, shrinkage, selection = \
+            self.image_feature_store.get_features(image_ti, image)
+        if self.memory is None:
+            self._ensure_capacity()
+
+        if forward_mask is None:
+            if self.memory.engaged:
+                prob = self._segment(key, shrinkage, selection, ms_features)
+                forward_mask = argmax_ids(
+                    prob[:self.object_manager.num_obj + 1])
+            else:
+                forward_mask = np.zeros_like(new_mask)
+        else:
+            forward_mask = np.asarray(forward_mask)
+            if forward_mask.shape != new_mask.shape:
+                forward_mask = np.pad(forward_mask, ((lh, uh), (lw, uw)))
+
+        merged = match_and_merge(forward_mask, new_mask, self.object_manager,
+                                 segments_info,
+                                 max_num_objects=self.cfg.max_num_objects,
+                                 incremental_mode=incremental)
+
+        purged, tmp_keep, obj_keep = \
+            self.object_manager.purge_inactive_objects(
+                self.cfg.max_missed_detection_count)
+        if purged:
+            self.memory.purge_except(obj_keep)
+            rows = [t - 1 for t in tmp_keep]
+            merged = merged[rows]
+            if self.memory.sensory is not None:
+                # the kept rows first, in order; zeros after. An object that
+                # match_and_merge added in this frame may have a row beyond
+                # the sensory's: it reads the last row, as deva_tpu's gather
+                # clamps (its jnp indexing, core.py:595-603)
+                keep = torch.as_tensor(rows + [0] * (self.o_cap - len(rows)),
+                                       device=self.device)
+                keep = keep.clamp(max=self.memory.sensory.shape[0] - 1)
+                kept = (torch.arange(self.o_cap, device=self.device)
+                        < len(rows))[:, None, None, None]
+                self.memory.sensory = torch.where(
+                    kept, self.memory.sensory[keep], 0.0)
+
+        self._ensure_capacity()
+        merged = torch.from_numpy(merged).to(self.device)
+        self.last_mask = self._pad_objects(merged)
+        self._add_memory(image, ms_features, self.last_mask, key, shrinkage,
+                         selection)
+        self.image_feature_store.delete(image_ti)
+        return unpad(aggregate_logits(merged, axis=0), self.pad, -2, -1)
+
+    # -- online/semi-online buffering ---------------------------------------
+
+    def add_to_temporary_buffer(self, frame_info) -> None:
+        self.frame_buffer.append(frame_info)
+
+    def clear_buffer(self) -> None:
+        for f in self.frame_buffer:
+            self.image_feature_store.delete(f.ti)
+        self.frame_buffer = []

@@ -185,6 +185,23 @@ class LongTermBucket(Bucket):
                          save_usage=save_usage, dtype=dtype, device=device)
 
 
+def attend(approx: bool, mk, ms, values, qk, qe, top_k: int, valid=None,
+           return_usage: bool = False):
+    """The composed path's attention, by the port's one dispatch rule
+    (config.resolve_topk_method): exact through attention_kernels.
+    attend_topk (on a CUDA device, the sim_topk and topk_readout kernels),
+    approx through the dense threshold form of memory_attention, as
+    deva_tpu's memory.py does. values [N, O, Cv] token-major, or the pair of
+    [long-term ; working] value rings, which the exact kernels read in place
+    -> [O, Q, Cv] (and usage [N])."""
+    if approx:
+        if isinstance(values, tuple):  # the dense form reads one ring
+            values = torch.cat(values)
+        return ma.attend(mk, ms, values.transpose(0, 1), qk, qe, top_k,
+                         valid, return_usage, method="approx")
+    return attend_topk(mk, ms, values, qk, qe, top_k, valid, return_usage)
+
+
 def valid_mask(cap: int, size: int, device) -> torch.Tensor:
     return torch.arange(cap, device=device) < size
 
@@ -367,20 +384,6 @@ class MemoryEngine:
         lt.map_rings(lambda arr: arr[idx])
         lt.size = int(survived.sum())
 
-    def _attend(self, mk, ms, values, qk, qe, top_k: int, valid,
-                return_usage: bool = False):
-        """The composed path's attention (see the module docstring). values
-        [N, O, Cv] token-major, or the pair of [long-term ; working] value
-        rings, which the exact kernels read in place -> [O, Q, Cv] (and
-        usage [N])."""
-        if self.approx:
-            if isinstance(values, tuple):  # the dense form reads one ring
-                values = torch.cat(values)
-            return ma.attend(mk, ms, values.transpose(0, 1), qk, qe, top_k,
-                             valid, return_usage, method="approx")
-        return attend_topk(mk, ms, values, qk, qe, top_k, valid,
-                           return_usage)
-
     def match_memory(self, qk: torch.Tensor, qe: torch.Tensor,
                      obj_rows: Dict[int, int]) -> torch.Tensor:
         """qk/qe: [HW, Ck]. obj_rows: obj id -> global tmp row.
@@ -392,8 +395,8 @@ class MemoryEngine:
             lt = self.long_buckets.get(bid)
             if self.use_long_term and lt is not None and lt.size > 0:
                 lt_valid = valid_mask(lt.cap, lt.size, self.device)
-                rd, usage = self._attend(
-                    torch.cat([lt.key, b.key]),
+                rd, usage = attend(
+                    self.approx, torch.cat([lt.key, b.key]),
                     torch.cat([lt.shrinkage, b.shrinkage]),
                     (lt.value, b.value), qk, qe, self.top_k,
                     valid=torch.cat([lt_valid, valid]), return_usage=True)
@@ -401,13 +404,13 @@ class MemoryEngine:
                 if self.count_long_term_usage:
                     count_usage(lt, usage[:lt.cap], lt_valid)
             elif self.use_long_term:
-                rd, usage = self._attend(b.key, b.shrinkage, b.value, qk, qe,
-                                         self.top_k, valid=valid,
-                                         return_usage=True)
+                rd, usage = attend(self.approx, b.key, b.shrinkage, b.value,
+                                   qk, qe, self.top_k, valid=valid,
+                                   return_usage=True)
                 count_usage(b, usage, valid)
             else:
-                rd = self._attend(b.key, b.shrinkage, b.value, qk, qe,
-                                  self.top_k, valid=valid)
+                rd = attend(self.approx, b.key, b.shrinkage, b.value, qk, qe,
+                            self.top_k, valid=valid)
             rows = [obj_rows[o] for o in b.obj_ids]
             out[rows] = rd[:len(rows)]
         return out

@@ -11,8 +11,12 @@ through step (--chunk 1) or step_chunk in chunks of --chunk frames (with
 in lockstep through inference/batched.py's BatchedPropagator instead
 (video 0 the frames above, the others seeded apart): the first frame
 through initialize, the others through step_all (--chunk 1) or step_block
-by --chunk. Prints every frame's wall time (a chunk's time shared by its
-frames; with --batch, the time of one lockstep step of all B videos), and
+by --chunk. With --detections, the online detection-fusion path of
+chip_smoke.py phase 6b instead: InferenceCore.incorporate_detection every
+5th frame with 12 VIPSeg-style segments (detection_clips.detections),
+step otherwise, max_missed_detection_count 5. Prints every frame's wall time (a chunk's
+time shared by its frames; with --batch, the time of one lockstep step of
+all B videos), and
 traces the last --window frames (whole chunks) with torch.profiler: device
 time per layer (the model's four modes and the memory attention, as
 profiler ranges), device time per kernel, the device's busy share of the
@@ -22,6 +26,7 @@ window's wall time, and the peak allocated device memory of the run.
         --topk_method approx --chunk 5 --trace step_trace.json
     python -m deva_tpu_torch.profile_step --amp --topk_method approx --chunk 5
     python -m deva_tpu_torch.profile_step --batch 4 [--amp]
+    python -m deva_tpu_torch.profile_step --detections
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from deva_tpu_torch.config import InferenceConfig, ModelConfig
+from deva_tpu_torch.detection_clips import detections
 from deva_tpu_torch.inference.batched import BatchedPropagator
 from deva_tpu_torch.inference.core import InferenceCore
 from deva_tpu_torch.models.network import DEVANetwork, init_weights
@@ -85,9 +91,14 @@ def main():
     ap.add_argument("--batch", type=int, default=1,
                     help="videos in lockstep (BatchedPropagator); 1 = the "
                     "single-stream InferenceCore")
+    ap.add_argument("--detections", action="store_true",
+                    help="online detection fusion (chip_smoke.py phase 6b) "
+                    "in place of the two-object VOS path")
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the window here")
     args = ap.parse_args()
+    if args.detections and (args.batch > 1 or args.chunk > 1):
+        raise SystemExit("--detections runs one video, frame by frame")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
@@ -116,7 +127,7 @@ def main():
     for mode in LAYERS[:4]:
         setattr(net, mode, _labeled(getattr(net, mode), mode))
     cfg = InferenceConfig(
-        topk_method=args.topk_method,
+        topk_method=args.topk_method, max_missed_detection_count=5,
         preencode_blocks=args.preencode_blocks,
         ring_dtype=args.ring_dtype or ("bfloat16" if args.amp else "auto"))
     if args.batch > 1:
@@ -129,6 +140,11 @@ def main():
         core._fused._attend_rings = _labeled(core._fused._attend_rings,
                                              "attention")
     frames0 = frames[0]
+    if args.detections:
+        from deva_tpu_torch.inference.object_utils import \
+            convert_json_dict_to_objects_info
+        det_masks, det_infos = detections(args.frames, h, w)
+        core.object_manager._rng = np.random.default_rng(5)
 
     # frame 0 takes the mask; then runs of --chunk frames
     runs = [(0, 1)] + [(i, min(args.chunk, args.frames - i))
@@ -145,7 +161,13 @@ def main():
             core.memory.match_memory = _labeled(core.memory.match_memory,
                                                 "attention")
         t0 = time.perf_counter()
-        if args.batch > 1:
+        if args.detections and i % 5 == 0:
+            core.incorporate_detection(
+                frames0[i], det_masks[i], convert_json_dict_to_objects_info(
+                    det_masks[i], det_infos[i], dataset="vipseg"))
+        elif args.detections:
+            core.step(frames0[i])
+        elif args.batch > 1:
             if i == 0:
                 core.initialize(frames[:, 0], [mask] * args.batch,
                                 [[1, 2]] * args.batch)

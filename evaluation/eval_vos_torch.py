@@ -56,6 +56,19 @@ def make_parser() -> ArgumentParser:
     parser.add_argument("--dataset", help="D16/D17/G", default="D17")
     parser.add_argument("--split", help="val/test", default="val")
     parser.add_argument("--use_all_masks", action="store_true")
+    parser.add_argument("--chunk", type=int, default=1,
+                        help="process maskless stretches in blocks of up to "
+                        "N frames via InferenceCore.step_chunk; 1 = "
+                        "per-frame stepping")
+    add_common_args(parser)
+    return parser
+
+
+def add_common_args(parser: ArgumentParser) -> None:
+    """The flags every port driver takes (deva_tpu's add_common_eval_args,
+    deva_tpu/inference/eval_args.py, without its object sharding and
+    profiler): weights, output, device and dtypes, model dims, memory and
+    attention."""
     parser.add_argument("--model", default="./saves/DEVA-propagation.pth")
     parser.add_argument("--output", default=None)
     parser.add_argument("--save_all", action="store_true",
@@ -87,10 +100,6 @@ def make_parser() -> ArgumentParser:
                         help="r in XMem; increase to improve speed")
     parser.add_argument("--size", type=int, default=480,
                         help="Resize shorter side to this; -1 keeps original")
-    parser.add_argument("--chunk", type=int, default=1,
-                        help="process maskless stretches in blocks of up to "
-                        "N frames via InferenceCore.step_chunk; 1 = "
-                        "per-frame stepping")
     parser.add_argument("--topk_method", default="auto",
                         choices=["auto", "exact", "approx"],
                         help="top-k selection: exact (reference parity) or "
@@ -99,7 +108,6 @@ def make_parser() -> ArgumentParser:
     parser.add_argument("--use_pallas_attention", action="store_true",
                         help="accepted for eval_vos.py parity; the port's "
                         "attention route is set by --topk_method alone")
-    return parser
 
 
 def get_args(argv=None):
@@ -192,12 +200,14 @@ def save_mask(out_mask: np.ndarray, palette, out_dir: str, frame: str):
 class StepTimer:
     """Device time of the timed steps: CUDA events on a CUDA device (summed
     after one synchronize per step), the host clock on the CPU. A step
-    counts one frame, or n after frames_of(n)."""
+    counts one frame, or n after frames_of(n). steps_ms keeps each step's
+    milliseconds in order."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.total_s = 0.0
         self.frames = 0
+        self.steps_ms = []
         self._count = 1
 
     def frames_of(self, n: int) -> "StepTimer":
@@ -217,9 +227,11 @@ class StepTimer:
         if self.cuda:
             self._end.record()
             self._end.synchronize()
-            self.total_s += self._start.elapsed_time(self._end) / 1000.0
+            ms = self._start.elapsed_time(self._end)
         else:
-            self.total_s += time.perf_counter() - self._t0
+            ms = (time.perf_counter() - self._t0) * 1000.0
+        self.steps_ms.append(ms)
+        self.total_s += ms / 1000.0
         self.frames += self._count
         self._count = 1
         return False

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from deva_tpu_torch import detection_clips as dc
 from deva_tpu_torch.ops import approx_kernels as apx
 from deva_tpu_torch.ops import attention_kernels as ak
 
@@ -30,7 +31,10 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    # true f32 matmuls and convolutions, as chip_smoke.py and the drivers
+    # run them (the card-vs-CPU tests of the slice need them)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -840,3 +844,89 @@ def test_batched_attend_is_one_launch_of_each_kernel(dev, method):
     assert out.shape == (3, 2, 300, 512)
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(usage, ref_usage, rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# detection fusion on the card
+# --------------------------------------------------------------------------
+
+def _detection_cores(dev, **over):
+    import copy
+    from deva_tpu_torch.config import InferenceConfig
+    from deva_tpu_torch.inference.core import InferenceCore
+    from deva_tpu_torch.models.network import DEVANetwork, init_weights
+    net = init_weights(DEVANetwork(), seed=0).eval()
+    cfg = InferenceConfig(**dict(dict(mem_every=2, top_k=8,
+                                      enable_long_term=False,
+                                      max_missed_detection_count=2), **over))
+    cpu = InferenceCore(net, cfg)
+    gpu = InferenceCore(copy.deepcopy(net).to(dev), cfg)
+    for core in (cpu, gpu):
+        core.object_manager._rng = np.random.default_rng(5)
+    return cpu, gpu
+
+
+@pytest.mark.parametrize("top_k", [8, 30])
+def test_spatial_alignment_on_the_card_matches_the_cpu(dev, top_k):
+    """One alignment launches sim_topk and topk_readout once each (with
+    top_k 30 > the 24 tokens of a 64x96 frame as well), within 5e-3 of
+    the CPU."""
+    frames, masks, infos = dc.small_clip(np.random.default_rng(4), 3)
+    cpu, gpu = _detection_cores(dev, top_k=top_k)
+    one_hot = np.stack([masks[0] == d["id"] for d in infos[0]]
+                       ).astype(np.float32)
+    ak.reset_launch_counts()
+    p_gpu = gpu.spatial_alignment(0, frames[0], one_hot, 2, frames[2])
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ak.LAUNCHES.items() if v} == \
+        {"sim_topk": 1, "topk_readout": 1}, ak.LAUNCHES
+    p_cpu = cpu.spatial_alignment(0, frames[0], one_hot, 2, frames[2])
+    assert p_gpu.shape == p_cpu.shape == (len(one_hot) + 1, 64, 96)
+    np.testing.assert_allclose(p_gpu, p_cpu, atol=5e-3)
+
+
+@pytest.mark.parametrize("perfect", [False, True])
+def test_online_incorporate_and_purge_on_the_card_match_the_cpu(dev,
+                                                                perfect):
+    """incorporate_detection every other frame over 8 frames (segment 4
+    purged at frame 6) on the card against the CPU: equal object tables
+    and buckets; propagated frames and forward predictions within 5e-3.
+    The cores predict the forward mask: a detection frame may differ beyond
+    5e-3 only where the two forward predictions have another argmax (the
+    painted id differs there), on at most 5% of the frame (chip_smoke.py's
+    DET_FLIP_SHARE, which says why). perfect: the
+    forward mask is detection_clips.perfect_forward, nothing on the host
+    depends on a device output, and every frame and every sensory row is
+    within 5e-3."""
+    frames, masks, infos = dc.small_clip(np.random.default_rng(4), 8)
+    cpu, gpu = _detection_cores(dev)
+    for ti, img in enumerate(frames):
+        if ti % 2:
+            diff = (gpu.step(img).cpu() - cpu.step(img)).abs().max().item()
+            assert diff <= 5e-3, (ti, diff)
+            continue
+        out = []
+        ak.reset_launch_counts()
+        for core in (cpu, gpu):
+            kw = {"forward_mask": dc.perfect_forward(core, masks[ti])} \
+                if perfect else {}
+            out.append(dc.incorporate_seen(core, img, masks[ti],
+                                           dc.segment_infos(infos[ti]),
+                                           **kw))
+        (l_cpu, f_cpu), (l_gpu, f_gpu) = out
+        if f_cpu is not None:
+            np.testing.assert_allclose(f_gpu, f_cpu, atol=5e-3)
+        dc.check_detection_frame(torch.softmax(l_cpu, 0),
+                                 torch.softmax(l_gpu, 0),
+                                 dc.paint_flips(f_cpu, f_gpu), 5e-3, 0.05,
+                                 f"frame {ti}")
+        assert dc.object_table(gpu) == dc.object_table(cpu), ti
+        if ti and not perfect:  # the forward prediction ran the kernels
+            assert ak.LAUNCHES["sim_topk"] > 0 and \
+                ak.LAUNCHES["topk_readout"] > 0, ak.LAUNCHES
+    assert 4 not in [row[0] for row in dc.object_table(gpu)]
+    assert [b.obj_ids for b in gpu.memory.buckets.values()] == \
+        [b.obj_ids for b in cpu.memory.buckets.values()]
+    if perfect:
+        diff = (gpu.memory.sensory.cpu() - cpu.memory.sensory).abs().max()
+        assert diff.item() <= 5e-3, diff

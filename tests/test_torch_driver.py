@@ -135,9 +135,12 @@ def test_eval_vos_torch_refuses_missing_cuda(tmp_path):
 
 def test_port_imports_without_jax_or_pil():
     """The port runs where neither jax nor PIL is installed: importing every
-    module of deva_tpu_torch, and the batched driver
+    module of deva_tpu_torch (the detection-fusion modules, the copied
+    readers, saver and VIPSeg metrics among them), the batched driver
     (evaluation/eval_vos_batched_torch.py, by path, which also loads
-    eval_vos_torch.py), with both blocked must work."""
+    eval_vos_torch.py) and the detection driver
+    (evaluation/eval_with_detections_torch.py), with both blocked must
+    work."""
     code = """
 import sys
 sys.modules['jax'] = None
@@ -153,6 +156,16 @@ spec = importlib.util.spec_from_file_location(
 driver = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(driver)
 assert callable(driver.run_group) and callable(driver.run_sequential)
+spec = importlib.util.spec_from_file_location(
+    'eval_with_detections_torch', 'evaluation/eval_with_detections_torch.py')
+det = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(det)
+assert callable(det.run_video) and callable(det.main)
+for name in ('deva_tpu_torch.inference.consensus',
+             'deva_tpu_torch.inference.result_saver',
+             'deva_tpu_torch.metrics.eval_vpq_vipseg',
+             'deva_tpu_torch.data.vps_test_datasets'):
+    assert name in names, name
 assert not any(m == 'deva_tpu' or m.startswith(('deva_tpu.', 'jax', 'flax'))
                for m in sys.modules if sys.modules[m] is not None), \\
     sorted(m for m in sys.modules if m.startswith(('deva_tpu.', 'jax')))
