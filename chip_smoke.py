@@ -3,9 +3,10 @@ this checkout and drives the port's main paths (semi-supervised VOS
 propagation through InferenceCore.step with exact top-k, and through
 InferenceCore.step_chunk with threshold-approx top-k; four videos in
 lockstep through BatchedPropagator; detection fusion through
-InferenceCore.incorporate_detection and vote_in_temporary_buffer) on the
-card, in f32 and in deva_tpu's serving dtypes (bf16 compute, bf16 memory
-rings).
+InferenceCore.incorporate_detection and vote_in_temporary_buffer, and four
+detection or mid-stream videos in lockstep through
+BatchedDetectionPropagator) on the card, in f32 and in deva_tpu's serving
+dtypes (bf16 compute, bf16 memory rings).
 
     python3 chip_smoke.py
 
@@ -118,6 +119,32 @@ tests/test_amp.py's whole-clip budget against the f32 run, frame by frame.
    weights each detection frame opens a bucket whose objects are purged
    after 6 misses, before it holds the 10 memory frames that start
    long-term memory: 6b's calls each read one segment.
+7. Batched detection fusion and mid-stream VOS
+   (inference/batched_detection.py: every (video, bucket) pair on the
+   kernels' video axis, one launch of each kernel of the method per
+   lockstep frame). 7a: card against CPU at 64x96 (two clips of
+   tests/test_batched_detection.py's kind, video 1 opening a bucket at
+   the second detection): online through step_all and step_block, exact
+   and approx, long-term memory off and on (detection_clips.
+   online_lockstep); semi-online through eval_with_detections_batched_
+   torch.run_group (align_consensus_batched); frames within DET_TOL but
+   where the forward predictions paint another id (<= DET_FLIP_SHARE),
+   alignment ids equal but where the CPU's top two channels tie within
+   ALIGN_TIE; a perfect forward mask strict, sensory rows too; the
+   card's batched runs within tests/test_batched_detection.py's budgets
+   of its sequential runs. 7b:
+   four 480p videos of online detection fusion (4 segments a detection,
+   BDET_SEGMENTS) through eval_with_detections_batched_torch.
+   run_group_online, 60 frames: ms per lockstep propagation frame and
+   detection step (host part apart), objects, buckets, S, o_slot and o_cap
+   over time, device-to-host copies, launches, peak memory. 7c: four 480p
+   mid-stream VOS videos (a third object at frame MID_THIRD_AT[v])
+   through eval_vos_batched_torch.run_group_midstream, exact then approx,
+   with lockstep consolidation (one call over two pairs at least); each
+   video held to its own sequential card run.
+   The exact pair on 7b's and 7c's last lockstep frame, and the approx
+   pair on 7c's, held to the twins on those arguments (the batched launch
+   bitwise each pair's own launch) and timed: rows `.bdet` and `.bmid`.
 
 The second-to-last line of output is a JSON object with each kernel's
 launches (phase 3 for the exact pair, phase 4 for the approx pair), largest
@@ -132,7 +159,9 @@ pair on the detection path, timed on the arguments the path gave it: at
 6b's last frame (names suffixed ".det", launches of 6b and 6c outside the
 alignments) and at 6c's last alignment (Q = N = 1620, C = 16 x 512; names
 suffixed ".det.align", launches of the alignments), each with its
-"shape"; the last line is
+"shape", and for the batched detection path (".bdet": the exact pair at
+7b's last lockstep frame, launches of 7b; ".bmid": both pairs at 7c's,
+launches of 7c); the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
 from __future__ import annotations
@@ -1925,14 +1954,15 @@ class DetReader:
 
 
 class DetSaver:
-    """run_video's result saver for phase 6: writes nothing. Checks each
-    frame's output (finite, [1 + objects, H, W]; a propagated frame's
-    probabilities sum to 1), keeps the frame order, and calls after(ti)."""
+    """run_video's result saver for phases 6 and 7: writes nothing. Checks
+    each frame's output (finite, [1 + objects, H, W]; a propagated frame's
+    probabilities sum to 1), keeps the frame order (and with keep, each
+    frame's output on the host in `kept`), and calls after(ti)."""
 
-    def __init__(self, core, detection_frame, after=None):
+    def __init__(self, core, detection_frame, after=None, keep=False):
         self.core, self.detection_frame, self.after = \
             core, detection_frame, after
-        self.order = []
+        self.order, self.kept = [], {} if keep else None
 
     def save_mask(self, prob, frame, need_resize=False, shape=None,
                   path_to_image=None):
@@ -1944,6 +1974,8 @@ class DetSaver:
         if not self.detection_frame(ti):  # logits on detection frames
             torch.testing.assert_close(prob.sum(0), torch.ones_like(
                 prob[0]), rtol=0, atol=1e-4)
+        if self.kept is not None:
+            self.kept[ti] = prob.cpu().numpy()
         if self.after is not None:
             self.after(ti)
 
@@ -2314,6 +2346,956 @@ def det_kernel_rows(ak, apx, dev, suffix, calls, launches, label):
     return out_rows
 
 
+# --------------------------------------------------------------------------
+# phase 7: batched detection fusion and mid-stream VOS
+# --------------------------------------------------------------------------
+
+# phase 7a's long-term configuration at 64x96 (24 tokens a frame):
+# consolidation at 4 writes, 8 prototypes
+BDET_LT = dict(enable_long_term=True, enable_long_term_count_usage=True,
+               max_mid_term_frames=4, min_mid_term_frames=2,
+               num_prototypes=8)
+# tests/test_batched_detection.py's budgets, a batched video against its
+# sequential run: pixels beyond 5e-3 (or argmax flips) on at most 2% of a
+# frame up to frame 5, then 5% (6% with long-term memory)
+BDET_BUDGET = (0.02, 0.05, 0.06)
+# phase 7a: where the CPU's top two channels of an alignment lie within
+# this, the card's id may differ
+ALIGN_TIE = 3e-3
+# phase 7b/7c: videos in one lockstep group, and 7b's segments a detection
+# frame (4, not 6b's 12: four videos piling random-weight objects up to
+# o_cap 128 each would need about 84 GiB, PERF.md section 4)
+B7 = 4
+BDET_SEGMENTS = 4
+
+
+def bdet_clips(seed, t, third_at):
+    """Phase 7a's two 64x96 clips (tests/test_batched_detection.py:_video,
+    drawn from one generator): segments 1 and 2, and in video 1 segment 3
+    from frame third_at."""
+    from deva_tpu_torch import detection_clips as dc
+    rng = np.random.default_rng(seed)
+    return [dc.small_clip(rng, t, appear=10 ** 6, show=0, vanish=0),
+            dc.small_clip(rng, t, appear=third_at, show=0, vanish=0)]
+
+
+def bdet_cores(net, cfg, n):
+    from deva_tpu_torch.inference.core import InferenceCore
+    cores = []
+    for vi in range(n):
+        core = InferenceCore(net, cfg)
+        core.enabled_long_id()
+        core.object_manager._rng = np.random.default_rng(5 + vi)
+        cores.append(core)
+    return cores
+
+
+def bdet_sequential(net, cfg, clips, det_every):
+    """detection_clips.online_sequential on fresh cores -> per-video
+    frames."""
+    from deva_tpu_torch import detection_clips as dc
+    return dc.online_sequential(bdet_cores(net, cfg, len(clips)), clips,
+                                det_every)
+
+
+def launches_per_frame(fn, ak, record):
+    """A propagator's forward_probs, step_all or step_block that appends
+    the kernel launches of each of its lockstep frames to `record`."""
+    def counted(*args, **kwargs):
+        before = dict(ak.LAUNCHES)
+        out = fn(*args, **kwargs)
+        k = out.shape[1] if fn.__name__ == "step_block" else 1
+        record.extend([{n: (ak.LAUNCHES[n] - before[n]) / k
+                        for n in before}] * k)
+        return out
+    return counted
+
+
+def bdet_online(ak, net, cfg, clips, det_every, block, perfect=False):
+    """detection_clips.online_lockstep on fresh cores, each lockstep frame's
+    launches counted. -> (per-video frames, {ti: per-video forward
+    predictions [1 + n, H, W]}, cores, per-frame launch counts)."""
+    from deva_tpu_torch import detection_clips as dc
+    from deva_tpu_torch.inference.batched_detection import \
+        BatchedDetectionPropagator
+    cores = bdet_cores(net, cfg, len(clips))
+    bp = BatchedDetectionPropagator(net, cfg)
+    per_frame = []
+    for name in ("forward_probs", "step_all", "step_block"):
+        setattr(bp, name, launches_per_frame(getattr(bp, name), ak,
+                                             per_frame))
+    frames, forwards = dc.online_lockstep(bp, cores, clips, det_every,
+                                          block, perfect)
+    return frames, forwards, cores, per_frame
+
+
+def bdet_budget(ref, out, label, lt):
+    """A video's frames against its sequential run, with BDET_BUDGET. ->
+    the largest share moved."""
+    worst = 0.0
+    for ti, (r, o) in enumerate(zip(ref, out)):
+        assert r.shape == o.shape, (label, ti, r.shape, o.shape)
+        budget = BDET_BUDGET[0] if ti < 6 else BDET_BUDGET[2 if lt else 1]
+        moved = float((np.abs(o - r) > 5e-3).any(0).mean())
+        flips = float((o.argmax(0) != r.argmax(0)).mean())
+        assert moved <= budget and flips <= budget, (label, ti, moved, flips)
+        worst = max(worst, moved, flips)
+    return worst
+
+
+def bdet_card_vs_cpu(cpu, gpu, det_every, strict, label, worst):
+    """One flow on the card against the CPU: propagation frames within
+    DET_TOL; the forward predictions within DET_TOL; a detection frame may
+    differ beyond DET_TOL only where the two forward predictions' argmaxes
+    differ (none with strict), on at most DET_FLIP_SHARE of it; equal
+    object tables. -> the detection frames' shares."""
+    from deva_tpu_torch import detection_clips as dc
+    (f_cpu, fw_cpu, c_cpu, _), (f_gpu, fw_gpu, c_gpu, _) = cpu, gpu
+    shares = []
+    for vi in range(len(f_cpu)):
+        for ti, (r, o) in enumerate(zip(f_cpu[vi], f_gpu[vi])):
+            if ti % det_every:
+                diff = float(np.abs(o - r).max())
+                worst[label] = max(worst.get(label, 0.0), diff)
+                assert diff <= DET_TOL, f"{label} video {vi} frame {ti}: " \
+                    f"|card - cpu| = {diff}"
+                continue
+            allowed = None
+            if fw_cpu.get(ti):
+                a, b = fw_cpu[ti][vi], fw_gpu[ti][vi]
+                diff = float(np.abs(b - a).max())
+                worst[label + " forward"] = max(
+                    worst.get(label + " forward", 0.0), diff)
+                assert diff <= DET_TOL, f"{label}: forward {diff}"
+                allowed = None if strict else dc.paint_flips(a, b)
+            shares.append(dc.check_detection_frame(
+                r, o, allowed, DET_TOL, DET_FLIP_SHARE,
+                f"{label} video {vi} frame {ti}")[1])
+    for a, b in zip(c_cpu, c_gpu):
+        assert dc.object_table(a) == dc.object_table(b), label
+    return shares
+
+
+def bdet_semionline(net, cfg, clips, every=3, num_voting=3):
+    """The semi-online setting in lockstep through eval_with_detections_
+    batched_torch.run_group (BdetReader; DetSaver keeping every frame), a
+    vote every `every` frames over num_voting: at a voting frame the
+    forward predictions (forward_ids, before detach), every alignment in
+    one align_consensus_batched call, the votes on those alignments,
+    incorporate_detection, attach, and the rest of the buffer through
+    step_block; past the last vote the tails. -> (per-video {ti: frame},
+    [per-video alignment id maps per vote], [per-video consensus masks per
+    vote], [selections per vote], cores, {keyframe: the forward
+    predictions [B, 1 + o_cap, H, W] that forward_ids took its argmax
+    of})."""
+    import types
+    import deva_tpu_torch.inference.batched_detection as bd
+    sys.path.insert(0, os.path.join(ROOT, "evaluation"))
+    import eval_with_detections_batched_torch as bdrv
+    cores = bdet_cores(net, cfg, len(clips))
+    aligns, votes, probs = [], [[] for _ in cores], []
+    cls = bd.BatchedDetectionPropagator
+    align, forward_ids = cls.align_consensus_batched, cls.forward_ids
+    argmax_ids = bd.argmax_ids
+
+    def align_kept(bp, cs, **kwargs):
+        aligns.append(align(bp, cs, **kwargs))
+        return aligns[-1]
+
+    def ids_kept(prob, dim):  # within forward_ids only
+        probs.append(prob.cpu().numpy())
+        return argmax_ids(prob, dim=dim)
+
+    def forward_kept(bp, frames):
+        bd.argmax_ids = ids_kept
+        try:
+            return forward_ids(bp, frames)
+        finally:
+            bd.argmax_ids = argmax_ids
+
+    def vote_kept(core, kept):
+        vote = core.vote_in_temporary_buffer
+
+        def kept_vote(**kwargs):
+            kept.append(vote(**kwargs))
+            return kept[-1]
+        return kept_vote
+
+    states = []
+    for vi, (core, (frames, masks, infos)) in enumerate(zip(cores, clips)):
+        core.vote_in_temporary_buffer = vote_kept(core, votes[vi])
+        states.append(bdrv._VideoState(
+            BdetReader(frames, masks, infos, f"semi{vi}"), core,
+            DetSaver(core, lambda ti: ti % every == 0, keep=True)))
+    args = types.SimpleNamespace(detection_every=every,
+                                 num_voting_frames=num_voting,
+                                 save_all=False)
+    cls.align_consensus_batched, cls.forward_ids = align_kept, forward_kept
+    try:
+        bdrv.run_group(net, cfg, states, args, "vipseg",
+                       bdrv.StepTimer(next(net.parameters()).device))
+    finally:
+        cls.align_consensus_batched, cls.forward_ids = align, forward_ids
+        for core in cores:
+            del core.vote_in_temporary_buffer
+    n = len(clips[0][0])
+    for vs in states:
+        assert sorted(vs.saver.order) == list(range(n)), vs.saver.order
+    n_votes = len(votes[0])
+    # the first vote makes no forward prediction: nothing is attached yet
+    assert len(probs) == n_votes - 1, (len(probs), n_votes)
+    return ([vs.saver.kept for vs in states], aligns,
+            [[v[j][1] for v in votes] for j in range(n_votes)],
+            [[[o.id for o in v[j][2]] for v in votes]
+             for j in range(n_votes)], cores,
+            {every * (j + 1): p for j, p in enumerate(probs)})
+
+
+def align_ties(net_cpu, cfg, clips):
+    """The CPU's per-item spatial_alignment of the first vote (keyframe 0,
+    frames 1 and 2), for the tie map: {(video, frame): pixels whose top two
+    channels lie within ALIGN_TIE}."""
+    from deva_tpu_torch import detection_clips as dc
+    out = {}
+    for vi, (frames, masks, infos) in enumerate(clips):
+        core = bdet_cores(net_cpu, cfg, 1)[0]
+        for i in (1, 2):
+            one_hot = np.stack([masks[i] == d["id"] for d in infos[i]]
+                               ).astype(np.float32)
+            p = dc.host(core.spatial_alignment(i, frames[i], one_hot, 0,
+                                               frames[0]))
+            top2 = np.sort(p, axis=0)[-2:]
+            out[vi, i] = (top2[1] - top2[0]) <= ALIGN_TIE
+        for ti in (0, 1, 2):
+            core.image_feature_store.delete(ti)
+    return out
+
+
+def phase_batched_detection_parity(ak, net_cpu, dev):
+    """Phase 7a: BatchedDetectionPropagator on the card against the CPU at
+    64x96 (bdet_clips: video 1 gains a third segment at the second
+    detection, so it opens a new bucket), top_k 8, mem_every 2, a detection
+    every 3 frames over 10. Online through step_all and through step_block,
+    exact and approx, long-term memory off and on (BDET_LT: consolidation
+    runs); semi-online through eval_with_detections_batched_torch.
+    run_group (align_consensus_batched), exact and approx.
+    Card against CPU (bdet_card_vs_cpu): frames within DET_TOL, a detection
+    frame beyond it only where the two forward predictions paint another
+    id; alignment ids equal but where the CPU's top two channels tie within
+    ALIGN_TIE (that share printed and bounded by DET_FLIP_SHARE), consensus
+    masks equal where the alignments are. The card's batched run against
+    its own sequential run per video: BDET_BUDGET. One launch of each
+    kernel of the method per lockstep frame. Strict: a perfect forward
+    mask, no allowance at all, sensory rows too."""
+    import dataclasses
+    from deva_tpu_torch import detection_clips as dc
+    from deva_tpu_torch.config import InferenceConfig
+    net = copy.deepcopy(net_cpu).to(dev)
+    base = InferenceConfig(mem_every=2, top_k=8, enable_long_term=False,
+                           max_missed_detection_count=3)
+    worst, shares, seq_moved, launch_rows, most_pairs = {}, {}, {}, {}, {}
+    det_every, t = 3, 10
+    clips = bdet_clips(21, t, det_every)
+    for method, lt, block in (("exact", False, False),
+                              ("exact", True, True),
+                              ("approx", False, False),
+                              ("approx", True, True)):
+        cfg = dataclasses.replace(base, topk_method=method,
+                                  **(BDET_LT if lt else {}))
+        label = f"online {method} {'lt ' if lt else ''}" + \
+            ("step_block" if block else "step_all")
+        cpu = bdet_online(ak, net_cpu, cfg, clips, det_every, block)
+        ak.reset_launch_counts()
+        tap = ConsolidationTap()
+        try:
+            gpu = bdet_online(ak, net, cfg, clips, det_every, block)
+            torch.cuda.synchronize()
+        finally:
+            tap.restore()
+        pair = EXACT_PAIR if method == "exact" else \
+            tuple(k for k in KERNELS if k not in EXACT_PAIR)
+        assert all(f[k] == 1 for f in gpu[3] for k in pair) and \
+            all(f[k] == 0 for f in gpu[3] for k in KERNELS if k not in pair),\
+            f"{label}: not one launch of each kernel per lockstep frame"
+        launch_rows[label] = len(gpu[3])
+        shares[label] = bdet_card_vs_cpu(cpu, gpu, det_every, False, label,
+                                         worst)
+        if lt:
+            assert any(lt_b.size > 0 for c in gpu[2]
+                       for lt_b in c.memory.long_buckets.values()), \
+                f"{label}: no consolidation"
+            most_pairs[label] = tap.most_pairs()
+        if method == "exact":
+            seq = bdet_sequential(net, cfg, clips, det_every)
+            seq_moved[label] = max(bdet_budget(s, b, f"{label} video {vi}",
+                                               lt)
+                                   for vi, (s, b) in enumerate(
+                                       zip(seq, gpu[0])))
+    assert any(len(c.memory.buckets) >= 2 for c in gpu[2])
+
+    # strict: a perfect forward mask, no allowance, sensory rows too
+    cfg = dataclasses.replace(base, topk_method="exact")
+    cpu = bdet_online(ak, net_cpu, cfg, clips, det_every, False,
+                      perfect=True)
+    gpu = bdet_online(ak, net, cfg, clips, det_every, False, perfect=True)
+    shares["online perfect"] = bdet_card_vs_cpu(cpu, gpu, det_every, True,
+                                                "online perfect", worst)
+    worst["sensory perfect"] = max(
+        (b.memory.sensory.cpu() - a.memory.sensory).abs().max().item()
+        for a, b in zip(cpu[2], gpu[2]))
+    assert worst["sensory perfect"] <= DET_TOL, worst
+
+    # semi-online through align_consensus_batched
+    align_share = {}
+    for method in ("exact", "approx"):
+        cfg = dataclasses.replace(base, topk_method=method)
+        label = f"semionline {method}"
+        cpu = bdet_semionline(net_cpu, cfg, clips)
+        gpu = bdet_semionline(net, cfg, clips)
+        ties = align_ties(net_cpu, cfg, clips)
+        share = 0.0
+        for vote, (a_cpu, a_gpu) in enumerate(zip(cpu[1], gpu[1])):
+            for vi in range(len(clips)):
+                assert sorted(a_cpu[vi]) == sorted(a_gpu[vi])
+                differ = np.zeros(clips[0][1][0].shape, bool)
+                for i, ids in a_gpu[vi].items():
+                    d = ids != a_cpu[vi][i]
+                    if vote == 0:  # the tie map is the first vote's
+                        assert not (d & ~ties[vi, i]).any(), (
+                            f"{label} video {vi} frame {i}: alignment ids "
+                            f"differ on {int((d & ~ties[vi, i]).sum())} "
+                            f"pixels where the CPU's top two channels are "
+                            f"more than {ALIGN_TIE} apart")
+                        share = max(share, float(ties[vi, i].mean()))
+                    differ |= d
+                assert differ.mean() <= DET_FLIP_SHARE, (label, vote, vi)
+                c_differ = cpu[2][vote][vi] != gpu[2][vote][vi]
+                assert not (c_differ & ~differ).any(), \
+                    f"{label} vote {vote} video {vi}: consensus masks differ"
+        align_share[label] = share
+        assert cpu[3] == gpu[3], f"{label}: selections {cpu[3]} {gpu[3]}"
+        det_tis = [3 * vote for vote in range(len(cpu[2]))]
+        for vi in range(len(clips)):
+            for ti in sorted(gpu[0][vi]):
+                r, o = cpu[0][vi][ti], gpu[0][vi][ti]
+                if ti not in det_tis:
+                    diff = float(np.abs(o - r).max())
+                    worst[label] = max(worst.get(label, 0.0), diff)
+                    assert diff <= DET_TOL, f"{label} video {vi} frame {ti}"
+                    continue
+                vote = det_tis.index(ti)
+                allowed = cpu[2][vote][vi] != gpu[2][vote][vi]
+                if ti in cpu[5]:
+                    a, b = cpu[5][ti][vi], gpu[5][ti][vi]
+                    assert float(np.abs(b - a).max()) <= DET_TOL, label
+                    allowed = allowed | dc.paint_flips(a, b)
+                shares.setdefault(label, []).append(dc.check_detection_frame(
+                    r, o, allowed, DET_TOL, DET_FLIP_SHARE,
+                    f"{label} video {vi} frame {ti}")[1])
+        for a, b in zip(cpu[4], gpu[4]):
+            assert dc.object_table(a) == dc.object_table(b), label
+    print(f"phase 7a batched detection fusion, card vs cpu at 64x96, "
+          f"2 videos, {t} frames: max |dprob| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f" (bound {DET_TOL:g}); share of each detection frame whose "
+          f"painted ids may differ (bound {DET_FLIP_SHARE:g}): "
+          + "; ".join(f"{k} " + ", ".join(f"{s:.4f}" for s in v)
+                      for k, v in shares.items())
+          + "; alignment ids may differ where the CPU's top two channels "
+          f"tie within {ALIGN_TIE:g}, on at most "
+          + ", ".join(f"{k} {v:.4f}" for k, v in align_share.items())
+          + " of an item; card batched vs card sequential, largest share "
+          f"moved (budget {BDET_BUDGET}): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in seq_moved.items())
+          + f"; one launch of each kernel of the method per lockstep frame "
+          f"({launch_rows}); the most (video, slot) pairs one lockstep "
+          f"consolidation took: {most_pairs}", flush=True)
+
+
+class LastCallTap:
+    """The arguments of the last call of each named wrapper of a module
+    (patched for a run), under the current `tag`, and the number of calls."""
+
+    def __init__(self, module, names):
+        self.module, self.tag, self.last, self.calls = module, "path", {}, {}
+        self.fns = {name: getattr(module, name) for name in names}
+        for name, fn in self.fns.items():
+            setattr(module, name, self._spy(name, fn))
+
+    def _spy(self, name, fn):
+        def spy(*args):
+            self.last[self.tag, name] = args
+            self.calls[self.tag, name] = self.calls.get(
+                (self.tag, name), 0) + 1
+            return fn(*args)
+        return spy
+
+    def restore(self):
+        for name, fn in self.fns.items():
+            setattr(self.module, name, fn)
+
+
+class BdetReader(DetReader):
+    """DetReader with the segments_info in each frame's info (how
+    eval_with_detections_batched_torch._frame_record reads them when no
+    JSON file exists)."""
+
+    def __init__(self, frames, masks, infos, name):
+        super().__init__(frames, masks, name)
+        self.infos = infos
+
+    def __getitem__(self, i):
+        data = super().__getitem__(i)
+        data["info"]["segments_info"] = self.infos[i]
+        return data
+
+
+def phase_batched_detection_online(ak, net_cpu, dev, n_frames: int = 60,
+                                   h: int = H480, w: int = W480):
+    """Phase 7b: B7 videos of online detection fusion at 480p, 60 frames,
+    through eval_with_detections_batched_torch.run_group_online (BdetReader,
+    DetSaver), at the driver's defaults (long-term on, exact, a detection
+    every 5 frames, max_missed_detection_count 5): detection_clips.
+    detections with BDET_SEGMENTS segments, a frame seed per video (41+v).
+    Checks every frame (DetSaver) and one launch of each exact kernel per
+    lockstep frame (every step_block frame and every forward_ids). Prints,
+    from the driver's StepTimer, the ms per lockstep propagation frame and
+    per detection step (the host part, match_and_merge and the purge,
+    apart), the device-to-host copies, per video objects, buckets and
+    o_cap and the propagator's S, o_slot and o_cap over time, and the peak
+    memory. Returns the launch counts and the exact pair's arguments of the
+    last lockstep frame."""
+    import dataclasses
+    import deva_tpu_torch.inference.batched_detection as bd
+    import deva_tpu_torch.inference.core as core_mod
+    from deva_tpu_torch.detection_clips import detections
+    from deva_tpu_torch.inference.core import InferenceCore
+    gc.collect()
+    masks, infos = detections(n_frames, h, w, BDET_SEGMENTS)
+    videos = [synthetic_video(np.random.default_rng(41 + v), h, w, n_frames)
+              for v in range(B7)]
+    drv, args = det_driver("online")
+    sys.path.insert(0, os.path.join(ROOT, "evaluation"))
+    import eval_with_detections_batched_torch as bdrv
+    net = copy.deepcopy(net_cpu).to(dev)
+    cfg = drv.detection_config(args)
+    cfg = dataclasses.replace(
+        cfg, enable_long_term_count_usage=drv.count_usage(cfg, n_frames))
+    timer = drv.StepTimer(dev)
+    states = []
+    for v in range(B7):
+        core = InferenceCore(net, cfg)
+        core.enabled_long_id()
+        core.object_manager._rng = np.random.default_rng(5 + v)
+        states.append(bdrv._VideoState(
+            BdetReader(videos[v], masks, infos, f"bdet{v}"),
+            core, DetSaver(core, lambda ti: ti % args.detection_every == 0)))
+    history, blocks = [], []
+    attach, step_block = bd.BatchedDetectionPropagator.attach, \
+        bd.BatchedDetectionPropagator.step_block
+
+    def attach_rec(bp, cores):
+        attach(bp, cores)
+        history.append((int(cores[0].curr_ti), [
+            (c.object_manager.num_obj, len(c.memory.buckets), c.o_cap)
+            for c in cores], bp.n_slots, bp.o_slot, bp.o_cap))
+
+    bd.BatchedDetectionPropagator.attach = attach_rec
+    bd.BatchedDetectionPropagator.step_block = block_timer(blocks, ak)
+    merge = HostTimer(core_mod, "match_and_merge")
+    purge = [HostTimer(vs.core.object_manager, "purge_inactive_objects")
+             for vs in states]
+    ids = HostTimer(bd, "argmax_ids")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ak.reset_launch_counts()
+    tap = LastCallTap(ak, EXACT_PAIR)
+    try:
+        bdrv.run_group_online(net, cfg, states, args, "vipseg", timer)
+        torch.cuda.synchronize()
+        launches = dict(ak.LAUNCHES)
+    finally:
+        tap.restore()
+        bd.BatchedDetectionPropagator.attach = attach
+        bd.BatchedDetectionPropagator.step_block = step_block
+        for t_ in [merge, ids] + purge:
+            t_.restore()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    for vs in states:
+        assert sorted(vs.saver.order) == list(range(n_frames)), \
+            vs.saver.order
+    n_det = len(range(0, n_frames, args.detection_every))
+    assert blocks and all(f[k] == 1 for _, f in blocks for k in EXACT_PAIR)
+    # one launch of each exact kernel per lockstep frame: every block frame
+    # and every forward prediction (each detection frame but the first)
+    assert launches["sim_topk"] == launches["topk_readout"] == \
+        n_frames - 1, launches
+    host_ms = (merge.ms + sum(p.ms for p in purge)) / n_det
+    # the timer's steps alternate: a detection step (B7 frames), then its
+    # span's one block (plan_block cuts none: the next write is due at the
+    # next detection frame)
+    assert len(timer.steps_ms) == 2 * n_det == 2 * len(blocks), \
+        (len(timer.steps_ms), n_det, len(blocks))
+    det_ms = timer.steps_ms[0::2]
+    prop_ms = [ms for ms, _ in blocks[2:]]  # frames 10 onwards
+    print(f"{smi_line()} phase 7b batched online detection fusion at "
+          f"{h}x{w}, B={B7} videos, {n_frames} frames through eval_with_"
+          f"detections_batched_torch.run_group_online, a detection every "
+          f"{args.detection_every} ({BDET_SEGMENTS} segments), ms from its "
+          f"StepTimer (CUDA events): propagation median "
+          f"{statistics.median(prop_ms):.3f} ms per lockstep frame (frames "
+          f"10+, mean {statistics.mean(prop_ms):.3f}; CUDA events around "
+          f"step_block), {B7 * 1000 / statistics.median(prop_ms):.2f} "
+          f"video-frames/s;"
+          f" detection steps median {statistics.median(det_ms[2:]):.3f} ms "
+          f"(10+; each " + ", ".join(f"{m:.1f}" for m in det_ms)
+          + f"), of it on the host in match_and_merge and the purge "
+          f"{host_ms:.3f} ms a detection step (all {B7} videos); "
+          f"device-to-host copies {ids.calls} (forward_ids, uint8 id maps), "
+          f"launches per lockstep propagation frame {blocks[-1][1]}, total "
+          f"{launches}; peak allocated {peak:.1f} MiB", flush=True)
+    print(f"phase 7b at each attach (frame, per video (objects, buckets, "
+          f"o_cap), S, o_slot, o_cap): {history}", flush=True)
+    return launches, {name: tap.last["path", name] for name in EXACT_PAIR}
+
+
+def block_timer(record, ak=None):
+    """A BatchedDetectionPropagator.step_block that appends the device ms
+    per lockstep frame of each call (CUDA events) to `record`, and with
+    `ak` the launches per lockstep frame as a second entry."""
+    import deva_tpu_torch.inference.batched_detection as bd
+    step_block = bd.BatchedDetectionPropagator.step_block
+
+    def timed(bp, frames, end=False):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        before = dict(ak.LAUNCHES) if ak else None
+        start.record()
+        out = step_block(bp, frames, end)
+        stop.record()
+        stop.synchronize()
+        k = out.shape[1]
+        record.append(start.elapsed_time(stop) / k if ak is None else (
+            start.elapsed_time(stop) / k,
+            {n: (ak.LAUNCHES[n] - before[n]) / k for n in before}))
+        return out
+    return timed
+
+
+class ConsolidationTap:
+    """While installed, records each lockstep consolidation of every
+    BatchedDetectionPropagator: (frame, the (video, slot) pairs whose
+    long-term ring grew)."""
+
+    def __init__(self):
+        import deva_tpu_torch.inference.batched_detection as bd
+        self.cls = bd.BatchedDetectionPropagator
+        self.fn = fn = self.cls._maybe_consolidate
+        self.triggered = []
+
+        def recorded(bp):
+            before = bp.lt_sizes.copy()
+            fn(bp)
+            grew = np.argwhere(bp.lt_sizes > before)
+            if len(grew):
+                self.triggered.append((int(bp.curr_ti.max()),
+                                       [tuple(map(int, p)) for p in grew]))
+
+        self.cls._maybe_consolidate = recorded
+
+    def most_pairs(self) -> int:
+        return max((len(p) for _, p in self.triggered), default=0)
+
+    def restore(self):
+        self.cls._maybe_consolidate = self.fn
+
+
+class MidReader:
+    """An in-memory mid-stream VOS video for eval_vos_batched_torch: its
+    frames, and {frame: id mask} of the frames that carry masks."""
+
+    def __init__(self, frames, masks, name):
+        self.frames, self.masks, self.vid_name = frames, masks, name
+
+    def __len__(self):
+        return len(self.frames)
+
+    def mask_frame_indices(self):
+        return sorted(self.masks)
+
+    def __getitem__(self, i):
+        data = {"rgb": self.frames[i], "info": {
+            "frame": f"{i:05d}.jpg", "save": True,
+            "shape": self.frames[i].shape[:2], "need_resize": False}}
+        if i in self.masks:
+            data["mask"] = self.masks[i]
+            data["valid_labels"] = np.asarray(
+                [o for o in np.unique(self.masks[i]) if o])
+        return data
+
+
+# phase 7c: the frame of each video's third object's mask. Videos 0 and 1
+# take it on a regular write (mem_every 5), so their bucket 0 stays on one
+# cadence and consolidates in one lockstep call over both pairs; videos 2
+# and 3 take it off the cadence, so the videos' writes diverge
+MID_THIRD_AT = (10, 15, 16, 19)
+
+
+def mid_videos(n_frames, h=H480, w=W480):
+    """Phase 7c's videos: phase 5's frames, two objects at frame 0, and
+    a third object's mask at frame MID_THIRD_AT[v] in video v (the
+    YouTube-VOS convention: a later mask holds only the new object)."""
+    sy, sx = h / 480, w / 854
+    vids = []
+    for v, seed in enumerate(PHASE5_SEEDS):
+        frames = synthetic_video(np.random.default_rng(seed), h, w, n_frames)
+        m0 = np.zeros((h, w), np.int64)
+        m0[int(10 * sy):int(200 * sy), int(20 * sx):int(300 * sx)] = 1
+        m0[int(250 * sy):int(470 * sy), int(400 * sx):int(800 * sx)] = 2
+        third = np.zeros((h, w), np.int64)
+        third[int(300 * sy):int(460 * sy),
+              int((60 + 40 * v) * sx):int((300 + 40 * v) * sx)] = 3
+        vids.append(MidReader(frames, {0: m0, MID_THIRD_AT[v]: third},
+                              f"mid{v}"))
+    return vids
+
+
+def phase_batched_midstream(ak, apx, net_cpu, dev, n_frames: int = 60,
+                            h: int = H480, w: int = W480):
+    """Phase 7c: B7 mid-stream VOS videos at 480p, 60 frames, through
+    eval_vos_batched_torch.run_group_midstream at the default
+    InferenceConfig (long-term memory on), exact and then approx: each
+    video's bucket 0 consolidates in lockstep over the triggered pairs
+    (one call takes videos 0 and 1, whose cadences stay together:
+    MID_THIRD_AT), so the [long-term ; working] slot rings run on the
+    card. Each video is
+    held to its own sequential card run (the driver's run_sequential):
+    exact within phase 5's budgets (compare_single), approx within
+    tests/test_batched_midstream.py's 5% of the pixels' labels (the
+    sequential multi-bucket path takes the dense threshold form there).
+    Outputs go to a checking save_frame (no PNG). Prints the triggered
+    pairs and the ms per lockstep frame. Returns per method the launch
+    counts and the kernels' arguments of the last lockstep frame."""
+    import dataclasses
+    import deva_tpu_torch.inference.batched_detection as bd
+    from deva_tpu_torch.config import InferenceConfig
+    sys.path.insert(0, os.path.join(ROOT, "evaluation"))
+    import eval_vos_batched_torch as drv
+    gc.collect()
+    readers = mid_videos(n_frames, h, w)
+    net = copy.deepcopy(net_cpu).to(dev)
+    out = {}
+    save_frame = drv.save_frame
+    step_block = bd.BatchedDetectionPropagator.step_block
+    try:
+        for method in ("exact", "approx"):
+            cfg = InferenceConfig(topk_method=method)
+            got, ref = {}, {}
+
+            def saver(store):
+                def save(out_path, reader, info, prob, om):
+                    assert prob.shape == (om.num_obj + 1, h, w), prob.shape
+                    assert bool(torch.isfinite(prob).all())
+                    store[reader.vid_name, info["frame"]] = prob.cpu()
+                return save
+
+            drv.save_frame = saver(ref)
+            for r in readers:
+                drv.run_sequential(net, cfg, r, "", True,
+                                   drv.StepTimer(dev))
+            consolidations = ConsolidationTap()
+            blocks = []
+            bd.BatchedDetectionPropagator.step_block = block_timer(blocks, ak)
+            drv.save_frame = saver(got)
+            timer = drv.StepTimer(dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ak.reset_launch_counts()
+            names = EXACT_PAIR if method == "exact" else \
+                ("segmax", "denom_readout")
+            tap = LastCallTap(ak if method == "exact" else apx, names)
+            try:
+                drv.run_group_midstream(net, cfg, readers, "", True, timer)
+                torch.cuda.synchronize()
+                launches = dict(ak.LAUNCHES)
+            finally:
+                tap.restore()
+                consolidations.restore()
+                bd.BatchedDetectionPropagator.step_block = step_block
+            peak = torch.cuda.max_memory_allocated(dev) / 2**20
+            assert sorted(got) == sorted(ref), "output frames differ"
+            triggered = consolidations.triggered
+            assert consolidations.most_pairs() >= 2, \
+                f"{method}: no lockstep consolidation of two or more " \
+                f"pairs: {triggered}"
+            assert all(f[k] == (k in names) for _, f in blocks
+                       for k in KERNELS), \
+                f"{method}: not one launch of each kernel per lockstep frame"
+            notes = []
+            for v, r in enumerate(readers):
+                keys = sorted(k for k in ref if k[0] == r.vid_name)[1:]
+                g = [got[k] for k in keys]
+                s = [ref[k] for k in keys]
+                if method == "exact":
+                    notes.append(compare_single(g, s, f"video {v}"))
+                else:
+                    labels = max(float((a.argmax(0) != b.argmax(0)).float()
+                                       .mean()) for a, b in zip(g, s))
+                    assert labels <= 0.05, (method, v, labels)
+                    notes.append(f"video {v} labels differ on at most "
+                                 f"{labels:.2%}")
+            print(f"{smi_line()} phase 7c mid-stream VOS at {h}x{w}, B={B7} "
+                  f"videos, {n_frames} frames through eval_vos_batched_torch"
+                  f".run_group_midstream, {method} (third objects at "
+                  f"{list(MID_THIRD_AT)}): launches {launches}; "
+                  f"consolidations (frame, triggered (video, slot) pairs) "
+                  f"{triggered}, at most {consolidations.most_pairs()} "
+                  f"pairs in one call; device time of its steps "
+                  f"{timer.total_s * 1000:.1f} ms for {timer.frames} "
+                  f"video-frames ({timer.frames / timer.total_s:.2f} "
+                  f"video-frames/s), median "
+                  f"{statistics.median(ms for ms, _ in blocks):.3f} ms per "
+                  f"lockstep frame of step_block (one launch of each kernel "
+                  f"of the method each); peak allocated {peak:.1f} MiB; "
+                  f"against "
+                  f"each video's sequential card run: " + "; ".join(notes),
+                  flush=True)
+            out[method] = (launches, {name: tap.last["path", name]
+                                      for name in names})
+    finally:
+        drv.save_frame = save_frame
+    return out
+
+
+def pair_rows_exact(ak, apx, dev, suffix, last, launches, label,
+                    videos=B7):
+    """The exact pair on the batched arguments the path gave it (`last`:
+    the last lockstep frame's sim_topk and topk_readout calls, one launch
+    each for all P (video, slot) pairs): the batched launch bitwise P
+    single launches on the pairs' slices, each pair held to the plain twins
+    (check_pair_on_path); timed beside its plain twin, the library call
+    (embedding_bag over all pairs' rows as one table) and cuBLAS's batched
+    product, with the bound summed over the pairs' valid tokens (their
+    share of the padded P x N printed). Also times what the path does
+    around the launch for all pairs: the queries repeated per pair
+    (`videos` videos' qk and qe) and the [long-term ; working] keys,
+    shrinkage and validity concatenated for sim_topk. -> kernels-line
+    rows."""
+    qk, qe, mk, ms, valid, k = last["sim_topk"]
+    gi, w, values = last["topk_readout"]
+    segs = tuple(values) if isinstance(values, (tuple, list)) else (values,)
+    p_, q, ck = qk.shape
+    n = mk.shape[1]
+    slots = p_ // videos
+    per_video = (qk[::slots].contiguous(), qe[::slots].contiguous())
+    assert torch.equal(per_video[0].repeat_interleave(slots, 0), qk)
+    around = {"repeat": cuda_ms(lambda: [t.repeat_interleave(slots, 0)
+                                         for t in per_video])}
+    if len(segs) > 1:
+        n_lt = segs[0].shape[1]
+        parts = [(t[:, :n_lt].contiguous(), t[:, n_lt:].contiguous())
+                 for t in (mk, ms, valid)]
+        around["concatenate"] = cuda_ms(lambda: [torch.cat(pr, 1)
+                                                 for pr in parts])
+    gv, gx = ak.sim_topk(qk, qe, mk, ms, valid, k)
+    out = ak.topk_readout(gi, w, values)
+    err = dict.fromkeys(EXACT_PAIR, 0.0)
+    share = dict(err)
+    for p in range(p_):
+        sv, sx = ak.sim_topk(qk[p], qe[p], mk[p], ms[p], valid[p], k)
+        assert same_bits(gv[p], sv) and torch.equal(gx[p], sx), \
+            f"{label}: sim_topk pair {p} not bitwise its single launch"
+        vp = tuple(s[p] for s in segs) if len(segs) > 1 else segs[0][p]
+        so = ak.topk_readout(gi[p], w[p], vp)
+        assert same_bits(out[p], so), \
+            f"{label}: topk_readout pair {p} not bitwise its single launch"
+        e, f = check_pair_on_path(ak, (qk[p], qe[p], mk[p], ms[p], valid[p],
+                                       k), (gi[p], w[p], vp),
+                                  f"{label}, pair {p}")
+        err = {nm: max(err[nm], e[nm]) for nm in EXACT_PAIR}
+        share = {nm: max(share[nm], f[nm]) for nm in EXACT_PAIR}
+    ring = torch.cat(segs, 1) if len(segs) > 1 else segs[0]
+    c, kk = ring.shape[-1], gi.shape[-1]
+    nbytes = lambda *ts: sum(t.numel() * t.element_size()
+                             for t in ts if t is not None)
+    rows = sum(int(torch.unique(gi[p]).numel()) for p in range(p_))
+    # the similarity needs only each pair's valid tokens ([long-term ;
+    # working]; an empty slot's one-token floor): its operations and key
+    # bytes count those, the validity mask whole
+    valid_share = int(valid.sum()) / (p_ * n)
+    bounds = {
+        "sim_topk": bound(4 * p_ * q * n * ck * valid_share,
+                          nbytes(qk, qe, valid) + nbytes(mk, ms) * valid_share
+                          + 8 * p_ * q * kk),
+        "topk_readout": bound(2 * p_ * q * kk * c, nbytes(gi, w)
+                              + rows * c * ring.element_size()
+                              + 4 * p_ * q * c)}
+    ops2 = apx.prep2(qk, qe, mk, ms, valid)
+    flat = (gi.long() + n * torch.arange(p_, device=dev)[:, None, None]
+            ).reshape(p_ * q, kk)
+    table = ring.reshape(p_ * n, c)
+    t = {"sim_topk": cuda_ms(lambda: ak.sim_topk(qk, qe, mk, ms, valid, k)),
+         "sim_topk_plain": cuda_ms(lambda: ak.sim_topk_plain(
+             qk, qe, mk, ms, valid, k), iters=3),
+         "sim_topk_product": cuda_ms(lambda: torch.bmm(
+             ops2.qcat, ops2.mcat.transpose(1, 2))),
+         "topk_readout": cuda_ms(lambda: ak.topk_readout(gi, w, values)),
+         "topk_readout_plain": cuda_ms(lambda: ak.topk_readout_plain(
+             gi, w, values), iters=3),
+         "topk_readout_library": cuda_ms(
+             lambda: torch.nn.functional.embedding_bag(
+                 flat, table, mode="sum",
+                 per_sample_weights=w.reshape(p_ * q, kk)))}
+    shape = (f"P={p_} pairs, Q={q} N={n} C={c} ({len(segs)} segment"
+             f"{'s' if len(segs) > 1 else ''}), {valid_share:.4f} of the "
+             f"P x N tokens valid")
+    print(f"{smi_line()} phase 7 kernels {suffix}, {label}: {shape}; the "
+          f"batched launch bitwise {p_} single launches, each pair held to "
+          f"the plain twins, max |kernel - twin| "
+          + ", ".join(f"{nm} {v:.3g}" for nm, v in err.items())
+          + " (at most " + ", ".join(f"{nm} {v:.3g}" for nm, v in
+                                      share.items())
+          + " of the f32 bound); ms " + ", ".join(
+              f"{nm} {v:.4f}" for nm, v in t.items()) + "; bound ms "
+          + ", ".join(f"{nm} {b:.4f} ({by})" for nm, (b, by) in
+                      bounds.items()) + f"; launches {launches}; around the "
+          f"launch, ms per lockstep frame: queries repeated per pair "
+          f"({videos} videos x {slots} slots) {around['repeat']:.4f}"
+          + (f", [long-term ; working] keys, shrinkage and validity "
+             f"concatenated {around['concatenate']:.4f}"
+             if "concatenate" in around else ""), flush=True)
+    rows_out = []
+    for name in EXACT_PAIR:
+        src, tpu = KERNELS[name]
+        b_ms, b_by = bounds[name]
+        rows_out.append({
+            "name": name + suffix, "ring_dtype": str(ring.dtype)[6:],
+            "route": "cuda", "source": src, "replaces": tpu,
+            "launches": launches[name], "shape": shape,
+            "valid_share": valid_share,
+            "max_abs_err": err[name], "ms": t[name],
+            "plain_ms": t[name + "_plain"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": t.get(name + "_library"),
+            "product_ms": t.get(name + "_product")})
+    return rows_out
+
+
+def pair_rows_approx(apx, dev, suffix, last, launches, label):
+    """The approx pair on the batched arguments the path gave it (`last`:
+    the last lockstep frame's segmax and denom_readout calls): segmax
+    within the f32 bound of the similarity's terms (gamma(Kc + 2) times
+    their absolute scale, as check_pair_on_path holds sim_topk) of its
+    plain twin, with the same finite pattern; denom_readout's rmax and th
+    bitwise `threshold` of the kernel's group maxima, and its out and usage
+    within 1e-4 (relative to sum aff |V|, and absolute) of the twin at a
+    threshold that no similarity lies near (gap_threshold). Timed beside
+    the twins and cuBLAS's product; bounds as phase 1b's, summed over the
+    pairs' valid tokens (their share of the padded P x N printed). ->
+    kernels-line rows."""
+    ops, geom = last["segmax"]
+    _, _, seg, v2, k = last["denom_readout"][:5]
+    p_, q, kc = ops.qcat.shape
+    n, c = v2.shape[1:]
+    ref = apx.segmax_plain(ops, geom)
+    got = apx.segmax(ops, geom)
+    fin = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(got), fin), f"{label}: segmax -inf"
+    sub = ops.bsq[..., :, None] if ops.bsq is not None else \
+        ops.msq[..., None, :]
+    scale = ((ops.qcat.abs() @ ops.mcat.abs().transpose(1, 2) + sub.abs())
+             * ops.msv.abs()[:, None, :]).amax(-1, keepdim=True)
+    tol = 2 * gamma(kc + 2) * scale + 1e-5
+    d_seg = torch.where(fin, (got - ref).abs(), 0.0)
+    assert bool((d_seg <= tol).all()), \
+        f"{label}: segmax off its twin by {d_seg.max().item():.3g}"
+    out, usage, rmax, th = apx.denom_readout(ops, geom, got, v2, k)
+    rmax_t, th_t = apx.threshold(got, k)
+    assert same_bits(rmax, rmax_t) and same_bits(th, th_t), \
+        f"{label}: denom_readout's rmax or th is not threshold()'s"
+    sim = apx.similarity2_plain(ops)
+    th_gap = apx.gap_threshold(sim, th, float(tol.max()))
+    og, ug, _, _ = apx.denom_readout(ops, geom, got, v2, k, th_gap)
+    rg, rug = apx.denom_readout_plain(ops, geom, got, rmax, th_gap, v2)
+    aff = apx._support_weights(sim, rmax, th_gap)
+    mag = aff @ v2.float().abs()
+    d_out = (og - rg).abs()
+    assert bool((d_out <= 1e-4 * mag + 1e-5).all()), \
+        f"{label}: denom_readout off its twin by {d_out.max().item():.3g}"
+    torch.testing.assert_close(ug, rug, rtol=1e-4, atol=1e-4)
+    support = (sim >= th) & torch.isfinite(sim)
+    entries, rows = int(support.sum()), int(support.any(-2).sum())
+    del sim, aff, mag, support
+    isz = v2.element_size()
+    # the similarity needs only each pair's valid tokens of the
+    # concatenated ring: segmax's operations and token bytes count those
+    nv = int(ops.valid.sum()) if ops.valid is not None else p_ * n
+    valid_share = nv / (p_ * n)
+    bounds = {
+        "segmax": bound(2 * q * kc * nv, p_ * (
+            4 * (q * kc + q) + n + 4 * q * geom.nseg) + 4 * nv * (kc + 1)),
+        "denom_readout": bound(2 * entries * (kc + c), p_ * 4 * q * (
+            geom.nseg + kc + 1 + c) + 4 * nv + rows * (
+            isz * c + 4 * kc + 4 + 1))}
+    err = {"segmax": d_seg.max().item(),
+           "denom_readout": max(d_out.max().item(),
+                                (ug - rug).abs().max().item())}
+    t = {"segmax": cuda_ms(lambda: apx.segmax(ops, geom)),
+         "segmax_plain": cuda_ms(lambda: apx.segmax_plain(ops, geom),
+                                 iters=3),
+         "segmax_product": cuda_ms(lambda: torch.bmm(
+             ops.qcat, ops.mcat.transpose(1, 2))),
+         "denom_readout": cuda_ms(lambda: apx.denom_readout(
+             ops, geom, got, v2, k)),
+         "denom_readout_plain": cuda_ms(lambda: apx._denom_readout_twin(
+             ops, geom, got, v2, k), iters=3)}
+    shape = (f"P={p_} pairs, Q={q} N={n} C={c} (one concatenated ring), "
+             f"{valid_share:.4f} of the P x N tokens valid")
+    print(f"{smi_line()} phase 7 kernels {suffix}, {label}: {shape}; "
+          f"max |kernel - twin| " + ", ".join(
+              f"{nm} {v:.3g}" for nm, v in err.items()) + "; ms "
+          + ", ".join(f"{nm} {v:.4f}" for nm, v in t.items()) + "; bound ms "
+          + ", ".join(f"{nm} {b:.4f} ({by})" for nm, (b, by) in
+                      bounds.items()) + f"; launches {launches}",
+          flush=True)
+    rows_out = []
+    for name in ("segmax", "denom_readout"):
+        src, tpu = KERNELS[name]
+        b_ms, b_by = bounds[name]
+        rows_out.append({
+            "name": name + suffix, "ring_dtype": str(v2.dtype)[6:],
+            "route": "cuda", "source": src, "replaces": tpu,
+            "launches": launches[name], "shape": shape,
+            "valid_share": valid_share,
+            "max_abs_err": err[name], "ms": t[name],
+            "plain_ms": t[name + "_plain"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "product_ms": t.get(name + "_product")})
+    return rows_out
+
+
+SMI = []
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi printed them."""
+    return f"[{SMI[0]}]" if SMI else ""
+
+
+def phase7(ak, apx, net_cpu, dev) -> list:
+    """Phases 7a-7c; -> the kernels line's .bdet and .bmid rows."""
+    phase_batched_detection_parity(ak, net_cpu, dev)
+    launches7b, last7b = phase_batched_detection_online(ak, net_cpu, dev)
+    rows = pair_rows_exact(ak, apx, dev, ".bdet", last7b, launches7b,
+                           "7b's last lockstep frame")
+    del last7b
+    mid = phase_batched_midstream(ak, apx, net_cpu, dev)
+    rows += pair_rows_exact(ak, apx, dev, ".bmid", mid["exact"][1],
+                            mid["exact"][0], "7c's last lockstep frame")
+    rows += pair_rows_approx(apx, dev, ".bmid", mid["approx"][1],
+                             mid["approx"][0], "7c's last lockstep frame")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2328,6 +3310,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
+    SMI.append(smi.stdout.strip())
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -2339,12 +3322,12 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: "
           f"{os.path.relpath(lib, ROOT)}", flush=True)
 
+    net_cpu = init_weights(DEVANetwork(), seed=0).eval()
     exact = phase_kernels(ak, apx, dev)
     approx = phase_approx_kernels(ak, apx, dev)
     bf16 = phase_kernels_bf16(ak, apx, dev)
     batched = phase_kernels_batched(ak, apx, dev)
     batched16 = phase_kernels_batched(ak, apx, dev, "bfloat16")
-    net_cpu = init_weights(DEVANetwork(), seed=0).eval()
     net_cpu16 = with_dtype(net_cpu, "bfloat16")
     phase_slice_parity(ak, net_cpu, dev)
     phase_slice_parity_approx(ak, apx, net_cpu, dev)
@@ -2386,6 +3369,7 @@ def main() -> int:
     del memory_calls
     det_rows += det_kernel_rows(ak, apx, dev, ".det.align", align_calls,
                                 aligned, "6c's last spatial alignment")
+    det_rows += phase7(ak, apx, net_cpu, dev)
 
     rows = []
     for ring, res_exact, res_approx, run_exact, run_approx, suffix in (

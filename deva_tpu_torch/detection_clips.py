@@ -1,7 +1,9 @@
-"""Synthetic clips with detections, and the helpers that hold one run of
-detection fusion against another: written once for chip_smoke.py's phase
-6, profile_step.py --detections, tests/test_torch_cuda.py and the
-tests/test_torch_detection*.py files.
+"""Synthetic clips with detections, the online detection loops over them
+(per video, and in lockstep through a BatchedDetectionPropagator), and the
+helpers that hold one run of detection fusion against another: written
+once for chip_smoke.py's phases 6 and 7, profile_step.py --detections,
+tests/test_torch_cuda.py and the tests/test_torch_detection*.py and
+tests/test_torch_batched_detection*.py files.
 
 Two clips:
 - `small_clip`: 64x96 frames of tests/test_detection_parity.py's kind
@@ -12,11 +14,13 @@ Two clips:
   max_missed_detection_count purges it.
 - `detections`: 854x480 detections (scaled for other sizes), 12 segments a
   frame: four stuff bands and eight moving thing boxes, one more thing from
-  frame 20 and one gone from frame 25.
+  frame 20 and one gone from frame 25; or fewer segments a frame.
 
-The helpers take this package's InferenceCore or any core with its
-interface (`_segment`, `pad`, `object_manager`, `incorporate_detection`):
-`host` brings tensors and array-likes alike to a numpy array.
+The loops and helpers take this package's InferenceCore and
+BatchedDetectionPropagator or any with their interface (`_segment`, `pad`,
+`object_manager`, `incorporate_detection`, `step`; `forward_probs`,
+`detach`, `attach`, `plan_block`, `step_all`, `step_block`): `host` brings
+tensors and array-likes alike to a numpy array.
 """
 from __future__ import annotations
 
@@ -69,19 +73,26 @@ def small_clip(rng: np.random.Generator, t: int, appear: int = 3,
     return frames, masks, infos
 
 
-def detections(t: int, h: int = 480, w: int = 854):
+def detections(t: int, h: int = 480, w: int = 854, segments: int = 12):
     """t frames of detections (DET_STUFF, DET_THINGS; ids 1-9 things,
     21-24 stuff) as eval_with_detections_torch.py reads them: id masks
-    [h, w] and segments_info dicts."""
+    [h, w] and segments_info dicts. segments=12 (the default) keeps them
+    all; fewer keep the first segments // 3 stuff bands and the first
+    segments - segments // 3 things (4: one band and things 1-3, in every
+    frame)."""
+    stuff, things = DET_STUFF, DET_THINGS
+    if segments != 12:
+        stuff = DET_STUFF[:segments // 3]
+        things = DET_THINGS[:segments - segments // 3]
     sy, sx = h / 480, w / 854
     masks, infos = [], []
     for i in range(t):
         m = np.zeros((h, w), np.int64)
         info = []
-        for sid, ((r0, r1), cat) in enumerate(DET_STUFF, start=21):
+        for sid, ((r0, r1), cat) in enumerate(stuff, start=21):
             m[int(r0 * sy):int(r1 * sy)] = sid
             info.append({"id": sid, "category_id": cat})
-        for tid, cat, slot, first, gone in DET_THINGS:
+        for tid, cat, slot, first, gone in things:
             if first <= i < gone:
                 r0 = int((200 + 85 * (slot // 5)) * sy)
                 c0 = int((15 + 165 * (slot % 5) + i) * sx)
@@ -97,6 +108,69 @@ def segment_infos(dicts, cls=ObjectInfo) -> List:
     from the raw flag (as tests/test_detection_parity.py sets it)."""
     return [cls(id=d["id"], category_id=d["category_id"],
                 isthing=bool(d["isthing"])) for d in dicts]
+
+
+def online_sequential(cores, clips, det_every: int,
+                      segs=segment_infos) -> List[List[np.ndarray]]:
+    """The online loop of each clip (frames, detection id masks,
+    segments_info dicts) on its own core: incorporate_detection every
+    det_every frames, step otherwise; segs turns a frame's dicts into the
+    core's ObjectInfos. -> per-video per-frame outputs on the host."""
+    return [[host(core.incorporate_detection(img, masks[ti],
+                                             segs(infos[ti]))
+                  if ti % det_every == 0 else core.step(img))
+             for ti, img in enumerate(frames)]
+            for core, (frames, masks, infos) in zip(cores, clips)]
+
+
+def online_lockstep(bp, cores, clips, det_every: int, block: bool = False,
+                    perfect: bool = False, segs=segment_infos):
+    """The online loop of the clips in lockstep on `bp` over `cores`
+    (tests/test_batched_detection.py:_run_batched): a detection frame's
+    forward predictions in one forward_probs call before detach (perfect:
+    perfect_forward per core instead, and no forward call), then
+    incorporate_detection per core and attach; the propagation frames
+    through step_all, or (block) through step_block by plan_block.
+    -> (per-video per-frame outputs on the host, {detection frame:
+    per-video forward predictions [1 + n, H, W]} where bp made them)."""
+    t = len(clips[0][0])
+    out = [[] for _ in clips]
+    forwards = {}
+    ti = 0
+    while ti < t:
+        if ti % det_every == 0:
+            fwd = None
+            if ti > 0:
+                if not perfect:
+                    fwd = host(bp.forward_probs([c[0][ti] for c in clips]))
+                bp.detach()
+            for vi, (core, (frames, masks, infos)) in enumerate(
+                    zip(cores, clips)):
+                fm = None
+                if perfect:
+                    fm = perfect_forward(core, masks[ti])
+                elif fwd is not None:
+                    n = core.object_manager.num_obj
+                    forwards.setdefault(ti, []).append(fwd[vi][:n + 1])
+                    fm = np.argmax(fwd[vi][:n + 1], axis=0)
+                out[vi].append(host(core.incorporate_detection(
+                    frames[ti], masks[ti], segs(infos[ti]), forward_mask=fm)))
+            bp.attach(cores)
+            ti += 1
+            continue
+        span = det_every - ti % det_every
+        k = bp.plan_block(min(span, t - ti)) if block else 1
+        if block:
+            probs = host(bp.step_block([np.stack(c[0][ti:ti + k])
+                                        for c in clips]))
+        else:
+            probs = host(bp.step_all([c[0][ti] for c in clips]))[:, None]
+        for i in range(k):
+            for vi, core in enumerate(cores):
+                out[vi].append(probs[vi, i, :core.object_manager.num_obj + 1])
+        ti += k
+    bp.detach()
+    return out, forwards
 
 
 def host(x) -> np.ndarray:

@@ -55,10 +55,10 @@ def find_consensus_auto_association(
 
     precomputed_proj: optional {frame_index: argmaxed channel-index map
     [H, W] int, padded domain} — spatial alignments computed elsewhere
-    (in deva_tpu, BatchedDetectionPropagator.align_consensus_batched: one
-    batched launch with the argmax on the device; not ported yet) instead
-    of one core.spatial_alignment call per frame. Frames missing from the
-    dict fall back to core.spatial_alignment."""
+    (inference/batched_detection.py: BatchedDetectionPropagator.
+    align_consensus_batched, one batched call with the argmax on the
+    device) instead of one core.spatial_alignment call per frame. Frames
+    missing from the dict fall back to core.spatial_alignment."""
     time_indices = [f.ti for f in frames]
     h, w = frames[0].image.shape[:2]
     pad = pad_amounts(h, w, 16)

@@ -22,8 +22,13 @@ the in-clip consensus over the buffered frames (inference/consensus.py, on
 the host but for the alignments), and `incorporate_detection` merges a
 detection mask into the tracked objects (inference/segment_merging.py on the
 host, with the forward prediction handed over as argmax ids), purges the
-objects missed too often and writes the merged mask to memory. Not ported
-yet: object-axis sharding (deva_tpu's obj_mesh).
+objects missed too often and writes the merged mask to memory. Several
+cores advance in lockstep through inference/batched_detection.py, which
+stacks their buckets (attach), steps them together and writes the state
+back (detach); its forward predictions enter incorporate_detection as
+`forward_mask`, its alignments vote_in_temporary_buffer as
+`precomputed_proj`. Not ported yet: object-axis sharding (deva_tpu's
+obj_mesh).
 
 Frames enter as f32 in every configuration (the model's first conv casts
 them to its compute dtype, as deva_tpu's does); the probabilities and

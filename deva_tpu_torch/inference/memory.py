@@ -134,10 +134,12 @@ class Bucket:
             if arr is not None:
                 setattr(self, name, fn(arr))
 
-    def ensure_capacity(self, extra: int, quantum: int,
-                        limit: Optional[int] = None) -> None:
+    def plan_capacity(self, extra: int, quantum: int,
+                      limit: Optional[int] = None) -> int:
+        """The capacity ensure_capacity grows to, without copying the rings
+        (the batched propagator's detach overwrites them anyway)."""
         if self.size + extra <= self.cap:
-            return
+            return self.cap
         new_cap = max(self.cap * 2, _round_up(self.size + extra, quantum))
         new_cap = _round_up(new_cap, quantum)
         if limit is not None:
@@ -145,7 +147,13 @@ class Bucket:
             # so geometric growth must not overshoot it
             new_cap = min(new_cap, max(_round_up(limit, quantum),
                                        self.size + extra))
-        self.map_rings(lambda arr: _grow(arr, new_cap))
+        return new_cap
+
+    def ensure_capacity(self, extra: int, quantum: int,
+                        limit: Optional[int] = None) -> None:
+        new_cap = self.plan_capacity(extra, quantum, limit)
+        if new_cap != self.cap:
+            self.map_rings(lambda arr: _grow(arr, new_cap))
 
     def append(self, key: torch.Tensor, shrinkage: torch.Tensor,
                value: torch.Tensor,

@@ -10,14 +10,15 @@ import numpy as np
 import torch
 
 
-def argmax_ids(prob: torch.Tensor) -> np.ndarray:
-    """[C, H, W] probabilities or logits (a tensor on any device) -> host
-    uint8 (C <= 256) or int32 argmax ids over C, reduced on the tensor's
-    device and moved to the host in one copy: 4*C times fewer bytes than
-    the f32 tensor. torch.argmax returns the first maximum, as np.argmax
-    does (deva_tpu/inference/result_saver.py:device_argmax_ids)."""
-    dt = torch.uint8 if prob.shape[0] <= 256 else torch.int32
-    return torch.argmax(prob, dim=0).to(dt).cpu().numpy()
+def argmax_ids(prob: torch.Tensor, dim: int = 0) -> np.ndarray:
+    """[C, H, W] probabilities or logits (a tensor on any device; C on axis
+    `dim`, e.g. [B, C, H, W] with dim=1) -> host uint8 (C <= 256) or int32
+    argmax ids over C, reduced on the tensor's device and moved to the host
+    in one copy: 4*C times fewer bytes than the f32 tensor. torch.argmax
+    returns the first maximum, as np.argmax does
+    (deva_tpu/inference/result_saver.py:device_argmax_ids)."""
+    dt = torch.uint8 if prob.shape[dim] <= 256 else torch.int32
+    return torch.argmax(prob, dim=dim).to(dt).cpu().numpy()
 
 
 def aggregate_logits(prob: torch.Tensor, axis: int) -> torch.Tensor:

@@ -14,9 +14,17 @@ through initialize, the others through step_all (--chunk 1) or step_block
 by --chunk. With --detections, the online detection-fusion path of
 chip_smoke.py phase 6b instead: InferenceCore.incorporate_detection every
 5th frame with 12 VIPSeg-style segments (detection_clips.detections),
-step otherwise, max_missed_detection_count 5. Prints every frame's wall time (a chunk's
-time shared by its frames; with --batch, the time of one lockstep step of
-all B videos), and
+step otherwise, max_missed_detection_count 5; with --detections --batch
+B, B such videos in lockstep through evaluation/eval_with_detections_
+batched_torch.py's run_group_online (chip_smoke.py phase 7b: the forward
+predictions of a detection frame in one forward_ids call,
+incorporate_detection per core, the spans between detections through
+BatchedDetectionPropagator.step_block), --segments segments a detection
+frame, the frames read from the host as the driver reads them. Prints
+every frame's wall time (a chunk's time shared by its frames; with
+--batch, the time of one lockstep step of all B videos; with --detections
+--batch, the driver's StepTimer's device time of each step per lockstep
+frame), and
 traces the last --window frames (whole chunks) with torch.profiler: device
 time per layer (the model's four modes and the memory attention, as
 profiler ranges), device time per kernel, the device's busy share of the
@@ -27,6 +35,7 @@ window's wall time, and the peak allocated device memory of the run.
     python -m deva_tpu_torch.profile_step --amp --topk_method approx --chunk 5
     python -m deva_tpu_torch.profile_step --batch 4 [--amp]
     python -m deva_tpu_torch.profile_step --detections
+    python -m deva_tpu_torch.profile_step --detections --batch 4 --segments 4
 """
 from __future__ import annotations
 
@@ -34,7 +43,9 @@ import argparse
 import functools
 import os
 import statistics
+import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -43,6 +54,8 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from deva_tpu_torch.config import InferenceConfig, ModelConfig
 from deva_tpu_torch.detection_clips import detections
 from deva_tpu_torch.inference.batched import BatchedPropagator
+from deva_tpu_torch.inference.batched_detection import \
+    BatchedDetectionPropagator
 from deva_tpu_torch.inference.core import InferenceCore
 from deva_tpu_torch.models.network import DEVANetwork, init_weights
 
@@ -74,6 +87,84 @@ def _device_us(evt) -> float:
                    getattr(evt, "self_cuda_time_total", 0.0))
 
 
+class _Reader:
+    """One in-memory video for the batched detection driver: frames [T, H,
+    W, 3] on the host, detection id masks, segments_info dicts."""
+
+    def __init__(self, frames, masks, infos, name):
+        self.frames, self.masks, self.infos = frames, masks, infos
+        self.vid_name = name
+
+    def __len__(self):
+        return len(self.frames)
+
+    def __getitem__(self, i):
+        return {"rgb": self.frames[i], "mask": self.masks[i], "info": {
+            "frame": f"{i:05d}.jpg", "shape": self.frames[i].shape[:2],
+            "need_resize": False, "save": True,
+            "segments_info": self.infos[i]}}
+
+
+class _WindowSaver:
+    """A saver that writes nothing; the last video's starts the profiler
+    after the step that saves frame `start` - 1 (the driver saves a step's
+    frames after the step ran, before the next one starts)."""
+
+    def __init__(self, prof=None, start=0, timer=None):
+        self.prof, self.start, self.timer = prof, start, timer
+        self.started = None
+
+    def save_mask(self, prob, frame, **kwargs):
+        if self.prof is not None and self.started is None and \
+                int(frame[:5]) >= self.start - 1:
+            self.prof.start()
+            self.started = (time.perf_counter(), self.timer.frames)
+
+
+def _run_group_online(args, net, cfg, frames, det_masks, det_infos, prof):
+    """--detections --batch: the videos through the batched driver's
+    run_group_online, the profiler on from the first step after the one
+    that saves frame frames - window - 1. -> (the StepTimer's device ms of
+    each step per lockstep frame, lockstep frames in the window, the
+    window's wall seconds)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "evaluation"))
+    import eval_with_detections_batched_torch as bdrv
+
+    class Timer(bdrv.StepTimer):
+        """The driver's StepTimer, keeping each step's frame count."""
+
+        def __init__(self, device):
+            super().__init__(device)
+            self.steps_frames = []
+
+        def __exit__(self, *exc):
+            self.steps_frames.append(self._count)
+            return super().__exit__(*exc)
+
+    timer = Timer(frames.device)
+    states = []
+    for v in range(args.batch):
+        core = InferenceCore(net, cfg)
+        core.enabled_long_id()
+        core.object_manager._rng = np.random.default_rng(5 + v)
+        saver = _WindowSaver(prof, args.frames - args.window, timer) \
+            if v == args.batch - 1 else _WindowSaver()
+        states.append(bdrv._VideoState(_Reader(
+            frames[v].cpu().numpy(), det_masks, det_infos, f"video{v}"),
+            core, saver))
+    bdrv.run_group_online(net, cfg, states, types.SimpleNamespace(
+        detection_every=5, save_all=False), "vipseg", timer)
+    torch.cuda.synchronize()
+    t0, frames0 = states[-1].saver.started
+    step_ms = []
+    for ms, n in zip(timer.steps_ms, timer.steps_frames):
+        k = n // args.batch
+        step_ms += [ms / k] * k
+    return step_ms, (timer.frames - frames0) // args.batch, \
+        time.perf_counter() - t0
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=60)
@@ -94,11 +185,13 @@ def main():
     ap.add_argument("--detections", action="store_true",
                     help="online detection fusion (chip_smoke.py phase 6b) "
                     "in place of the two-object VOS path")
+    ap.add_argument("--segments", type=int, default=12,
+                    help="segments a detection frame with --detections")
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the window here")
     args = ap.parse_args()
-    if args.detections and (args.batch > 1 or args.chunk > 1):
-        raise SystemExit("--detections runs one video, frame by frame")
+    if args.detections and args.chunk > 1:
+        raise SystemExit("--detections runs frame by frame")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
@@ -130,7 +223,10 @@ def main():
         topk_method=args.topk_method, max_missed_detection_count=5,
         preencode_blocks=args.preencode_blocks,
         ring_dtype=args.ring_dtype or ("bfloat16" if args.amp else "auto"))
-    if args.batch > 1:
+    if args.detections and args.batch > 1:
+        BatchedDetectionPropagator._attend = _labeled(
+            BatchedDetectionPropagator._attend, "attention")
+    elif args.batch > 1:
         core = BatchedPropagator(net, cfg)
         core._attend_and_count = _labeled(core._attend_and_count,
                                           "attention")
@@ -143,54 +239,62 @@ def main():
     if args.detections:
         from deva_tpu_torch.inference.object_utils import \
             convert_json_dict_to_objects_info
-        det_masks, det_infos = detections(args.frames, h, w)
-        core.object_manager._rng = np.random.default_rng(5)
+        det_masks, det_infos = detections(args.frames, h, w, args.segments)
+        if args.batch == 1:
+            core.object_manager._rng = np.random.default_rng(5)
 
-    # frame 0 takes the mask; then runs of --chunk frames
-    runs = [(0, 1)] + [(i, min(args.chunk, args.frames - i))
-                       for i in range(1, args.frames, args.chunk)]
-    start_window = next(i for i, n in runs
-                        if i >= args.frames - args.window)
-    step_ms = []
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    for i, n in runs:
-        if i == start_window:
-            prof.start()
-            window_t0 = time.perf_counter()
-        if i == 1 and args.batch == 1:
-            core.memory.match_memory = _labeled(core.memory.match_memory,
-                                                "attention")
-        t0 = time.perf_counter()
-        if args.detections and i % 5 == 0:
-            core.incorporate_detection(
-                frames0[i], det_masks[i], convert_json_dict_to_objects_info(
-                    det_masks[i], det_infos[i], dataset="vipseg"))
-        elif args.detections:
-            core.step(frames0[i])
-        elif args.batch > 1:
-            if i == 0:
-                core.initialize(frames[:, 0], [mask] * args.batch,
-                                [[1, 2]] * args.batch)
+    if args.detections and args.batch > 1:
+        step_ms, window, window_s = _run_group_online(
+            args, net, cfg, frames, det_masks, det_infos, prof)
+    else:
+        # frame 0 takes the mask; then runs of --chunk frames
+        runs = [(0, 1)] + [(i, min(args.chunk, args.frames - i))
+                           for i in range(1, args.frames, args.chunk)]
+        start_window = next(i for i, n in runs
+                            if i >= args.frames - args.window)
+        step_ms = []
+        for i, n in runs:
+            if i == start_window:
+                prof.start()
+                window_t0 = time.perf_counter()
+            if i == 1 and args.batch == 1:
+                core.memory.match_memory = _labeled(core.memory.match_memory,
+                                                    "attention")
+            t0 = time.perf_counter()
+            if args.detections and i % 5 == 0:
+                core.incorporate_detection(
+                    frames0[i], det_masks[i],
+                    convert_json_dict_to_objects_info(
+                        det_masks[i], det_infos[i], dataset="vipseg"))
+            elif args.detections:
+                core.step(frames0[i])
+            elif args.batch > 1:
+                if i == 0:
+                    core.initialize(frames[:, 0], [mask] * args.batch,
+                                    [[1, 2]] * args.batch)
+                elif args.chunk == 1:
+                    core.step_all(frames[:, i])
+                else:
+                    core.step_block(frames[:, i:i + n])
+            elif i == 0:
+                core.step(frames0[0], mask, [1, 2])
             elif args.chunk == 1:
-                core.step_all(frames[:, i])
+                core.step(frames0[i])
             else:
-                core.step_block(frames[:, i:i + n])
-        elif i == 0:
-            core.step(frames0[0], mask, [1, 2])
-        elif args.chunk == 1:
-            core.step(frames0[i])
-        else:
-            core.step_chunk(frames0[i:i + n])
-        torch.cuda.synchronize()
-        step_ms += [(time.perf_counter() - t0) * 1000 / n] * n
-    window_s = time.perf_counter() - window_t0
+                core.step_chunk(frames0[i:i + n])
+            torch.cuda.synchronize()
+            step_ms += [(time.perf_counter() - t0) * 1000 / n] * n
+        window_s = time.perf_counter() - window_t0
+        window = args.frames - start_window
     prof.stop()
-    window = args.frames - start_window
 
     step = f"lockstep step of {args.batch} videos" if args.batch > 1 \
         else "frame"
     unit = "step" if args.batch > 1 else "frame"
-    print(f"{step} wall ms:", " ".join(f"{t:.1f}" for t in step_ms))
+    clock = "device (StepTimer)" if args.detections and args.batch > 1 \
+        else "wall"
+    print(f"{step} {clock} ms:", " ".join(f"{t:.1f}" for t in step_ms))
     print(f"median frames 10+: {statistics.median(step_ms[10:]):.3f} ms "
           f"per {step}")
     events = prof.key_averages()

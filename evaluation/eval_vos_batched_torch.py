@@ -7,14 +7,17 @@ The port's counterpart of evaluation/eval_vos_batched.py, for the generic
 (G) and DAVIS (D16/D17) layouts, with the flags of eval_vos_torch.py plus
 --batch. Grouping: videos are lockstepped only with videos of the same
 processed frame shape, the same object-count bucket (pad_objects) and the
-same long-term usage-counting policy. A video whose masks arrive after its
-first frame runs through the sequential path (InferenceCore.step per
-frame), as do videos with no reachable mask. In a group, the first frame's
-output is its ground-truth mask; shorter videos replay their last frame
-until the group ends and those outputs are discarded. `end` semantics (no
-memory write, no sensory update on the final frame) only change state that
-later frames read, so the per-frame outputs are those of the sequential
-driver.
+same long-term usage-counting policy. Videos whose masks arrive after
+their first frame (YouTube-VOS style: a new object appears at frame t > 0)
+are grouped by frame shape and usage policy and run in lockstep by
+run_group_midstream, through deva_tpu_torch/inference/batched_detection.py
+(multi-bucket memory, per-video write cadences); a group of one runs the
+sequential path (InferenceCore.step per frame), as do videos with no
+reachable mask. In a first-frame group, the first frame's output is its
+ground-truth mask; shorter videos replay their last frame until the group
+ends and those outputs are discarded. `end` semantics (no memory write, no
+sensory update on the final frame) only change state that later frames
+read, so the per-frame outputs are those of the sequential driver.
 
 Usage (the example clip, on the card; --device cpu for the CPU):
   python evaluation/eval_vos_batched_torch.py --dataset G \
@@ -39,6 +42,8 @@ sys.path.insert(0, path.dirname(path.abspath(__file__)))
 
 from deva_tpu_torch.data.transforms import resize_prob_to  # noqa: E402
 from deva_tpu_torch.inference.batched import BatchedPropagator  # noqa: E402
+from deva_tpu_torch.inference.batched_detection import \
+    BatchedDetectionPropagator  # noqa: E402
 from deva_tpu_torch.inference.core import InferenceCore  # noqa: E402
 from deva_tpu_torch.utils.prefetch import Prefetcher  # noqa: E402
 from eval_vos_torch import (StepTimer, base_config, count_usage,  # noqa
@@ -126,6 +131,97 @@ def run_group(model, cfg, readers, out_path, save_all, timer) -> None:
                                bp.cores[vi].object_manager)
 
 
+def run_group_midstream(model, cfg, readers, out_path, save_all,
+                        timer) -> None:
+    """Lockstep a group of same-shaped videos whose ground-truth masks
+    arrive mid-stream. The mask ticks are known up front (a file-existence
+    probe): on a tick where any video receives a mask, every started video
+    steps through its own core (merge, forced memory write, maybe a new
+    bucket), so every clock advances once; the spans between ticks run
+    through BatchedDetectionPropagator.step_block by plan_block, with
+    per-video write cadences, re-attaching when the set of started videos
+    changes. A video's frames before its first mask are skipped, and a
+    video shorter than the group replays its last frame, whose outputs are
+    discarded."""
+    b = len(readers)
+    cores = [InferenceCore(model, cfg) for _ in range(b)]
+    bp = BatchedDetectionPropagator(model, cfg)
+    lengths = [len(r) for r in readers]
+    max_len = max(lengths)
+    started = [False] * b
+    last = [None] * b
+    attached = []
+    event_ticks = sorted({t for vi, r in enumerate(readers)
+                          for t in r.mask_frame_indices()
+                          if t < lengths[vi]})
+
+    def save(vi, d, prob):
+        if save_all or d["info"]["save"]:
+            save_frame(out_path, readers[vi], d["info"], prob,
+                       cores[vi].object_manager)
+
+    def fetch(iters, ti):
+        datas = [next(iters[vi], None) if ti < lengths[vi] else None
+                 for vi in range(b)]
+        for vi, d in enumerate(datas):
+            if d is not None:
+                last[vi] = d["rgb"]
+        return datas
+
+    with contextlib.ExitStack() as stack:
+        iters = [iter(stack.enter_context(Prefetcher(r))) for r in readers]
+        ti = 0
+        while ti < max_len:
+            if ti in event_ticks:
+                datas = fetch(iters, ti)
+                if attached:
+                    bp.detach()
+                    attached = []
+                for vi, d in enumerate(datas):
+                    event = d is not None and d.get("mask") is not None
+                    if d is None or not (event or started[vi]):
+                        continue
+                    labels = [int(v) for v in d["valid_labels"]] \
+                        if event else None
+                    with timer:
+                        prob = cores[vi].step(
+                            d["rgb"], d["mask"] if event else None, labels,
+                            end=ti == lengths[vi] - 1)
+                    started[vi] = True
+                    save(vi, d, prob)
+                ti += 1
+                continue
+            active = [vi for vi in range(b) if started[vi]]
+            if not active:
+                fetch(iters, ti)  # keep the iterators tick-aligned
+                ti += 1
+                continue
+            if attached != active:
+                if attached:
+                    bp.detach()
+                bp.attach([cores[vi] for vi in active])
+                attached = active
+            next_stop = min([t for t in event_ticks if t > ti] + [max_len])
+            k = bp.plan_block(min(next_stop - ti, cfg.mem_every))
+            block = [fetch(iters, ti + i) for i in range(k)]
+            frames = [np.stack([block[i][vi]["rgb"] if block[i][vi]
+                                is not None else last[vi]
+                                for i in range(k)]) for vi in active]
+            live = sum(block[i][vi] is not None for i in range(k)
+                       for vi in active)
+            with timer.frames_of(live):
+                probs = bp.step_block(frames, end=ti + k == max_len)
+            for i in range(k):
+                for bi, vi in enumerate(active):
+                    d = block[i][vi]
+                    if d is not None:  # else replayed past its end
+                        n = cores[vi].object_manager.num_obj
+                        save(vi, d, probs[bi, i, :n + 1])
+            ti += k
+        if attached:
+            bp.detach()
+
+
 def main(argv=None):
     parser = make_parser()
     parser.add_argument("--batch", type=int, default=4,
@@ -146,16 +242,21 @@ def main(argv=None):
 
     # group keys from each video's mask schedule (a file-existence probe)
     # and its first frame
-    groups, sequential = {}, []
+    groups, mid_groups, sequential = {}, {}, []
     for r in meta_dataset.get_datasets():
-        d0 = r[0] if r.mask_frame_indices() == [0] else None
-        if d0 is None or d0.get("mask") is None:
-            sequential.append(r)  # mid-stream masks, or none reachable
+        mask_tis = r.mask_frame_indices()
+        if not mask_tis:
+            sequential.append(r)  # no reachable mask: nothing to propagate
             continue
-        key = (tuple(np.asarray(d0["rgb"]).shape),
-               base_cfg.pad_objects(len(d0["valid_labels"])),
-               count_usage(base_cfg, len(r)))
-        groups.setdefault(key, []).append(r)
+        d0 = r[0]
+        shape = tuple(np.asarray(d0["rgb"]).shape)
+        usage = count_usage(base_cfg, len(r))
+        if mask_tis == [0] and d0.get("mask") is not None:
+            key = (shape, base_cfg.pad_objects(len(d0["valid_labels"])),
+                   usage)
+            groups.setdefault(key, []).append(r)
+        else:  # mid-stream masks: the multi-bucket lockstep path
+            mid_groups.setdefault((shape, usage), []).append(r)
 
     for (shape, o_bucket, usage), rs in sorted(groups.items(), key=str):
         cfg = dataclasses.replace(base_cfg,
@@ -165,6 +266,17 @@ def main(argv=None):
             print(f"group {shape} x{o_bucket}obj: "
                   f"{[r.vid_name for r in chunk]}")
             run_group(model, cfg, chunk, args.output, args.save_all, timer)
+    for (shape, usage), rs in sorted(mid_groups.items(), key=str):
+        cfg = dataclasses.replace(base_cfg,
+                                  enable_long_term_count_usage=usage)
+        for i in range(0, len(rs), args.batch):
+            chunk = rs[i:i + args.batch]
+            if len(chunk) == 1:
+                sequential.append(chunk[0])
+                continue
+            print(f"mid-stream group {shape}: {[r.vid_name for r in chunk]}")
+            run_group_midstream(model, cfg, chunk, args.output,
+                                args.save_all, timer)
     for r in sequential:
         cfg = dataclasses.replace(
             base_cfg, enable_long_term_count_usage=count_usage(base_cfg,

@@ -930,3 +930,117 @@ def test_online_incorporate_and_purge_on_the_card_match_the_cpu(dev,
     if perfect:
         diff = (gpu.memory.sensory.cpu() - cpu.memory.sensory).abs().max()
         assert diff.item() <= 5e-3, diff
+
+
+# --------------------------------------------------------------------------
+# batched detection fusion: (video, slot) pairs on the kernels' video axis
+# --------------------------------------------------------------------------
+
+def _pair_calls(dev, method, monkeypatch):
+    """A BatchedDetectionPropagator on the card over two 64x96 videos with
+    multi-bucket, long-term state (video 1 opens a third object's bucket),
+    one step_all; -> {wrapper: its arguments} of that lockstep frame, and
+    the number of (video, slot) pairs."""
+    import copy
+    from deva_tpu_torch.config import InferenceConfig
+    from deva_tpu_torch.inference.batched_detection import \
+        BatchedDetectionPropagator
+    from deva_tpu_torch.inference.core import InferenceCore
+    from deva_tpu_torch.models.network import DEVANetwork, init_weights
+    net = copy.deepcopy(init_weights(DEVANetwork(), seed=0)).to(dev).eval()
+    cfg = InferenceConfig(mem_every=1, top_k=8, enable_long_term=True,
+                          enable_long_term_count_usage=True,
+                          max_mid_term_frames=4, min_mid_term_frames=2,
+                          num_prototypes=8, topk_method=method)
+    rng = np.random.default_rng(51)
+    clips = [dc.small_clip(rng, 8, appear=2, show=0, vanish=0),
+             dc.small_clip(rng, 8, appear=10 ** 6, show=0, vanish=0)]
+    cores = []
+    for vi, (frames, masks, infos) in enumerate(clips):
+        core = InferenceCore(net, cfg)
+        core.enabled_long_id()
+        core.object_manager._rng = np.random.default_rng(5 + vi)
+        for ti in (0, 2):
+            core.incorporate_detection(frames[ti], masks[ti],
+                                       dc.segment_infos(infos[ti]))
+        for ti in (3, 4, 5):
+            core.step(frames[ti])
+        cores.append(core)
+    bp = BatchedDetectionPropagator(net, cfg)
+    bp.attach(cores)
+    module, names = (ak, ("sim_topk", "topk_readout")) if method == "exact" \
+        else (apx, ("segmax", "denom_readout"))
+    calls = {}
+    for name in names:
+        fn = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, _n=name, _f=fn: (
+            calls.__setitem__(_n, a), _f(*a))[1])
+    ak.reset_launch_counts()
+    bp.step_all([c[0][6] for c in clips])
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ak.LAUNCHES.items() if v} == \
+        dict.fromkeys(names, 1), ak.LAUNCHES
+    assert (bp.lt_sizes > 0).any() and bp.n_slots >= 2
+    pairs = bp.key.shape[0] * bp.key.shape[1]
+    bp.detach()
+    return calls, pairs
+
+
+def test_pair_launch_bitwise_per_pair_exact(dev, monkeypatch):
+    """The exact pair's one launch for all (video, slot) pairs of a lockstep
+    frame is bitwise each pair's own launch on its slices ([long-term ;
+    working] keys, the two value segments read in place); sim_topk is
+    within the f32 bound of its plain twin (chip_smoke.check_pair_on_path's
+    bound: the path's keys are not unit-scale), topk_readout within the
+    file's budget."""
+    calls, pairs = _pair_calls(dev, "exact", monkeypatch)
+    qk, qe, mk, ms, valid, k = calls["sim_topk"]
+    gi, w, (lt_v, work_v) = calls["topk_readout"]
+    assert qk.shape[0] == pairs and qk.is_contiguous()
+    gv, gx = ak.sim_topk(qk, qe, mk, ms, valid, k)
+    out = ak.topk_readout(gi, w, (lt_v, work_v))
+    for p in range(pairs):
+        sv, sx = ak.sim_topk(qk[p], qe[p], mk[p], ms[p], valid[p], k)
+        assert torch.equal(_bits(gv[p]), _bits(sv)) and torch.equal(gx[p], sx)
+        so = ak.topk_readout(gi[p], w[p], (lt_v[p], work_v[p]))
+        assert torch.equal(_bits(out[p]), _bits(so))
+    # the network's keys are large and the similarity's terms cancel, so
+    # the twin is held within the f32 bound of an evaluation of the terms:
+    # gamma(2 Ck + 4) times their absolute scale, per row
+    pv, _ = ak.sim_topk_plain(qk, qe, mk, ms, valid, k)
+    ck = mk.shape[-1]
+    scale = (qe.abs() @ (mk * mk).transpose(1, 2)
+             + 2 * (qk * qe).abs() @ mk.abs().transpose(1, 2)
+             + (qe * qk * qk).abs().sum(-1, keepdim=True)) \
+        * ms.abs()[:, None] / ck ** 0.5
+    n_terms = 2 * ck + 4
+    gamma = n_terms * 2.0 ** -24 / (1 - n_terms * 2.0 ** -24)
+    tol = 2 * gamma * scale.masked_fill(~valid[:, None], 0).amax(
+        -1, keepdim=True) + 1e-5
+    both_inf = torch.isinf(gv) & (gv == pv)
+    assert bool((torch.where(both_inf, 0.0, (gv - pv).abs()) <= tol).all())
+    torch.testing.assert_close(out, ak.topk_readout_plain(
+        gi, w, (lt_v, work_v)), rtol=1e-4, atol=1e-4)
+
+
+def test_pair_launch_per_pair_approx(dev, monkeypatch):
+    """The approx pair's one launch for all (video, slot) pairs: segmax
+    bitwise each pair's own launch; denom_readout's rmax and th bitwise,
+    its out and usage within 1e-5 (usage atomics add in another order)."""
+    calls, pairs = _pair_calls(dev, "approx", monkeypatch)
+    ops, geom = calls["segmax"]
+    _, _, seg, v2, k = calls["denom_readout"]
+    assert ops.qcat.shape[0] == pairs
+    got = apx.segmax(ops, geom)
+    assert torch.equal(_bits(got), _bits(seg))
+    out, usage, rmax, th = apx.denom_readout(ops, geom, seg, v2, k)
+    per = lambda p: ops._replace(**{f: getattr(ops, f)[p]
+                                    for f in ops._fields
+                                    if getattr(ops, f) is not None})
+    for p in range(pairs):
+        assert torch.equal(_bits(apx.segmax(per(p), geom)), _bits(seg[p]))
+        o, u, r, t = apx.denom_readout(per(p), geom, seg[p], v2[p], k)
+        assert torch.equal(_bits(rmax[p]), _bits(r))
+        assert torch.equal(_bits(th[p]), _bits(t))
+        torch.testing.assert_close(out[p], o, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(usage[p], u, rtol=1e-5, atol=1e-5)

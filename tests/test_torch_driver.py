@@ -135,12 +135,12 @@ def test_eval_vos_torch_refuses_missing_cuda(tmp_path):
 
 def test_port_imports_without_jax_or_pil():
     """The port runs where neither jax nor PIL is installed: importing every
-    module of deva_tpu_torch (the detection-fusion modules, the copied
-    readers, saver and VIPSeg metrics among them), the batched driver
-    (evaluation/eval_vos_batched_torch.py, by path, which also loads
-    eval_vos_torch.py) and the detection driver
-    (evaluation/eval_with_detections_torch.py), with both blocked must
-    work."""
+    module of deva_tpu_torch (the detection-fusion modules, the batched
+    detection propagator, the copied readers, saver and VIPSeg metrics
+    among them), the batched driver (evaluation/eval_vos_batched_torch.py,
+    by path, which also loads eval_vos_torch.py, with run_group_midstream)
+    and the detection drivers (evaluation/eval_with_detections_torch.py and
+    eval_with_detections_batched_torch.py), with both blocked must work."""
     code = """
 import sys
 sys.modules['jax'] = None
@@ -156,12 +156,21 @@ spec = importlib.util.spec_from_file_location(
 driver = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(driver)
 assert callable(driver.run_group) and callable(driver.run_sequential)
+assert callable(driver.run_group_midstream)
 spec = importlib.util.spec_from_file_location(
     'eval_with_detections_torch', 'evaluation/eval_with_detections_torch.py')
 det = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(det)
 assert callable(det.run_video) and callable(det.main)
-for name in ('deva_tpu_torch.inference.consensus',
+sys.path.insert(0, 'evaluation')
+spec = importlib.util.spec_from_file_location(
+    'eval_with_detections_batched_torch',
+    'evaluation/eval_with_detections_batched_torch.py')
+bdet = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(bdet)
+assert callable(bdet.run_group) and callable(bdet.run_group_online)
+for name in ('deva_tpu_torch.inference.batched_detection',
+             'deva_tpu_torch.inference.consensus',
              'deva_tpu_torch.inference.result_saver',
              'deva_tpu_torch.metrics.eval_vpq_vipseg',
              'deva_tpu_torch.data.vps_test_datasets'):
