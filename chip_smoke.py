@@ -6,7 +6,9 @@ lockstep through BatchedPropagator; detection fusion through
 InferenceCore.incorporate_detection and vote_in_temporary_buffer, and four
 detection or mid-stream videos in lockstep through
 BatchedDetectionPropagator) on the card, in f32 and in deva_tpu's serving
-dtypes (bf16 compute, bf16 memory rings).
+dtypes (bf16 compute, bf16 memory rings); and the evaluation drivers
+(eval_vos_torch with flips and score maps, the referring and saliency
+drivers' soft-mask bidirectional propagation).
 
     python3 chip_smoke.py
 
@@ -145,6 +147,33 @@ tests/test_amp.py's whole-clip budget against the f32 run, frame by frame.
    The exact pair on 7b's and 7c's last lockstep frame, and the approx
    pair on 7c's, held to the twins on those arguments (the batched launch
    bitwise each pair's own launch) and timed: rows `.bdet` and `.bmid`.
+8. The evaluation drivers, through their own per-video functions with
+   in-memory readers and savers that write nothing (the card's machine has
+   no Pillow). 8a: card against CPU at 64x96 (detection_clips.small_clip's
+   frames, phase 6a's configuration given as the drivers' flags):
+   eval_vos_torch.run_video with --flip --save_scores (exact, and approx
+   by chunks of 2; the frames read as if resized) and on a YouTube-VOS-style
+   reader whose second object appears at frame 3; eval_ref_davis_torch
+   (consensus with rising scores, run_bidirectional) and
+   eval_saliency_torch.run_video on 6 frames of soft masks. Every step's
+   probabilities within DET_TOL, score maps within 1/255 (the uint8 cast
+   truncates), backward maps and keyframes equal, masks that differ only
+   at near-ties (binary masks: where both runs' prob[1] - prob[0] lie
+   within DET_TOL of 0), and J and F of the card's masks against the CPU's
+   at least 0.99 (deva_tpu_torch/metrics/jf.py). 8b: run_video with --flip
+   --save_scores at 480p on phase 3's frames and weights, exact per frame
+   and approx by chunks of 5, each kernel of the method on every
+   propagated frame; each run's steps bitwise those of a run on the
+   mirrored clip without --flip, its score maps and masks their mirror
+   images; ms/frame from the driver's StepTimer, peak memory. 8c:
+   eval_ref_davis_torch at 480p (60 frames, one soft-mask object, 5 voting
+   frames, the keyframe at frame 6 so that both passes run and the forward
+   pass consolidates into long-term memory): ms per consensus and per
+   propagated frame in each direction, the image feature store at the end
+   (the passes keep every frame's features), peak memory; the exact pair
+   held to its twins on the arguments of the last frame's composed
+   match_memory and of the consensus' last alignment: rows `.ref` and
+   `.ref.align`.
 
 The second-to-last line of output is a JSON object with each kernel's
 launches (phase 3 for the exact pair, phase 4 for the approx pair), largest
@@ -161,7 +190,10 @@ alignments) and at 6c's last alignment (Q = N = 1620, C = 16 x 512; names
 suffixed ".det.align", launches of the alignments), each with its
 "shape", and for the batched detection path (".bdet": the exact pair at
 7b's last lockstep frame, launches of 7b; ".bmid": both pairs at 7c's,
-launches of 7c); the last line is
+launches of 7c), and for the bidirectional referring driver (".ref": the
+exact pair at 8c's last frame, launches of 8c outside the consensus;
+".ref.align": at the consensus' last alignment, launches of the
+alignments); the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
 from __future__ import annotations
@@ -2321,7 +2353,7 @@ def det_kernel_rows(ak, apx, dev, suffix, calls, launches, label):
                  gl, ring, mode="sum", per_sample_weights=w))}
     shape = (f"Q={q} N={n} C={c} ({len(segs)} segment"
              f"{'s' if len(segs) > 1 else ''})")
-    print(f"phase 6 kernels, {label}, {len(sims)} calls of each held to "
+    print(f"kernels on the path, {label}, {len(sims)} calls of each held to "
           f"the plain twins (value segments per call {n_segs}); timed at "
           f"{shape}, the largest with the most segments: ms "
           + ", ".join(f"{name} {v:.4f}" for name, v in t.items())
@@ -3273,6 +3305,533 @@ def pair_rows_approx(apx, dev, suffix, last, launches, label):
     return rows_out
 
 
+# --------------------------------------------------------------------------
+# phase 8: the VOS driver (flips, score maps, the YouTube-VOS layout) and
+# the referring and saliency drivers (soft-mask bidirectional propagation)
+# --------------------------------------------------------------------------
+
+# phase 6a's small_clip configuration, as the drivers' flags
+SMALL_FLAGS = ["--mem_every", "2", "--top_k", "8", "--disable_long_term"]
+# 8a's frames are read as if resized from this shape, so that the VOS
+# driver resizes its probabilities before it mirrors them back
+SMALL_SHAPE = (80, 120)
+# 8c: the scores of the referring clip's sampled frames (num_voting_frames
+# 5 over 60 frames samples 6, 18, 30, 42 and 54). The highest picks frame
+# 6: the backward pass takes 7 frames and the forward pass 54, which write
+# the 10 memory frames that start long-term consolidation
+REF_SCORES = (0.9, 0.5, 0.6, 0.4, 0.3)
+REF_VOTING = 5
+
+
+def drivers():
+    """eval_vos_torch, eval_ref_davis_torch and eval_saliency_torch."""
+    sys.path.insert(0, os.path.join(ROOT, "evaluation"))
+    import eval_ref_davis_torch
+    import eval_saliency_torch
+    import eval_vos_torch
+    return eval_vos_torch, eval_ref_davis_torch, eval_saliency_torch
+
+
+class VosReader:
+    """An in-memory video for eval_vos_torch.run_video, read as
+    VideoReader's items are: frames [H, W, 3] f32, masks {ti: (id mask,
+    labels)} on the frames that carry one; shape, if given, the frames'
+    shape before a resize (need_resize); to_save the frames written (None:
+    every frame)."""
+
+    def __init__(self, frames, masks, name, shape=None, to_save=None):
+        self.frames, self.masks, self.vid_name = frames, masks, name
+        self.shape, self.to_save = shape, to_save
+
+    def __len__(self):
+        return len(self.frames)
+
+    def __getitem__(self, i):
+        data = {"rgb": self.frames[i], "info": {
+            "frame": f"{i:05d}.jpg",
+            "shape": self.shape or self.frames[i].shape[:2],
+            "need_resize": self.shape is not None,
+            "save": self.to_save is None or i in self.to_save}}
+        if i in self.masks:
+            data["mask"], data["valid_labels"] = self.masks[i]
+        return data
+
+    def get_palette(self):
+        return None
+
+
+class VosSaver:
+    """run_video's saver for phase 8: writes nothing; keeps each written
+    frame's mask and score map by frame index, and the backward map."""
+
+    def __init__(self):
+        self.masks, self.scores, self.backward = {}, {}, None
+
+    def save_mask(self, out_mask, frame):
+        self.masks[int(frame[:5])] = np.array(out_mask)
+
+    def save_scores(self, scores, frame):
+        self.scores[int(frame[:5])] = np.array(scores)
+
+    def save_backward(self, mapping):
+        self.backward = dict(mapping)
+
+
+class StepTap:
+    """The probabilities that a core's step and step_chunk calls return, on
+    the host, in frame order (a step that step_chunk makes is kept once)."""
+
+    def __init__(self, core):
+        self.probs, self.inside = [], 0
+        step, chunk = core.step, core.step_chunk
+
+        def tapped_step(*args, **kwargs):
+            prob = step(*args, **kwargs)
+            if not self.inside:
+                self.probs.append(prob.cpu())
+            return prob
+
+        def tapped_chunk(*args, **kwargs):
+            self.inside += 1
+            try:
+                probs = chunk(*args, **kwargs)
+            finally:
+                self.inside -= 1
+            self.probs += [prob.cpu() for prob in probs]
+            return probs
+
+        core.step, core.step_chunk = tapped_step, tapped_chunk
+
+
+def vos_run(drv, net, dev, reader, flags):
+    """One video through eval_vos_torch.run_video, as its main() runs one:
+    the flags through its parser, the processor made as main makes it,
+    timed by its StepTimer. -> (saver, probabilities, timer, processor)."""
+    import dataclasses
+    from deva_tpu_torch.inference.core import InferenceCore
+    args = drv.get_args(flags + ["--device", dev.type])
+    cfg = drv.base_config(args)
+    core = InferenceCore(net, dataclasses.replace(
+        cfg, enable_long_term_count_usage=drv.count_usage(cfg, len(reader))),
+        device=dev)
+    tap, saver, timer = StepTap(core), VosSaver(), drv.StepTimer(dev)
+    drv.run_video(core, reader, args, saver, timer)
+    return saver, tap.probs, timer, core
+
+
+def final_probs(drv, prob, shape, flip):
+    """The driver's output probabilities of a step's: resized to shape,
+    then mirrored back under --flip (eval_vos_torch.run_video's emit)."""
+    out = drv.resize_prob_to(prob.numpy(), shape)
+    return out[..., ::-1] if flip else out
+
+
+def jf_floor(ours, ref):
+    """The least per-object mean J and F of the card's label maps scored
+    against the CPU's by deva_tpu_torch/metrics/jf.py, over every frame."""
+    from deva_tpu_torch.metrics import jf
+    res = jf.evaluate_masks(ours, ref, skip_first_last=False)
+    return (min(float(v.mean()) for v in res.j_per_object.values()),
+            min(float(v.mean()) for v in res.f_per_object.values()))
+
+
+def compare_vos(drv, cpu, gpu, reader, flip, label, report):
+    """A card run of run_video against the CPU run: the probabilities of
+    every step within DET_TOL; score maps within 1 (1/255: the uint8 cast
+    truncates); backward maps equal; the written masks equal but where
+    the CPU's final probabilities have their top two within 2 DET_TOL (the
+    card's within DET_TOL of them may have another argmax there); J and F
+    of the card's masks against the CPU's at least 0.99."""
+    (s_cpu, p_cpu, _, _), (s_gpu, p_gpu, _, _) = cpu, gpu
+    assert len(p_cpu) == len(p_gpu) == len(reader), (len(p_cpu), len(p_gpu))
+    diff = max((a - b).abs().max().item() for a, b in zip(p_cpu, p_gpu))
+    assert diff <= DET_TOL, f"{label}: |dprob| {diff}"
+    assert s_cpu.backward == s_gpu.backward and s_cpu.backward, \
+        (s_cpu.backward, s_gpu.backward)
+    assert sorted(s_cpu.masks) == sorted(s_gpu.masks) == \
+        sorted(s_cpu.scores) == sorted(s_gpu.scores), label
+    d_scores = max(int(np.abs(s_cpu.scores[t].astype(int) -
+                              s_gpu.scores[t].astype(int)).max())
+                   for t in s_cpu.scores)
+    assert d_scores <= 1, f"{label}: score maps off by {d_scores}"
+    moved = 0
+    for t, mask in s_cpu.masks.items():
+        shape = reader[t]["info"]["shape"]
+        top2 = np.sort(final_probs(drv, p_cpu[t], shape, flip), 0)[-2:]
+        near = top2[1] - top2[0] <= 2 * DET_TOL
+        off = mask != s_gpu.masks[t]
+        assert not (off & ~near).any(), f"{label} frame {t}: mask differs " \
+            "away from a near-tie"
+        moved = max(moved, float(off.mean()))
+    frames = sorted(s_cpu.masks)
+    j, f = jf_floor([s_gpu.masks[t] for t in frames],
+                    [s_cpu.masks[t] for t in frames])
+    assert j >= 0.99 and f >= 0.99, f"{label}: J {j}, F {f}"
+    report.append(f"{label}: |dprob| {diff:.3g}, score maps within "
+                  f"{d_scores}/255, backward {s_gpu.backward}, masks differ "
+                  f"on at most {moved:.4%} of a frame (near-ties only), J "
+                  f"{j:.4f} F {f:.4f} over frames {frames}")
+
+
+class SoftMaskVideos:
+    """An in-memory meta-dataset of one video for eval_ref_davis_torch's
+    consensus and run_bidirectional (and eval_saliency_torch.run_video),
+    read as ReferringDAVISTestDataset's VideoReaders read it: frames [H,
+    W, 3] f32, soft masks [1, H, W] f32, scores by frame or None."""
+
+    def __init__(self, frames, masks, scores=None):
+        self.frames, self.masks, self.scores = frames, masks, scores
+
+    def _reader(self, idx, with_mask):
+        frames, masks = self.frames, self.masks
+
+        class Reader:
+            def __len__(self):
+                return len(idx)
+
+            def __getitem__(self, i):
+                t = idx[i]
+                data = {"rgb": frames[t], "info": {
+                    "frame": f"{t:05d}.jpg", "shape": frames[t].shape[:2],
+                    "need_resize": False, "save": True, "time_index": t}}
+                if with_mask:
+                    data["mask"] = masks[t]
+                return data
+        return Reader()
+
+    def get_offline_sampled_frames(self, vid, num_sampled_frames):
+        return self._reader(sampled_frames(len(self.frames),
+                                           num_sampled_frames), True)
+
+    def get_partial_video_loader(self, vid, *, start, end, reverse):
+        idx = list(range(len(self.frames)))
+        if start >= 0:
+            idx = idx[start:end] if end >= 0 else idx[start:]
+        elif end >= 0:
+            idx = idx[:end]
+        return self._reader(idx[::-1] if reverse else idx, False)
+
+    def get_scores(self, vid):
+        return {f"{t:05d}": s for t, s in self.scores.items()}
+
+
+def sampled_frames(n: int, num_sampled_frames: int) -> list:
+    """The frames that VideoReader(num_sampled_frames=...) reads of n."""
+    m = min(num_sampled_frames, n)
+    return [i * n // m + n // (2 * m) for i in range(m)]
+
+
+def soft_masks(h, w, t, value):
+    """t soft masks [1, h, w]: a box of `value` that moves down a row each
+    frame (tests/test_ref_drivers_smoke.py's clip, at any size)."""
+    out = []
+    for i in range(t):
+        m = np.zeros((1, h, w), np.float32)
+        m[0, h // 6 + i:h * 5 // 8 + i, w // 5:w * 5 // 8] = value
+        out.append(m)
+    return out
+
+
+def bidirectional(drv_ref, drv_sal, net, dev, cfg, meta, n_voting,
+                  saliency, save=None, timer=None):
+    """The referring driver's video (consensus with scores, then
+    run_bidirectional) or the saliency protocol's (eval_saliency_torch.
+    run_video); save(processor, prob, info), if given, runs after each
+    step. -> (keyframe, [(pass, time index, probabilities on the host)],
+    the consensus core, the timer, the two passes' cores)."""
+    from deva_tpu_torch.inference.core import InferenceCore
+    store_core = InferenceCore(net, cfg, device=dev)
+    timer = timer or drv_ref.StepTimer(dev)
+    record, cores = [], []
+
+    def save_fn(processor, prob, info):
+        if not cores or cores[-1] is not processor:
+            cores.append(processor)
+        record.append((len(cores) - 1, info["time_index"], prob.cpu()))
+        if save is not None:
+            save(processor, prob, info)
+
+    if saliency:
+        _, keyframe = drv_sal.run_video(store_core, meta, "soft", n_voting,
+                                        save_fn, timer)
+    else:
+        _, keyframe, projected = drv_ref.consensus(
+            store_core, meta, "soft", n_voting, meta.get_scores("soft"),
+            timer)
+        drv_ref.run_bidirectional(store_core, meta, "soft", keyframe,
+                                  projected, save_fn, timer)
+    return keyframe, record, store_core, timer, cores
+
+
+def compare_bidirectional(cpu, gpu, label, report):
+    """The card's bidirectional run against the CPU's: the same keyframe
+    and frames; probabilities within DET_TOL; the binary masks (prob[1] >
+    prob[0]) differ only where both runs' prob[1] - prob[0] lie within
+    DET_TOL of 0; J and F of the card's final masks against the CPU's at
+    least 0.99."""
+    (k_cpu, r_cpu, *_), (k_gpu, r_gpu, *_) = cpu, gpu
+    assert k_cpu == k_gpu, f"{label}: keyframe {k_gpu} on the card, " \
+        f"{k_cpu} on the CPU"
+    assert [r[:2] for r in r_cpu] == [r[:2] for r in r_gpu], label
+    diff, moved, final = 0.0, 0.0, {}
+    for (_, t, a), (_, _, b) in zip(r_cpu, r_gpu):
+        diff = max(diff, (a - b).abs().max().item())
+        ma, mb = a[1] - a[0], b[1] - b[0]
+        off = (ma > 0) != (mb > 0)
+        assert not bool((off & ~((ma.abs() <= DET_TOL) &
+                                 (mb.abs() <= DET_TOL))).any()), \
+            f"{label} frame {t}: binary mask differs away from 0.5"
+        moved = max(moved, off.float().mean().item())
+        final[t] = ((ma > 0).numpy(), (mb > 0).numpy())  # the last pass's
+    assert diff <= DET_TOL, f"{label}: |dprob| {diff}"
+    frames = sorted(final)
+    j, f = jf_floor([final[t][1].astype(np.uint8) for t in frames],
+                    [final[t][0].astype(np.uint8) for t in frames])
+    assert j >= 0.99 and f >= 0.99, f"{label}: J {j}, F {f}"
+    report.append(f"{label}: keyframe {k_gpu}, {len(r_gpu)} steps, |dprob| "
+                  f"{diff:.3g}, binary masks differ on at most {moved:.4%} "
+                  f"of a frame (both margins within {DET_TOL:g}), J {j:.4f} "
+                  f"F {f:.4f}")
+
+
+def phase_drivers_parity(ak, net_cpu, dev):
+    """Phase 8a: the drivers on the card against the CPU at 64x96
+    (detection_clips.small_clip's frames, phase 6a's configuration:
+    mem_every 2, top_k 8, long-term off, given as the drivers' flags). Through
+    eval_vos_torch.run_video: the generic layout with --flip --save_scores
+    (exact, then --topk_method approx --chunk 2), the frames read as if
+    resized from SMALL_SHAPE; a YouTube-VOS-style reader whose second
+    object appears at frame 3 in its own mask, every other frame written,
+    with --save_scores. Through eval_ref_davis_torch (consensus with
+    rising scores, run_bidirectional) and eval_saliency_torch.run_video: 6
+    frames of soft masks at 0.9, far from the 0.5 of a claimed pixel
+    (compare_vos, compare_bidirectional). The kernels of each method launch
+    on the card."""
+    from deva_tpu_torch.detection_clips import small_clip
+    drv, ref, sal = drivers()
+    frames, masks, _ = small_clip(np.random.default_rng(4), 8)
+    net_gpu = copy.deepcopy(net_cpu).to(dev)
+    cpu = torch.device("cpu")
+    generic = VosReader(frames, {0: (masks[0], np.array([1, 2]))}, "g",
+                        shape=SMALL_SHAPE)
+    youtube = VosReader(frames, {
+        0: ((masks[0] == 1).astype(np.int64), np.array([1])),
+        3: (np.where(masks[3] == 3, 2, 0), np.array([2]))}, "y",
+        to_save=set(range(0, 8, 2)))
+    report = []
+    for label, reader, flags, used in (
+            ("G --flip --save_scores", generic,
+             ["--flip", "--save_scores"], EXACT_PAIR),
+            ("G --flip --save_scores --topk_method approx --chunk 2",
+             generic, ["--flip", "--save_scores", "--topk_method", "approx",
+                       "--chunk", "2"], ("segmax", "denom_readout")),
+            ("Y, object 2 from frame 3, --save_scores", youtube,
+             ["--save_scores"], EXACT_PAIR)):
+        run_cpu = vos_run(drv, net_cpu, cpu, reader, SMALL_FLAGS + flags)
+        ak.reset_launch_counts()
+        run_gpu = vos_run(drv, net_gpu, dev, reader, SMALL_FLAGS + flags)
+        torch.cuda.synchronize()
+        assert all(ak.LAUNCHES[k] > 0 for k in used), (label, ak.LAUNCHES)
+        compare_vos(drv, run_cpu, run_gpu, reader, "--flip" in flags,
+                    f"{label} (launches {dict(ak.LAUNCHES)})", report)
+    assert len(run_gpu[3].memory.buckets) == 2, \
+        "the object of frame 3 did not open a second bucket"
+
+    soft = soft_masks(64, 96, 6, 0.9)
+    meta = SoftMaskVideos(frames[:6], soft,
+                          {t: 0.5 + 0.05 * t for t in range(6)})
+    args = ref.make_parser().parse_args(SMALL_FLAGS)
+    cfg = ref.base_config(args)
+    for label, saliency in (("referring (consensus with scores)", False),
+                            ("saliency (consensus without scores)", True)):
+        run_cpu = bidirectional(ref, sal, net_cpu, cpu, cfg, meta, 3,
+                                saliency)
+        ak.reset_launch_counts()
+        run_gpu = bidirectional(ref, sal, net_gpu, dev, cfg, meta, 3,
+                                saliency)
+        torch.cuda.synchronize()
+        assert all(ak.LAUNCHES[k] > 0 for k in EXACT_PAIR), ak.LAUNCHES
+        compare_bidirectional(run_cpu, run_gpu, f"{label} (launches "
+                              f"{dict(ak.LAUNCHES)})", report)
+    print("phase 8a drivers, card vs cpu at 64x96:\n  "
+          + "\n  ".join(report), flush=True)
+
+
+def phase_vos_driver(ak, net_cpu, dev, n_frames: int = 60, h: int = H480,
+                     w: int = W480):
+    """Phase 8b: eval_vos_torch.run_video with --flip --save_scores at 480p
+    on phase 3's frames, mask and weights, at the driver's defaults: exact
+    per frame (sim_topk and topk_readout on every propagated frame), then
+    approx with --chunk 5 (segmax and denom_readout on every propagated
+    frame). Each run again without --flip on the mirrored clip: the same
+    steps, bitwise, and the flip run's score maps and masks are the
+    mirrored run's mirrored back. Prints ms/frame from the driver's
+    StepTimer (CUDA events; frames 10 onwards) and the peak memory."""
+    drv, _, _ = drivers()
+    frames = synthetic_video(np.random.default_rng(11), h, w, n_frames)
+    mask = two_object_mask(h, w, (60, 300), (330, 520), (260, 450),
+                           (250, 620)) if h == H480 else \
+        two_object_mask(h, w, (8, 30), (10, 40), (30, 50), (45, 80))
+    mirrored = [f[:, ::-1].copy() for f in frames]
+    net = copy.deepcopy(net_cpu).to(dev)
+    used = {"exact": EXACT_PAIR, "approx": ("segmax", "denom_readout")}
+    for method, flags in (("exact", []),
+                          ("approx", ["--topk_method", "approx",
+                                      "--chunk", "5"])):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ak.reset_launch_counts()
+        saver, probs, timer, _ = vos_run(
+            drv, net, dev, VosReader(frames, {0: (mask, np.array([1, 2]))},
+                                     "v480"),
+            ["--flip", "--save_scores"] + flags)
+        torch.cuda.synchronize()
+        launches = dict(ak.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        assert all(launches[k] >= n_frames - 1 for k in used[method]), \
+            launches
+        assert len(saver.scores) == n_frames and saver.backward == \
+            {1: 1, 2: 2}, (len(saver.scores), saver.backward)
+        for prob in probs:
+            assert bool(torch.isfinite(prob).all())
+        # per frame: a step each (exact) or a chunk's time shared by its
+        # frames (approx); frame 0 steps alone
+        sizes = [1] + ([1] * (n_frames - 1) if method == "exact" else
+                       [min(5, n_frames - s) for s in range(1, n_frames, 5)])
+        per_frame = [ms / k for ms, k in zip(timer.steps_ms, sizes)
+                     for _ in range(k)]
+        steady = per_frame[10:]
+        m_saver, m_probs, _, _ = vos_run(
+            drv, net, dev, VosReader(mirrored, {
+                0: (mask[:, ::-1].copy(), np.array([1, 2]))}, "m480"),
+            ["--save_scores"] + flags)
+        same = all(torch.equal(a, b) for a, b in zip(probs, m_probs))
+        assert same and len(probs) == len(m_probs), \
+            f"{method}: the flip run's steps are not the mirrored run's"
+        for t in range(n_frames):
+            assert np.array_equal(saver.scores[t],
+                                  m_saver.scores[t][..., ::-1]), t
+            assert np.array_equal(saver.masks[t],
+                                  m_saver.masks[t][..., ::-1]), t
+        print(f"phase 8b eval_vos_torch.run_video --flip --save_scores "
+              f"{' '.join(flags) or '(exact, per frame)'} at {h}x{w}, "
+              f"{n_frames} frames: ms/frame from its StepTimer median "
+              f"{statistics.median(steady):.3f} (frames 10+, mean "
+              f"{statistics.mean(steady):.3f}, max {max(steady):.3f}; first "
+              f"frame {per_frame[0]:.1f}); launches {launches}; peak "
+              f"allocated {peak:.1f} MiB; the steps bitwise those of the "
+              f"run on the mirrored clip, score maps and masks its mirror "
+              f"images", flush=True)
+
+
+def phase_ref_driver(ak, net_cpu, dev, n_frames: int = 60,
+                     h: int = H480, w: int = W480):
+    """Phase 8c: eval_ref_davis_torch at 480p: consensus over
+    REF_VOTING sampled frames with REF_SCORES, then run_bidirectional, at
+    the default InferenceConfig with one soft-mask object (0.9) on 60
+    synthetic frames; the keyframe falls at frame 6, so the backward pass
+    takes 7 frames and the forward pass 54, whose 10th memory frame starts
+    long-term consolidation. Prints the ms of the consensus and per
+    propagated frame in each direction (the driver's StepTimer), the
+    keyframe, the image feature store at the end (the passes keep every
+    frame's features: delete_buffer=False) and the peak memory. Returns
+    the exact pair's calls on the last frame (a composed match_memory over
+    [long-term ; working]) and in the consensus' last alignment, and the
+    launch counts, for the .ref rows."""
+    _, ref, sal = drivers()
+    gc.collect()
+    frames = synthetic_video(np.random.default_rng(41), h, w, n_frames)
+    scores = dict(zip(sampled_frames(n_frames, REF_VOTING), REF_SCORES))
+    meta = SoftMaskVideos(frames, soft_masks(h, w, n_frames, 0.9), scores)
+    cfg = ref.base_config(ref.make_parser().parse_args([]))
+    net = copy.deepcopy(net_cpu).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ak.reset_launch_counts()
+    tap = KernelTap(ak)
+    align_runs, aligned = [], dict.fromkeys(EXACT_PAIR, 0)
+    from deva_tpu_torch.inference import core as core_mod
+    real_align = core_mod.InferenceCore.spatial_alignment
+
+    def tapped_align(self, *a):
+        before = dict(ak.LAUNCHES)
+        tap.tag, tap.calls["align"] = "align", []
+        try:
+            return real_align(self, *a)
+        finally:
+            tap.tag = "memory"
+            align_runs.append({k: ak.LAUNCHES[k] - before[k]
+                               for k in EXACT_PAIR})
+
+    core_mod.InferenceCore.spatial_alignment = tapped_align
+    try:
+        keyframe, record, store_core, timer, cores = bidirectional(
+            ref, sal, net, dev, cfg, meta, REF_VOTING, False,
+            save=lambda *a: tap.frame())
+    finally:
+        core_mod.InferenceCore.spatial_alignment = real_align
+        tap.restore()
+    torch.cuda.synchronize()
+    launches = dict(ak.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    store = store_core.image_feature_store
+    store_mib = sum(t.numel() * t.element_size() for feats in
+                    store._store.values() for t in _tensors(feats)) / 2**20
+    backward, forward = cores
+    lt = forward.memory.long_buckets.get(0)
+    assert keyframe == 6, keyframe
+    assert [p for p, *_ in record] == [0] * 7 + [1] * (n_frames - 6)
+    assert lt is not None and lt.size > 0, \
+        "the forward pass never consolidated"
+    assert len(store) == n_frames, len(store)
+    assert all(r == dict.fromkeys(EXACT_PAIR, 1) for r in align_runs), \
+        align_runs
+    for _, t, prob in record:
+        assert prob.shape == (2, h, w) and bool(torch.isfinite(prob).all())
+        torch.testing.assert_close(prob.sum(0), torch.ones_like(prob[0]),
+                                   rtol=0, atol=1e-4)
+    for k in EXACT_PAIR:
+        aligned[k] = sum(r[k] for r in align_runs)
+    steps = timer.steps_ms
+    print(f"phase 8c eval_ref_davis_torch at {h}x{w}, {n_frames} frames, "
+          f"one soft-mask object, {REF_VOTING} voting frames "
+          f"({sorted(scores)}, scores {REF_SCORES}): keyframe {keyframe}; "
+          f"consensus {steps[0]:.3f} ms ({len(align_runs)} alignments); "
+          f"ms per propagated frame (StepTimer, CUDA events) backward "
+          f"median {statistics.median(steps[2:8]):.3f} (7 frames, the "
+          f"keyframe's {steps[1]:.1f}), forward median "
+          f"{statistics.median(steps[9:]):.3f} ({n_frames - 6} frames, the "
+          f"keyframe's {steps[8]:.1f}); long-term tokens at the end "
+          f"{lt.size}/{lt.cap}; image feature store {len(store)} frames, "
+          f"{store_mib:.1f} MiB; launches {launches}; peak allocated "
+          f"{peak:.1f} MiB (with --topk_method approx these composed steps "
+          f"take the dense threshold form, no kernel, as deva_tpu's do)",
+          flush=True)
+    memory_launches = {k: launches[k] - aligned[k] for k in EXACT_PAIR}
+    return (tap.last_frame, memory_launches, tap.calls["align"], aligned)
+
+
+def _tensors(x):
+    if torch.is_tensor(x):
+        return [x]
+    return [t for item in x for t in _tensors(item)]
+
+
+def phase8(ak, apx, net_cpu, dev) -> list:
+    """Phases 8a-8c; -> the kernels line's .ref and .ref.align rows."""
+    phase_drivers_parity(ak, net_cpu, dev)
+    phase_vos_driver(ak, net_cpu, dev)
+    last, launches, align_calls, aligned = phase_ref_driver(ak, net_cpu,
+                                                            dev)
+    rows = det_kernel_rows(ak, apx, dev, ".ref", last, launches,
+                           "8c's last frame (composed match_memory)")
+    del last
+    rows += det_kernel_rows(ak, apx, dev, ".ref.align", align_calls,
+                            aligned, "8c's last consensus alignment")
+    return rows
+
+
 SMI = []
 
 
@@ -3370,6 +3929,7 @@ def main() -> int:
     det_rows += det_kernel_rows(ak, apx, dev, ".det.align", align_calls,
                                 aligned, "6c's last spatial alignment")
     det_rows += phase7(ak, apx, net_cpu, dev)
+    det_rows += phase8(ak, apx, net_cpu, dev)
 
     rows = []
     for ring, res_exact, res_approx, run_exact, run_approx, suffix in (

@@ -1,9 +1,9 @@
 """Evaluation video reader (host-side, numpy/PIL).
 
 A copy of deva_tpu/data/video_reader.py:VideoReader (host-only code: the
-port imports nothing of deva_tpu), without the RLE `segmentation_from_dict`
-source of the detection drivers (not ported yet). PIL is imported inside the
-methods that decode files.
+port imports nothing of deva_tpu), with its RLE `segmentation_from_dict`
+source (per-frame, per-object RLE masks, decoded by utils/rle.py). PIL is
+imported inside the methods that decode files.
 
 Behavioral anchor: reference:deva/inference/data/video_reader.py:17-239
 
@@ -21,6 +21,7 @@ import numpy as np
 
 from deva_tpu_torch.data.transforms import (load_image, resize_mask_nearest,
                                             resize_soft_mask)
+from deva_tpu_torch.utils import rle as rle_codec
 
 
 class VideoReader:
@@ -42,6 +43,7 @@ class VideoReader:
                  soft_mask: bool = False,
                  object_name: Optional[str] = None,
                  multi_object: bool = True,
+                 segmentation_from_dict: Optional[Dict] = None,
                  enabled_frame_list: Optional[List[str]] = None):
         self.vid_name = vid_name
         self.image_dir = image_dir
@@ -51,10 +53,15 @@ class VideoReader:
         self.soft_mask = soft_mask
         self.object_name = object_name
         self.multi_object = multi_object
+        self.segmentation_from_dict = segmentation_from_dict
         self.size_dir = size_dir if size_dir is not None else image_dir
         self.size = size
 
-        self.frames = sorted(os.listdir(image_dir))
+        if segmentation_from_dict is None:
+            self.frames = sorted(os.listdir(image_dir))
+        else:
+            ext = sorted(os.listdir(image_dir))[0][-4:]
+            self.frames = [f + ext for f in sorted(segmentation_from_dict)]
 
         if enabled_frame_list is not None:
             self.frames = [f for f in self.frames
@@ -78,7 +85,9 @@ class VideoReader:
             self.frames = list(reversed(self.frames))
 
         self.palette = None
-        if soft_mask:
+        if segmentation_from_dict is not None:
+            self.first_mask_frame = self.frames[0]
+        elif soft_mask:
             if multi_object and object_name is None:
                 self.prob_folders = sorted(
                     f for f in os.listdir(mask_dir) if ".csv" not in f)
@@ -126,6 +135,13 @@ class VideoReader:
         return data
 
     def _load_mask(self, frame: str, info: Dict):
+        if self.segmentation_from_dict is not None:
+            pred = self.segmentation_from_dict[frame[:-4]][self.object_name]
+            mask = rle_codec.decode(pred["segmentation"]).astype(np.float32)
+            if self.size > 0:
+                mask = resize_soft_mask(mask, self.size)
+            return mask[None], np.arange(1, 2)
+
         from PIL import Image
         if self.soft_mask:
             masks = []
@@ -168,7 +184,7 @@ class VideoReader:
         cand = [i for i, f in enumerate(self.frames)
                 if self.use_all_masks or
                 f[:-4] == self.first_mask_frame[:-4]]
-        if self.soft_mask:
+        if self.segmentation_from_dict is not None or self.soft_mask:
             return cand
         return [i for i in cand
                 if path.exists(path.join(self.mask_dir,

@@ -1,13 +1,14 @@
 """Benchmark meta-datasets for semi-supervised VOS evaluation.
 
-A copy of the generic and DAVIS datasets of deva_tpu/data/vos_test_datasets.py
-(host-only code: the port imports nothing of deva_tpu).
+A copy of deva_tpu/data/vos_test_datasets.py (host-only code: the port
+imports nothing of deva_tpu): the generic, DAVIS and YouTube-VOS layouts.
 
 Behavioral anchor: reference:deva/inference/data/vos_test_datasets.py:8-97 —
 these enumerate videos and hand out per-video readers.
 """
 from __future__ import annotations
 
+import json
 import os
 from os import path
 
@@ -70,3 +71,32 @@ class DAVISTestDataset:
     def __len__(self):
         return len(self.vid_list)
 
+
+class YouTubeVOSTestDataset:
+    def __init__(self, data_root: str, split: str, size: int = 480):
+        self.image_dir = path.join(data_root, "all_frames",
+                                   split + "_all_frames", "JPEGImages")
+        self.mask_dir = path.join(data_root, split, "Annotations")
+        self.size = size
+        self.vid_list = sorted(os.listdir(self.image_dir))
+        self.req_frame_list = {}
+        with open(path.join(data_root, split, "meta.json")) as f:
+            meta = json.load(f)["videos"]
+        for vid in self.vid_list:
+            req = []
+            for value in meta[vid]["objects"].values():
+                req.extend(value["frames"])
+            self.req_frame_list[vid] = list(set(req))
+
+    def get_datasets(self):
+        for video in self.vid_list:
+            yield VideoReader(
+                video,
+                path.join(self.image_dir, video),
+                path.join(self.mask_dir, video),
+                size=self.size,
+                to_save=self.req_frame_list[video],
+                use_all_masks=True)
+
+    def __len__(self):
+        return len(self.vid_list)

@@ -64,7 +64,12 @@ def _tokens(x: torch.Tensor) -> torch.Tensor:
 
 class InferenceCore:
     def __init__(self, model: DEVANetwork, config: InferenceConfig, *,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 image_feature_store: Optional[ImageFeatureStore] = None):
+        """image_feature_store: a store shared with other cores of the same
+        video (the bidirectional drivers give the consensus core's to both
+        propagation passes, deva_tpu/inference/core.py:40); by default the
+        core makes its own."""
         self.model = model.eval()
         self.device = torch.device(device) if device is not None else \
             next(model.parameters()).device
@@ -77,8 +82,10 @@ class InferenceCore:
         self.object_manager = ObjectManager()
         self.memory: Optional[MemoryEngine] = None
         self.o_cap = 0
-        self.image_feature_store = ImageFeatureStore(
-            self.model.encode_image, self.model.transform_key)
+        if image_feature_store is None:  # (an empty store is falsy)
+            image_feature_store = ImageFeatureStore(
+                self.model.encode_image, self.model.transform_key)
+        self.image_feature_store = image_feature_store
         self.last_mask: Optional[torch.Tensor] = None  # [O_cap, H, W] probs
         self.pad: Tuple[int, int, int, int] = (0, 0, 0, 0)
         self.frame_buffer: List = []  # online/semi-online buffering

@@ -55,6 +55,7 @@ from deva_tpu_torch.ops.attention_kernels import (LAUNCHES, RING_DTYPES,
                                                   _on_cuda, _ptr, _require,
                                                   _ring_dtype, _stream,
                                                   _videos)
+from deva_tpu_torch.ops.cuda_build import KernelError
 
 
 def _round_up(x: int, m: int) -> int:
@@ -152,13 +153,13 @@ def _check_cuda_operands(ops: Operands, kernel: str):
     q, kc = ops.qcat.shape[-2:]
     n = ops.mcat.shape[-2]
     if kc > 128 or kc % 4:
-        raise ValueError(f"{kernel}: operand width {kc} must be a multiple "
-                         "of 4 and at most 128")
+        raise KernelError(f"{kernel}: operand width {kc} must be a multiple "
+                          "of 4 and at most 128")
     f32 = torch.float32
     _require(ops.qcat, "qcat", f32, (*lead, q, kc))
     _require(ops.mcat, "mcat", f32, (*lead, n, kc))
     if ops.qcat.data_ptr() % 16 or ops.mcat.data_ptr() % 16:
-        raise ValueError(f"{kernel}: qcat and mcat must be 16-byte aligned")
+        raise KernelError(f"{kernel}: qcat and mcat must be 16-byte aligned")
     _require(ops.msv, "msv", f32, (*lead, n))
     if ops.bsq is not None:
         _require(ops.bsq, "bsq", f32, (*lead, q))
@@ -204,7 +205,7 @@ def _segmax_cuda(ops: Operands, geom: Geometry) -> torch.Tensor:
         _ptr(ops.msv), _ptr(_valid_u8(ops)), lead[0] if lead else 1, q,
         geom.n, kc, geom.n_tile, geom.folds, _ptr(out), _stream(out.device))
     if err != 0:
-        raise RuntimeError(f"segmax kernel launch failed: CUDA error {err}")
+        raise KernelError(f"segmax kernel launch failed: CUDA error {err}")
     LAUNCHES["segmax"] += 1
     return out
 
@@ -283,7 +284,7 @@ def _denom_readout_cuda(ops: Operands, geom: Geometry, seg, values2d,
     q, kc = ops.qcat.shape[-2:]
     n, c = values2d.shape[-2:]
     if top_k < 1:
-        raise ValueError(f"denom_readout: top_k={top_k} < 1")
+        raise KernelError(f"denom_readout: top_k={top_k} < 1")
     f32 = torch.float32
     _require(seg, "segmax", f32, (*lead, q, geom.nseg))
     rdt = _ring_dtype((values2d,), "denom_readout")
@@ -304,7 +305,7 @@ def _denom_readout_cuda(ops: Operands, geom: Geometry, seg, values2d,
         geom.n_tile, geom.folds, c, top_k, int(vec), _ptr(out), _ptr(usage),
         _ptr(used[0]), _ptr(used[1]), _stream(dev))
     if err != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"denom_readout kernel launch failed: CUDA error {err}")
     LAUNCHES["denom_readout"] += 1
     return out, usage, used[0], used[1]
@@ -351,7 +352,7 @@ def sim2_at(ops: Operands, idx: torch.Tensor) -> torch.Tensor:
         _ptr(ops.msv), _ptr(_valid_u8(ops)), _ptr(idx), q, ops.mcat.shape[0],
         kc, idx.shape[1], _ptr(out), _stream(idx.device))
     if err != 0:
-        raise RuntimeError(f"sim2_at kernel launch failed: CUDA error {err}")
+        raise KernelError(f"sim2_at kernel launch failed: CUDA error {err}")
     return out
 
 

@@ -54,6 +54,7 @@ from typing import Optional
 import torch
 
 from deva_tpu_torch.ops import memory_attention as ma
+from deva_tpu_torch.ops.cuda_build import KernelError
 
 # launches of each kernel since the last reset_launch_counts()
 LAUNCHES = {"sim_topk": 0, "topk_readout": 0, "segmax": 0,
@@ -73,7 +74,7 @@ def _on_cuda(*tensors) -> bool:
         return True
     if kinds == {"cpu"}:
         return False
-    raise ValueError(f"tensors on mixed or unsupported devices: {kinds}")
+    raise KernelError(f"tensors on mixed or unsupported devices: {kinds}")
 
 
 # the dtypes a ring may have on the card, and the code the kernels take
@@ -84,10 +85,10 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
+        raise KernelError(f"{name}: expected shape {tuple(shape)}, "
+                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+        raise KernelError(f"{name}: must be contiguous")
 
 
 def _ring_dtype(rings, name: str) -> torch.dtype:
@@ -195,9 +196,9 @@ def _sim_topk_cuda(qk, qe, mk, ms, valid, top_k: int, plan=None):
     q, ck = qk.shape[-2:]
     n = mk.shape[-2]
     if ck > CK_MAX:
-        raise ValueError(f"sim_topk: key dim {ck} > {CK_MAX}")
+        raise KernelError(f"sim_topk: key dim {ck} > {CK_MAX}")
     if not 1 <= top_k <= K_MAX:
-        raise ValueError(f"sim_topk: top_k={top_k} outside [1, {K_MAX}]")
+        raise KernelError(f"sim_topk: top_k={top_k} outside [1, {K_MAX}]")
     _check_ring(n)
     top_k = min(top_k, n)  # as the twin's sort-and-slice
     f32 = torch.float32
@@ -228,7 +229,7 @@ def _sim_topk_cuda(qk, qe, mk, ms, valid, top_k: int, plan=None):
         b, q, n, ck, top_k, splits, split_len, msv_divisor(ck), _ptr(scratch),
         _ptr(out[0]), _ptr(out[1]), _stream(dev))
     if err != 0:
-        raise RuntimeError(f"sim_topk kernel launch failed: CUDA error {err}")
+        raise KernelError(f"sim_topk kernel launch failed: CUDA error {err}")
     LAUNCHES["sim_topk"] += 1
     return out[0].view(f32), out[1]
 
@@ -301,7 +302,7 @@ def _topk_readout_cuda(indices, weights, values):
     q, k = indices.shape[-2:]
     segs = _segments(values)
     if len(segs) not in (1, 2):
-        raise ValueError(f"topk_readout: {len(segs)} ring segments")
+        raise KernelError(f"topk_readout: {len(segs)} ring segments")
     c = segs[0].shape[-1]
     _require(indices, "indices", torch.int32, (*lead, q, k))
     _require(weights, "weights", torch.float32, (*lead, q, k))
@@ -320,7 +321,7 @@ def _topk_readout_cuda(indices, weights, values):
                                 lead[0] if lead else 1, q, k, c, int(vec),
                                 _ptr(out), _stream(va.device))
     if err != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"topk_readout kernel launch failed: CUDA error {err}")
     LAUNCHES["topk_readout"] += 1
     return out

@@ -6,6 +6,11 @@ with ctypes. Each source is compiled by its own nvcc process, all started
 together, and the objects are then linked into one library. The library goes into deva_tpu_torch/_build/ (git-ignored),
 under a name keyed by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is reused. Nothing here runs at import time.
+
+A kernel that cannot be built, loaded or launched, or whose wrapper refuses
+its operands, raises KernelError, which
+the drivers' per-video fault barrier (inference/eval_args.py) never
+swallows: a run whose kernels fail must fail.
 """
 from __future__ import annotations
 
@@ -44,6 +49,13 @@ _SIGNATURES = {
 _lib = None
 
 
+class KernelError(RuntimeError, ValueError):
+    """A CUDA kernel of the port failed to build, load or launch, or its
+    wrapper refused the operands before the launch (a shape, width, top_k
+    or device mix the kernel does not take). It is also a ValueError, the
+    type such refusals had before, so callers that caught it still do."""
+
+
 def _sources():
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
@@ -58,7 +70,7 @@ def _nvcc() -> str:
         home = CUDA_HOME
     if home and (Path(home) / "bin" / "nvcc").exists():
         return str(Path(home) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+    raise KernelError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
 def library_path() -> Path:
@@ -78,7 +90,7 @@ def _nvcc_all(cmds) -> str:
     outs = [proc.communicate() for proc in procs]
     for cmd, proc, (_, err) in zip(cmds, procs, outs):
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{err}")
+            raise KernelError(f"nvcc failed ({' '.join(cmd)}):\n{err}")
     return "\n".join(out + err for out, err in outs)
 
 
@@ -111,7 +123,12 @@ def load() -> ctypes.CDLL:
     """The kernel library, built on first call."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        path = build()
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise KernelError(f"cannot load the kernel library {path}: "
+                              f"{e}") from e
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

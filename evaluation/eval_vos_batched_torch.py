@@ -4,9 +4,14 @@ deva_tpu_torch/inference/batched.py (one batch-B model call per stage, one
 launch of each attention kernel per lockstep frame).
 
 The port's counterpart of evaluation/eval_vos_batched.py, for the generic
-(G) and DAVIS (D16/D17) layouts, with the flags of eval_vos_torch.py plus
---batch. Grouping: videos are lockstepped only with videos of the same
-processed frame shape, the same object-count bucket (pad_objects) and the
+(G), DAVIS (D16/D17) and YouTube-VOS (Y18/Y19: masks under Annotations/,
+then the zip) layouts, with eval_vos_torch.make_parser's flags plus --batch
+(--flip and --save_scores are the single-stream driver's only, as in
+deva_tpu). Each group, and each video run alone, is one unit of the
+per-video fault barrier (--raise_on_error).
+
+Grouping: videos are lockstepped only with videos of the same processed
+frame shape, the same object-count bucket (pad_objects) and the
 same long-term usage-counting policy. Videos whose masks arrive after
 their first frame (YouTube-VOS style: a new object appears at frame t > 0)
 are grouped by frame shape and usage policy and run in lockstep by
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import shutil
 import sys
 from os import path
 
@@ -45,6 +51,8 @@ from deva_tpu_torch.inference.batched import BatchedPropagator  # noqa: E402
 from deva_tpu_torch.inference.batched_detection import \
     BatchedDetectionPropagator  # noqa: E402
 from deva_tpu_torch.inference.core import InferenceCore  # noqa: E402
+from deva_tpu_torch.inference.eval_args import \
+    video_fault_barrier  # noqa: E402
 from deva_tpu_torch.utils.prefetch import Prefetcher  # noqa: E402
 from eval_vos_torch import (StepTimer, base_config, count_usage,  # noqa
                             load_model, make_dataset, make_parser, save_mask,
@@ -233,6 +241,9 @@ def main(argv=None):
     if args.output is None:
         args.output = f"../output/{args.dataset}_{args.split}"
         print(f"Output path not provided. Defaulting to {args.output}")
+    is_youtube = args.dataset.startswith("Y")
+    out_path = path.join(args.output, "Annotations") if is_youtube \
+        else args.output
     meta_dataset = make_dataset(args)
     if args.dataset == "G" and not args.save_all:
         args.save_all = True
@@ -263,9 +274,10 @@ def main(argv=None):
                                   enable_long_term_count_usage=usage)
         for i in range(0, len(rs), args.batch):
             chunk = rs[i:i + args.batch]
-            print(f"group {shape} x{o_bucket}obj: "
-                  f"{[r.vid_name for r in chunk]}")
-            run_group(model, cfg, chunk, args.output, args.save_all, timer)
+            names = [r.vid_name for r in chunk]
+            print(f"group {shape} x{o_bucket}obj: {names}")
+            with video_fault_barrier(", ".join(names), args.raise_on_error):
+                run_group(model, cfg, chunk, out_path, args.save_all, timer)
     for (shape, usage), rs in sorted(mid_groups.items(), key=str):
         cfg = dataclasses.replace(base_cfg,
                                   enable_long_term_count_usage=usage)
@@ -274,15 +286,18 @@ def main(argv=None):
             if len(chunk) == 1:
                 sequential.append(chunk[0])
                 continue
-            print(f"mid-stream group {shape}: {[r.vid_name for r in chunk]}")
-            run_group_midstream(model, cfg, chunk, args.output,
-                                args.save_all, timer)
+            names = [r.vid_name for r in chunk]
+            print(f"mid-stream group {shape}: {names}")
+            with video_fault_barrier(", ".join(names), args.raise_on_error):
+                run_group_midstream(model, cfg, chunk, out_path,
+                                    args.save_all, timer)
     for r in sequential:
         cfg = dataclasses.replace(
             base_cfg, enable_long_term_count_usage=count_usage(base_cfg,
                                                                len(r)))
         print(f"sequential: {r.vid_name}")
-        run_sequential(model, cfg, r, args.output, args.save_all, timer)
+        with video_fault_barrier(r.vid_name, args.raise_on_error):
+            run_sequential(model, cfg, r, out_path, args.save_all, timer)
 
     print(f"Total processing time: {timer.total_s}")
     print(f"Total processed frames: {timer.frames}")
@@ -291,6 +306,12 @@ def main(argv=None):
     if device.type == "cuda":
         print("Max allocated memory (MB): "
               f"{torch.cuda.max_memory_allocated(device) / 2 ** 20:.1f}")
+
+    if is_youtube:
+        print("Making zip for YouTubeVOS...")
+        shutil.make_archive(path.join(args.output,
+                                      path.basename(args.output)),
+                            "zip", args.output, "Annotations")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,11 @@
 """Semi-supervised VOS evaluation with deva_tpu_torch (PyTorch + CUDA).
 
-The port's counterpart of evaluation/eval_vos.py, for the generic (G) and
-DAVIS (D16/D17) layouts: the same flags, the same palette PNG output, the
-same FPS report. Steps are timed with CUDA events on a CUDA device.
+The port's counterpart of evaluation/eval_vos.py, for the generic (G),
+DAVIS (D16/D17) and YouTube-VOS (Y18/Y19) layouts: the same flags, the same
+output layout (palette PNGs; under Annotations/ for YouTube-VOS or with
+--save_scores; the YouTube-VOS zip, and the DAVIS test-dev zip, unless
+--save_scores), the same FPS report. Steps are timed with CUDA events on a
+CUDA device.
 
 Usage (the example clip, on the card):
   python evaluation/eval_vos_torch.py --dataset G \
@@ -22,11 +25,21 @@ TF32 stays off on the card, so the f32 layers run in true f32 in every
 configuration. --use_pallas_attention is accepted for parity with
 eval_vos.py and changes nothing: the port has one attention route per
 method (deva_tpu_torch/config.py).
+
+--flip propagates the mirrored video and mirrors the probabilities back
+after the resize; --save_scores also writes each saved frame's
+probabilities as uint8 (Scores/<video>/<frame>.npy, prob * 255 truncated)
+and the last frame's {object id: channel} map (backward.npy), the input of
+scripts/merge_multi_scale_torch.py. Each video runs inside a fault barrier
+(deva_tpu_torch/inference/eval_args.py): a video that fails on its data is
+logged and skipped, unless --raise_on_error; kernel and device errors
+always end the run.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import shutil
 import sys
 import time
 from argparse import ArgumentParser
@@ -40,20 +53,24 @@ sys.path.insert(0, path.dirname(path.dirname(path.abspath(__file__))))
 from deva_tpu_torch.config import InferenceConfig, ModelConfig
 from deva_tpu_torch.data.transforms import resize_prob_to
 from deva_tpu_torch.data.vos_test_datasets import (DAVISTestDataset,
-                                                   GeneralVOSTestDataset)
+                                                   GeneralVOSTestDataset,
+                                                   YouTubeVOSTestDataset)
 from deva_tpu_torch.inference.core import InferenceCore
+from deva_tpu_torch.inference.eval_args import video_fault_barrier
 from deva_tpu_torch.models.convert import variables_to_state_dict
 from deva_tpu_torch.models.network import DEVANetwork, init_weights
 
 
 def make_parser() -> ArgumentParser:
-    """The driver's flags (evaluation/eval_vos_batched_torch.py adds
-    --batch to the same set)."""
+    """The flags of both VOS drivers (evaluation/eval_vos_batched_torch.py
+    adds --batch; get_args adds this driver's --save_scores and --flip)."""
     parser = ArgumentParser()
     parser.add_argument("--d16_path", default="../DAVIS/2016")
     parser.add_argument("--d17_path", default="../DAVIS/2017")
+    parser.add_argument("--y18_path", default="../YouTube2018")
+    parser.add_argument("--y19_path", default="../YouTube")
     parser.add_argument("--generic_path", default="./example/vos")
-    parser.add_argument("--dataset", help="D16/D17/G", default="D17")
+    parser.add_argument("--dataset", help="D16/D17/Y18/Y19/G", default="D17")
     parser.add_argument("--split", help="val/test", default="val")
     parser.add_argument("--use_all_masks", action="store_true")
     parser.add_argument("--chunk", type=int, default=1,
@@ -68,7 +85,7 @@ def add_common_args(parser: ArgumentParser) -> None:
     """The flags every port driver takes (deva_tpu's add_common_eval_args,
     deva_tpu/inference/eval_args.py, without its object sharding and
     profiler): weights, output, device and dtypes, model dims, memory and
-    attention."""
+    attention, and the per-video fault barrier."""
     parser.add_argument("--model", default="./saves/DEVA-propagation.pth")
     parser.add_argument("--output", default=None)
     parser.add_argument("--save_all", action="store_true",
@@ -108,10 +125,19 @@ def add_common_args(parser: ArgumentParser) -> None:
     parser.add_argument("--use_pallas_attention", action="store_true",
                         help="accepted for eval_vos.py parity; the port's "
                         "attention route is set by --topk_method alone")
+    parser.add_argument("--raise_on_error", action="store_true",
+                        help="re-raise per-video errors instead of logging "
+                        "and continuing with the next video (kernel and "
+                        "device errors always re-raise)")
 
 
 def get_args(argv=None):
-    return make_parser().parse_args(argv)
+    """This driver's flags: make_parser's, plus the test-time options that
+    the batched driver does not take, as in deva_tpu."""
+    parser = make_parser()
+    parser.add_argument("--save_scores", action="store_true")
+    parser.add_argument("--flip", action="store_true")
+    return parser.parse_args(argv)
 
 
 def setup_device(args) -> torch.device:
@@ -172,6 +198,10 @@ def load_model(args, device: torch.device) -> DEVANetwork:
 
 
 def make_dataset(args):
+    if args.dataset.startswith("Y"):
+        yv_path = args.y18_path if args.dataset == "Y18" else args.y19_path
+        split = "valid" if args.split == "val" else args.split
+        return YouTubeVOSTestDataset(yv_path, split=split, size=args.size)
     if args.dataset == "G":
         return GeneralVOSTestDataset(args.generic_path, size=args.size,
                                      use_all_masks=args.use_all_masks)
@@ -195,6 +225,30 @@ def save_mask(out_mask: np.ndarray, palette, out_dir: str, frame: str):
     if palette is not None:
         img.putpalette(palette)
     img.save(path.join(out_dir, frame[:-4] + ".png"))
+
+
+class VideoSaver:
+    """One video's files, in eval_vos.py's layout: palette PNGs under
+    out_path/<video>/, and (--save_scores) uint8 score maps and the
+    backward map under scores_path/<video>/."""
+
+    def __init__(self, out_path: str, scores_path: str, vid_name: str,
+                 palette):
+        self.mask_dir = path.join(out_path, vid_name)
+        self.scores_dir = path.join(scores_path, vid_name)
+        self.palette = palette
+
+    def save_mask(self, out_mask: np.ndarray, frame: str) -> None:
+        save_mask(out_mask, self.palette, self.mask_dir, frame)
+
+    def save_scores(self, scores: np.ndarray, frame: str) -> None:
+        os.makedirs(self.scores_dir, exist_ok=True)
+        np.save(path.join(self.scores_dir, frame[:-4] + ".npy"), scores)
+
+    def save_backward(self, mapping: dict) -> None:
+        os.makedirs(self.scores_dir, exist_ok=True)
+        np.save(path.join(self.scores_dir, "backward.npy"), mapping,
+                allow_pickle=True)
 
 
 class StepTimer:
@@ -237,6 +291,79 @@ class StepTimer:
         return False
 
 
+def run_video(processor: InferenceCore, reader, args, saver,
+              timer: "StepTimer") -> None:
+    """One video through the processor, as eval_vos.py's loop and _emit
+    (:42-80) run it. reader: len() and reader[i] -> {"rgb": [H, W, 3] f32,
+    "mask" and "valid_labels" where a mask is given, "info": {"frame",
+    "shape", "need_resize", "save"}} (as VideoReader); saver: save_mask,
+    save_scores, save_backward (as VideoSaver); timer: a StepTimer, entered
+    around each step. Frames before the first mask are skipped. --flip
+    steps the mirrored frame and mask (copies: torch takes no negative
+    strides) and mirrors the probabilities back after the resize."""
+    vid_length = len(reader)
+
+    def emit(ti, data, prob):
+        info = data["info"]
+        prob = prob.cpu().numpy()
+        if info["need_resize"]:
+            prob = resize_prob_to(prob, tuple(info["shape"]))
+        if args.flip:
+            prob = prob[..., ::-1]
+        out_mask = processor.object_manager.tmp_cls_to_obj_cls(
+            np.argmax(prob, axis=0))
+        saved = args.save_all or info["save"]
+        if saved:
+            saver.save_mask(out_mask, info["frame"])
+        if args.save_scores:
+            if ti == vid_length - 1:
+                saver.save_backward(
+                    {o.id: t for t, o in
+                     processor.object_manager.tmp_id_to_obj.items()})
+            if saved:
+                saver.save_scores((prob * 255).astype(np.uint8),
+                                  info["frame"])
+
+    pending = []  # buffered (ti, data) of maskless frames for step_chunk
+
+    def flush(end: bool):
+        if not pending:
+            return
+        with timer.frames_of(len(pending)):
+            probs = processor.step_chunk([d["rgb"] for _, d in pending],
+                                         end=end)
+        for (ti, data), prob in zip(pending, probs):
+            emit(ti, data, prob)
+        pending.clear()
+
+    first_mask_loaded = False
+    for ti in range(vid_length):
+        data = reader[ti]
+        mask = data.get("mask")
+        if not first_mask_loaded:
+            if mask is None:
+                continue
+            first_mask_loaded = True
+        if args.flip:
+            data["rgb"] = np.asarray(data["rgb"])[:, ::-1].copy()
+            if mask is not None:
+                mask = np.asarray(mask)[..., ::-1].copy()
+        if args.chunk > 1 and mask is None:
+            pending.append((ti, data))
+            if len(pending) >= args.chunk or ti == vid_length - 1:
+                flush(end=ti == vid_length - 1)
+            continue
+        flush(end=False)
+        labels = data.get("valid_labels")
+        labels = None if labels is None else [int(v) for v in labels]
+
+        with timer:
+            prob = processor.step(data["rgb"], mask, labels,
+                                  end=(ti == vid_length - 1))
+        emit(ti, data, prob)
+    flush(end=True)  # the video is over: any straggler ends it
+
+
 def main(argv=None):
     args = get_args(argv)
     args.dataset = args.dataset.upper()
@@ -245,6 +372,10 @@ def main(argv=None):
     if args.output is None:
         args.output = f"../output/{args.dataset}_{args.split}"
         print(f"Output path not provided. Defaulting to {args.output}")
+    is_youtube = args.dataset.startswith("Y")
+    is_davis = args.dataset.startswith("D")
+    out_path = path.join(args.output, "Annotations") if \
+        (is_youtube or args.save_scores) else args.output
     meta_dataset = make_dataset(args)
     if args.dataset == "G" and not args.save_all:
         args.save_all = True
@@ -260,53 +391,11 @@ def main(argv=None):
             base_cfg,
             enable_long_term_count_usage=count_usage(base_cfg, vid_length))
         processor = InferenceCore(model, cfg, device=device)
-        first_mask_loaded = False
+        saver = VideoSaver(out_path, path.join(args.output, "Scores"),
+                           vid_name, vid_reader.get_palette())
         print(f"{vid_name} ({vid_length} frames)")
-
-        def emit(data, prob):
-            info = data["info"]
-            prob = prob.cpu().numpy()
-            if info["need_resize"]:
-                prob = resize_prob_to(prob, tuple(info["shape"]))
-            out_mask = processor.object_manager.tmp_cls_to_obj_cls(
-                np.argmax(prob, axis=0))
-            if args.save_all or info["save"]:
-                save_mask(out_mask, vid_reader.get_palette(),
-                          path.join(args.output, vid_name), info["frame"])
-
-        pending = []  # buffered maskless frames for step_chunk
-
-        def flush(end: bool):
-            if not pending:
-                return
-            with timer.frames_of(len(pending)):
-                probs = processor.step_chunk([d["rgb"] for d in pending],
-                                             end=end)
-            for data, prob in zip(pending, probs):
-                emit(data, prob)
-            pending.clear()
-
-        for ti in range(vid_length):
-            data = vid_reader[ti]
-            mask = data.get("mask")
-            if not first_mask_loaded:
-                if mask is None:
-                    continue
-                first_mask_loaded = True
-            if args.chunk > 1 and mask is None:
-                pending.append(data)
-                if len(pending) >= args.chunk or ti == vid_length - 1:
-                    flush(end=ti == vid_length - 1)
-                continue
-            flush(end=False)
-            labels = data.get("valid_labels")
-            labels = None if labels is None else [int(v) for v in labels]
-
-            with timer:
-                prob = processor.step(data["rgb"], mask, labels,
-                                      end=(ti == vid_length - 1))
-            emit(data, prob)
-        flush(end=True)  # the video is over: any straggler ends it
+        with video_fault_barrier(vid_name, args.raise_on_error):
+            run_video(processor, vid_reader, args, saver, timer)
 
     print(f"Total processing time: {timer.total_s}")
     print(f"Total processed frames: {timer.frames}")
@@ -315,6 +404,16 @@ def main(argv=None):
     if device.type == "cuda":
         print("Max allocated memory (MB): "
               f"{torch.cuda.max_memory_allocated(device) / 2 ** 20:.1f}")
+
+    if not args.save_scores:
+        if is_youtube:
+            print("Making zip for YouTubeVOS...")
+            shutil.make_archive(path.join(args.output,
+                                          path.basename(args.output)),
+                                "zip", args.output, "Annotations")
+        elif is_davis and args.split == "test":
+            print("Making zip for DAVIS test-dev...")
+            shutil.make_archive(args.output, "zip", args.output)
 
 
 if __name__ == "__main__":

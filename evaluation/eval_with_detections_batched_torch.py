@@ -25,7 +25,10 @@ Usage (the example clip, on the card; --device cpu for the CPU):
 
 --device defaults to cuda and fails when CUDA is absent; TF32 stays off on
 the card. The report gives the aggregate video-frames per second over the
-device time of the steps (CUDA events on the card).
+device time of the steps (CUDA events on the card). Each group is one unit
+of the per-video fault barrier (deva_tpu_torch/inference/eval_args.py): a
+group that fails on its data is logged and skipped, unless
+--raise_on_error; kernel and device errors always end the run.
 """
 from __future__ import annotations
 
@@ -47,6 +50,8 @@ from deva_tpu_torch.data.vps_test_datasets import \
 from deva_tpu_torch.inference.batched_detection import \
     BatchedDetectionPropagator  # noqa: E402
 from deva_tpu_torch.inference.core import InferenceCore  # noqa: E402
+from deva_tpu_torch.inference.eval_args import \
+    video_fault_barrier  # noqa: E402
 from deva_tpu_torch.inference.frame_utils import FrameInfo  # noqa: E402
 from deva_tpu_torch.inference.object_utils import \
     convert_json_dict_to_objects_info  # noqa: E402
@@ -406,19 +411,23 @@ def main(argv=None):
                 states.append(_VideoState(r, core, saver))
             print(f"group {shape} x{len(chunk)}: "
                   f"{[r.vid_name for r in chunk]}")
-            if len(states) == 1:
-                vs, = states
-                if temporal_setting == "online":
-                    run_sequential_tail_online(vs, args, dataset_name, 0,
-                                               timer)
+            with video_fault_barrier(f"group {shape} x{len(chunk)}",
+                                     args.raise_on_error):
+                if len(states) == 1:
+                    vs, = states
+                    if temporal_setting == "online":
+                        run_sequential_tail_online(vs, args, dataset_name,
+                                                   0, timer)
+                    else:
+                        run_sequential_tail(vs, args, dataset_name, 0,
+                                            args.num_voting_frames - 1,
+                                            timer)
+                elif temporal_setting == "online":
+                    run_group_online(model, cfg, states, args,
+                                     dataset_name, timer)
                 else:
-                    run_sequential_tail(vs, args, dataset_name, 0,
-                                        args.num_voting_frames - 1, timer)
-            elif temporal_setting == "online":
-                run_group_online(model, cfg, states, args, dataset_name,
-                                 timer)
-            else:
-                run_group(model, cfg, states, args, dataset_name, timer)
+                    run_group(model, cfg, states, args, dataset_name,
+                              timer)
             for vs in states:
                 vs.saver.end()
                 if is_vipseg:

@@ -22,10 +22,12 @@ The model, memory, attention and dtype flags are eval_vos_torch.py's
 (--model takes an upstream .pth or a deva_tpu .npz; without one the weights
 are a seeded random init). --device defaults to cuda and fails when CUDA is
 absent; TF32 stays off on the card. Not carried over from deva_tpu's
-driver: --obj_shards and --profile (object sharding and the JAX profiler),
-and --raise_on_error: a failing video always raises. FPS counts the
-processed frames over the device time of their steps, from CUDA events on
-the card.
+driver: --obj_shards and --profile (object sharding and the JAX profiler).
+Each video runs inside the per-video fault barrier
+(deva_tpu_torch/inference/eval_args.py): a video that fails on its data is
+logged, left out of pred.json and skipped, unless --raise_on_error; kernel
+and device errors always end the run. FPS counts the processed frames over
+the device time of their steps, from CUDA events on the card.
 """
 from __future__ import annotations
 
@@ -47,6 +49,8 @@ from deva_tpu_torch.config import InferenceConfig  # noqa: E402
 from deva_tpu_torch.data.vps_test_datasets import (  # noqa: E402
     BURSTDetectionTestDataset, VIPSegDetectionTestDataset)
 from deva_tpu_torch.inference.core import InferenceCore  # noqa: E402
+from deva_tpu_torch.inference.eval_args import \
+    video_fault_barrier  # noqa: E402
 from deva_tpu_torch.inference.frame_utils import FrameInfo  # noqa: E402
 from deva_tpu_torch.inference.object_utils import \
     convert_json_dict_to_objects_info  # noqa: E402
@@ -252,9 +256,13 @@ def main(argv=None):
             with open(json_path) as f:
                 return json.load(f), True
 
-        run_video(vid_reader, processor, result_saver, args, timer,
-                  dataset_name, segments_of)
+        barrier = video_fault_barrier(vid_name, args.raise_on_error)
+        with barrier:
+            run_video(vid_reader, processor, result_saver, args, timer,
+                      dataset_name, segments_of)
         result_saver.end()
+        if barrier.failed:
+            continue
         if is_vipseg:
             output_json_annotations.append(result_saver.video_json)
         elif is_burst:

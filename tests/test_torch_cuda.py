@@ -291,6 +291,24 @@ def test_kernels_reject_what_they_do_not_take(dev):
         ak._sim_topk_cuda(qk, qe, mk, ms, valid, 8, plan=(1, ak.NT))
 
 
+def test_failed_launch_is_a_kernel_error_the_barrier_reraises(dev):
+    """A launch the kernel's C function refuses, and one its wrapper
+    refuses (top_k above the kernel's bound, as `--top_k 100` gives), raise
+    the port's KernelError, which the drivers' per-video fault barrier
+    never swallows (deva_tpu's swallows every RuntimeError and
+    ValueError)."""
+    from deva_tpu_torch.inference.eval_args import video_fault_barrier
+    from deva_tpu_torch.ops.cuda_build import KernelError
+    qk, qe, mk, ms, valid = _inputs(dev, 6, 300, 10)
+    with pytest.raises(KernelError, match="sim_topk kernel launch failed"):
+        with video_fault_barrier("vid"):
+            ak._sim_topk_cuda(qk, qe, mk, ms, valid, 8, plan=(1, ak.NT))
+    with pytest.raises(KernelError, match="top_k=100 outside"):
+        with video_fault_barrier("vid"):
+            ak.sim_topk(qk, qe, mk, ms, valid, 100)
+    torch.cuda.synchronize()  # the context is still usable
+
+
 # --------------------------------------------------------------------------
 # the approx pair: segmax and denom_readout
 # --------------------------------------------------------------------------

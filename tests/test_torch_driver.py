@@ -136,11 +136,15 @@ def test_eval_vos_torch_refuses_missing_cuda(tmp_path):
 def test_port_imports_without_jax_or_pil():
     """The port runs where neither jax nor PIL is installed: importing every
     module of deva_tpu_torch (the detection-fusion modules, the batched
-    detection propagator, the copied readers, saver and VIPSeg metrics
-    among them), the batched driver (evaluation/eval_vos_batched_torch.py,
-    by path, which also loads eval_vos_torch.py, with run_group_midstream)
-    and the detection drivers (evaluation/eval_with_detections_torch.py and
-    eval_with_detections_batched_torch.py), with both blocked must work."""
+    detection propagator, the copied readers, saver, VIPSeg and J&F metrics
+    and the fault barrier among them), the batched driver
+    (evaluation/eval_vos_batched_torch.py, by path, which also loads
+    eval_vos_torch.py, with run_video and run_group_midstream), the
+    detection drivers (evaluation/eval_with_detections_torch.py and
+    eval_with_detections_batched_torch.py), the referring and saliency
+    drivers (eval_ref_davis_torch.py, eval_ref_youtubevos_torch.py,
+    eval_saliency_torch.py), the scorer (eval_jf_torch.py) and
+    scripts/merge_multi_scale_torch.py, with both blocked must work."""
     code = """
 import sys
 sys.modules['jax'] = None
@@ -169,7 +173,27 @@ spec = importlib.util.spec_from_file_location(
 bdet = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(bdet)
 assert callable(bdet.run_group) and callable(bdet.run_group_online)
+import eval_vos_torch
+assert callable(eval_vos_torch.run_video)
+for script, fns in (('evaluation/eval_ref_davis_torch.py',
+                     ('consensus', 'run_bidirectional', 'main')),
+                    ('evaluation/eval_ref_youtubevos_torch.py', ('main',)),
+                    ('evaluation/eval_saliency_torch.py',
+                     ('run_video', 'main')),
+                    ('evaluation/eval_jf_torch.py', ('main',)),
+                    ('scripts/merge_multi_scale_torch.py',
+                     ('process_vid', 'main'))):
+    spec = importlib.util.spec_from_file_location(
+        script.split('/')[-1][:-3], script)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert all(callable(getattr(mod, fn)) for fn in fns), script
 for name in ('deva_tpu_torch.inference.batched_detection',
+             'deva_tpu_torch.inference.eval_args',
+             'deva_tpu_torch.metrics.jf',
+             'deva_tpu_torch.data.referring_test_datasets',
+             'deva_tpu_torch.data.saliency_test_datasets',
+             'deva_tpu_torch.utils.load_subset',
              'deva_tpu_torch.inference.consensus',
              'deva_tpu_torch.inference.result_saver',
              'deva_tpu_torch.metrics.eval_vpq_vipseg',
