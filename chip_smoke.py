@@ -8,7 +8,8 @@ detection or mid-stream videos in lockstep through
 BatchedDetectionPropagator) on the card, in f32 and in deva_tpu's serving
 dtypes (bf16 compute, bf16 memory rings); and the evaluation drivers
 (eval_vos_torch with flips and score maps, the referring and saliency
-drivers' soft-mask bidirectional propagation).
+drivers' soft-mask bidirectional propagation); and the detector layer
+(MobileSAM, Light-HQ-SAM, the frame processors) with the two demos.
 
     python3 chip_smoke.py
 
@@ -174,6 +175,26 @@ tests/test_amp.py's whole-clip budget against the f32 run, frame by frame.
    held to its twins on the arguments of the last frame's composed
    match_memory and of the consensus' last alignment: rows `.ref` and
    `.ref.align`.
+9. The detector layer and the two demos (deva_tpu_torch/ext, demo/), with
+   seeded random weights. 9a: MobileSAM and Light-HQ-SAM at full width
+   (TinyViT-5M at 1024, the SAM decoder 256 wide) on one synthetic 854x480
+   frame, the card against the CPU: embeddings, the best-of-3 logits for 3
+   boxes and an 8x8 point grid within DET_TOL, masks_for_boxes and
+   generate equal but where the CPU's logit lies within DET_TOL of 0, and
+   the card's generate peak memory; then the text and automatic frame
+   processors, semi-online and online, on 7 frames of 64x96 with box-mask
+   detectors, by phase 6a's rule. 9b: demo_automatic_torch.run_demo on 30
+   synthetic 854x480 frames (three moving rectangles, demo_clip),
+   --sam_variant mobile, semi-online, a detection every 5, 3 voting
+   frames, max_num_objects 200, but SAM_NUM_POINTS_PER_SIDE 8 and the IoU
+   filter off (both printed); 9c: demo_with_text_torch.run_demo on the
+   same frames with RectDetector's 3 boxes for Grounding DINO's and
+   Light-HQ-SAM (--sam_variant sam_hq_light) as the mask source. Each
+   prints ms per propagation, detection and voting frame (its StepTimer),
+   a detection frame's parts (SAM encode, decoder, mask post-processing,
+   _mask_nms, the host fusion, the vote), the objects over time, the
+   launches and the peak memory; the exact pair on the arguments of 9b's
+   last frame and last spatial alignment: rows `.demo` and `.demo.align`.
 
 The second-to-last line of output is a JSON object with each kernel's
 launches (phase 3 for the exact pair, phase 4 for the approx pair), largest
@@ -193,7 +214,10 @@ suffixed ".det.align", launches of the alignments), each with its
 launches of 7c), and for the bidirectional referring driver (".ref": the
 exact pair at 8c's last frame, launches of 8c outside the consensus;
 ".ref.align": at the consensus' last alignment, launches of the
-alignments); the last line is
+alignments), and for the demos (".demo": the exact pair at 9b's last
+frame, launches of 9b and 9c outside the alignments; ".demo.align": at
+9b's last spatial alignment, launches of both demos' alignments); the last
+line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
 from __future__ import annotations
@@ -3832,6 +3856,567 @@ def phase8(ak, apx, net_cpu, dev) -> list:
     return rows
 
 
+# --------------------------------------------------------------------------
+# phase 9: the detector layer (MobileSAM, Light-HQ-SAM) and the two demos
+# --------------------------------------------------------------------------
+
+# 9b's and 9c's clip length (frames of 854x480)
+DEMO_FRAMES = 30
+# 9b's SAM_NUM_POINTS_PER_SIDE: 64 prompts, one decoder batch of the
+# default 64 (the default 64 per side would push 4096 masks through the
+# O(n^2) numpy _mask_nms on every detection frame)
+DEMO_POINTS = 8
+# the rectangles that move over the demo clips; 9c's detect() finds them
+# by colour (the background never reaches these values)
+RECT_COLORS = ((255, 24, 24), (24, 255, 24), (24, 24, 255))
+# 9a's processor clip (7 frames of 64x96) runs at
+# tests/test_ext_processors.py's configuration
+PROC_CFG = dict(mem_every=2, top_k=8, enable_long_term=False,
+                detection_every=3, num_voting_frames=2,
+                max_missed_detection_count=3, size=-1)
+
+
+def demo_clip(h, w, t, seed=41):
+    """t uint8 RGB frames [h, w, 3]: a smooth seeded background (8x8
+    blocks, a little noise per frame) with three rectangles of RECT_COLORS
+    moving over it (2 pixels a frame); and their boxes (x1, y1, x2, y2)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(40, 200, (-(-h // 8), -(-w // 8), 3))
+    bg = base.repeat(8, 0).repeat(8, 1)[:h, :w]
+    frames, boxes = [], []
+    for ti in range(t):
+        img = np.clip(bg + rng.integers(-6, 7, bg.shape), 0, 255) \
+            .astype(np.uint8)
+        frame_boxes = []
+        for k, color in enumerate(RECT_COLORS):
+            bh, bw = h // (3 + k), w // (4 + k)
+            y0 = int((h - bh) * (0.15 + 0.3 * k))
+            x0 = min(w - bw, int((w - bw) * (0.05 + 0.3 * k)) + 2 * ti)
+            img[y0:y0 + bh, x0:x0 + bw] = color
+            frame_boxes.append([x0, y0, x0 + bw, y0 + bh])
+        frames.append(img)
+        boxes.append(np.asarray(frame_boxes, np.float32))
+    return frames, boxes
+
+
+class RectDetector:
+    """A text detector for demo_clip's frames: detect() returns the boxes
+    of the RECT_COLORS rectangles it finds (scores 0.9, 0.8, 0.7, class
+    ids 0-2); masks_for_boxes is the mask source's (Light-HQ-SAM in 9c),
+    or the boxes filled without one. generate() (the automatic protocol)
+    gives the box masks with IoUs 0.95, 0.9, 0.85, as
+    tests/test_ext_processors.py's SyntheticGenerator."""
+
+    def __init__(self, mask_source=None):
+        self.mask_source = mask_source
+
+    def detect(self, image_np, prompts, box_threshold, text_threshold):
+        boxes, scores, ids = [], [], []
+        for k, color in enumerate(RECT_COLORS):
+            ys, xs = np.nonzero((image_np == color).all(-1))
+            if len(ys):
+                boxes.append([xs.min(), ys.min(), xs.max() + 1, ys.max() + 1])
+                scores.append(0.9 - 0.1 * k)
+                ids.append(k)
+        return (np.asarray(boxes, np.float32).reshape(-1, 4),
+                np.asarray(scores, np.float32), np.asarray(ids, np.int64))
+
+    def masks_for_boxes(self, image_np, boxes):
+        if self.mask_source is not None:
+            return self.mask_source.masks_for_boxes(image_np, boxes)
+        masks = np.zeros((len(boxes), *image_np.shape[:2]), bool)
+        for i, (x1, y1, x2, y2) in enumerate(boxes.astype(int)):
+            masks[i, y1:y2, x1:x2] = True
+        return masks
+
+    def generate(self, image_np, positive_points=None):
+        boxes, _, _ = self.detect(image_np, None, 0, 0)
+        return {"masks": self.masks_for_boxes(image_np, boxes)
+                .astype(np.float32),
+                "iou_preds": np.asarray([0.95, 0.9, 0.85][:len(boxes)],
+                                        np.float32)}
+
+
+def sam_best_logits(sam, emb, dec_kw, prompts, shape, hw):
+    """MobileSAM's best-of-3 logits at the frame's size, and their IoUs,
+    for `prompts` (pixels of the padded square), on the host: what
+    masks_for_boxes and generate threshold."""
+    with torch.inference_mode():
+        masks, ious = sam._decode(emb, dec_kw, **prompts)
+        sel, iou = sam._best(masks[0], ious[0])
+        return sam._masks_to_original(sel, *shape, *hw).cpu(), iou.cpu()
+
+
+def check_hard(cpu_logits, hard_cpu, hard_gpu, label) -> int:
+    """Hard masks of the card and the CPU equal but where the CPU's logit
+    lies within DET_TOL of the 0 threshold. -> the pixels that differ."""
+    near = cpu_logits.abs().numpy() <= DET_TOL
+    differ = np.asarray(hard_cpu) != np.asarray(hard_gpu)
+    assert not (differ & ~near).any(), (
+        f"{label}: {int((differ & ~near).sum())} mask pixels differ away "
+        "from the threshold")
+    return int(differ.sum())
+
+
+def phase_sam_parity(dev) -> None:
+    """Phase 9a, MobileSAM and Light-HQ-SAM, the card against the CPU at
+    full width (TinyViT-5M: 64/128/160/320 wide, depths 2/2/6/2, at 1024;
+    the decoder 256 wide, 8 heads, 2 layers, MLP 2048) on one synthetic
+    854x480 frame, the same seeded weights on both sides: the embeddings
+    (and Light-HQ-SAM's early features), and the best-of-3 logits at the
+    frame's size and their IoUs for the frame's 3 boxes and for the 8x8
+    point grid, within DET_TOL (phase 2's f32 budget); masks_for_boxes and
+    generate (IoU filter off, mask NMS 0.7) each equal to what its logits
+    give, the same masks kept, and hard masks equal but where the CPU's
+    logit lies within DET_TOL of 0. Prints the device memory that the
+    card's generate allocates at its peak."""
+    from deva_tpu_torch.ext.detectors import _mask_nms
+    from deva_tpu_torch.ext.mobile_sam import MobileSAM, grid_points
+    h, w = H480, W480
+    frames, boxes = demo_clip(h, w, 1)
+    img, bxs = frames[0], boxes[0]
+    kw = dict(points_per_side=DEMO_POINTS, pred_iou_thresh=float("-inf"))
+    worst, moved, peaks = {}, {}, {}
+    for hq in (False, True):
+        name = "light-hq" if hq else "mobile"
+        cpu = MobileSAM(device="cpu", seed=21 + hq, hq=hq, **kw)
+        gpu = MobileSAM(cpu.net.state_dict(), device=dev, hq=hq, **kw)
+        with torch.inference_mode():
+            e_cpu, kw_cpu, shape, scale = cpu._embed(img)
+            e_gpu, kw_gpu, _, _ = gpu._embed(img)
+        worst[f"{name} embeddings"] = (e_gpu.cpu() - e_cpu).abs().max().item()
+        for key in kw_cpu:
+            worst[f"{name} early features"] = (
+                kw_gpu[key].cpu() - kw_cpu[key]).abs().max().item()
+        pts = (grid_points(DEMO_POINTS) * np.array([w, h]) * scale) \
+            .astype(np.float32)
+        prompts = {"boxes": {"boxes": torch.from_numpy(bxs * scale)[None]},
+                   "grid": {"points": torch.from_numpy(pts)[None, :, None],
+                            "labels": torch.ones(1, len(pts), 1)}}
+        out = {}
+        for pname, p in prompts.items():
+            lc, ic = sam_best_logits(cpu, e_cpu, kw_cpu, p, shape, (h, w))
+            lg, ig = sam_best_logits(gpu, e_gpu, kw_gpu, {
+                k: v.to(dev) for k, v in p.items()}, shape, (h, w))
+            worst[f"{name} {pname} logits"] = (lg - lc).abs().max().item()
+            worst[f"{name} {pname} IoUs"] = (ig - ic).abs().max().item()
+            out[pname] = lc, ic, lg, ig
+        bad = {k: v for k, v in worst.items() if v > DET_TOL}
+        assert not bad, f"phase 9a: beyond {DET_TOL}: {bad}"
+
+        lc, _, lg, _ = out["boxes"]
+        m_cpu = cpu.masks_for_boxes(img, bxs)
+        m_gpu = gpu.masks_for_boxes(img, bxs)
+        assert np.array_equal(m_cpu, (lc > 0).numpy()) and \
+            np.array_equal(m_gpu, (lg > 0).numpy()), name
+        moved[f"{name} masks_for_boxes"] = check_hard(
+            lc, m_cpu, m_gpu, f"phase 9a {name} masks_for_boxes")
+
+        lc, ic, lg, ig = out["grid"]
+        keep = _mask_nms((lc > 0).numpy(), ic.numpy(), cpu.nms_iou)
+        assert _mask_nms((lg > 0).numpy(), ig.numpy(), gpu.nms_iou) == keep
+        g_cpu = cpu.generate(img)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        g_gpu = gpu.generate(img)
+        peaks[name] = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+        for g, logits, iou in ((g_cpu, lc, ic), (g_gpu, lg, ig)):
+            assert np.array_equal(g["masks"], (logits[keep] > 0).numpy()
+                                  .astype(np.float32)), name
+            assert np.array_equal(g["iou_preds"], iou[keep].numpy()), name
+        moved[f"{name} generate ({len(keep)} kept)"] = check_hard(
+            lc[keep], g_cpu["masks"] > 0, g_gpu["masks"] > 0,
+            f"phase 9a {name} generate")
+        del cpu, gpu, e_gpu, kw_gpu, out
+    print(f"phase 9a MobileSAM and Light-HQ-SAM, card vs cpu at full width "
+          f"on one {h}x{w} frame (3 boxes; a {DEMO_POINTS}x{DEMO_POINTS} "
+          f"grid, IoU filter off, mask NMS 0.7): max |card - cpu| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f" (bound {DET_TOL:g}); hard-mask pixels that differ, all where "
+          f"the CPU's logit lies within {DET_TOL:g} of 0: {moved}; the "
+          f"card's generate ({DEMO_POINTS ** 2} prompts in one decoder "
+          f"batch) peaks "
+          + ", ".join(f"{k} {v:.1f}" for k, v in peaks.items())
+          + " MiB above what it found allocated", flush=True)
+
+
+class ProcSaver:
+    """A frame processor's result saver for phase 9a: keeps each saved
+    frame's output on the host by frame index, writes nothing."""
+
+    def __init__(self):
+        self.probs = {}
+
+    def save_mask(self, prob, frame_name, **kw):
+        self.probs[int(frame_name[:5])] = prob.cpu().numpy()
+
+
+def spied_forwards(core, forwards):
+    """Wrap core.incorporate_detection so that it records the forward
+    prediction it makes (its _segment call, [1 + n, H, W] on the host,
+    unpadded; None where it makes none) by frame index."""
+    real = core.incorporate_detection
+
+    def incorporate(image, mask, segments, **kw):
+        ti, n = core.curr_ti + 1, core.object_manager.num_obj
+        seen, segment = [], core._segment
+
+        def spy(*a, **k):
+            seen.append(segment(*a, **k))
+            return seen[-1]
+
+        core._segment = spy
+        try:
+            logits = real(image, mask, segments, **kw)
+        finally:
+            del core._segment
+        forward = None
+        if seen:
+            lw, uw, lh, uh = core.pad
+            forward = seen[0][:n + 1].cpu().numpy()
+            hh, ww = forward.shape[-2:]
+            forward = forward[:, lh:hh - uh, lw:ww - uw]
+        forwards[ti] = forward
+        return logits
+
+    core.incorporate_detection = incorporate
+
+
+def processor_run(core, mode, setting, frames):
+    """The text or the automatic processor over the frames on one core,
+    RectDetector as the source (box masks), identity alignment in the
+    semi-online vote (random weights align noise,
+    tests/test_ext_processors.py). -> (outputs by frame, the forward
+    prediction of each incorporate_detection by frame, object tables per
+    frame)."""
+    from deva_tpu_torch import detection_clips as dc
+    from deva_tpu_torch.ext.automatic_processor import \
+        process_frame_automatic
+    from deva_tpu_torch.ext.with_text_processor import \
+        process_frame_with_text
+    from deva_tpu_torch.inference.demo_utils import flush_buffer
+    core.enabled_long_id()
+    if setting == "semionline":
+        core.spatial_alignment = lambda sti, simg, smask, tti, timg: \
+            np.concatenate([np.full_like(smask[:1], 0.5), smask], 0)
+    forwards, tables, saver = {}, [], ProcSaver()
+    spied_forwards(core, forwards)
+    ext_cfg = {"temporal_setting": setting, "detection_every": 3,
+               "prompt": "a.b.c", "DINO_THRESHOLD": 0.35,
+               "DINO_NMS_THRESHOLD": 0.8, "suppress_small_objects": False,
+               "SAM_NUM_POINTS_PER_SIDE": 8, "SAM_OVERLAP_THRESHOLD": 0.8}
+    process = process_frame_with_text if mode == "text" else \
+        process_frame_automatic
+    for ti, frame in enumerate(frames):
+        process(core, RectDetector(), ext_cfg, f"{ti:05d}.jpg", saver, ti,
+                image_np=frame)
+        tables.append(dc.object_table(core))
+    flush_buffer(core, saver)
+    return saver.probs, forwards, tables
+
+
+def phase_processors_parity(net_cpu, dev) -> None:
+    """Phase 9a, the frame processors: the text and the automatic processor
+    (ext/with_text_processor.py, ext/automatic_processor.py), each
+    semi-online and online, on 7 frames of 64x96 of demo_clip's kind at
+    PROC_CFG, the card against the CPU (det_core_pair: the same weights and
+    object-id generators). Propagated frames within DET_TOL; a detection
+    frame (logits) by phase 6a's rule: the two forward predictions within
+    DET_TOL, and its probabilities beyond DET_TOL only where those
+    predictions' argmaxes differ (paint_flips), on at most DET_FLIP_SHARE
+    of the frame; equal object tables after every frame."""
+    from deva_tpu_torch import detection_clips as dc
+    from deva_tpu_torch.config import InferenceConfig
+    n = 7
+    frames, _ = demo_clip(64, 96, n, seed=42)
+    result = {}
+    for mode in ("text", "auto"):
+        for setting in ("semionline", "online"):
+            label = f"phase 9a {mode} {setting}"
+            cpu, gpu = det_core_pair(net_cpu, dev,
+                                     InferenceConfig(**PROC_CFG))
+            p_cpu, f_cpu, t_cpu = processor_run(cpu, mode, setting, frames)
+            p_gpu, f_gpu, t_gpu = processor_run(gpu, mode, setting, frames)
+            assert t_gpu == t_cpu, f"{label}: object tables"
+            assert sorted(p_gpu) == sorted(p_cpu) == list(range(n)), label
+            assert sorted(f_gpu) == sorted(f_cpu), label
+            worst, share = 0.0, 0.0
+            for ti in range(n):
+                r, o = p_cpu[ti], p_gpu[ti]
+                if ti not in f_cpu:
+                    d = float(np.abs(o - r).max())
+                    assert d <= DET_TOL, f"{label} frame {ti}: {d}"
+                    worst = max(worst, d)
+                    continue
+                allowed = None
+                if f_cpu[ti] is not None:
+                    d = float(np.abs(f_gpu[ti] - f_cpu[ti]).max())
+                    assert d <= DET_TOL, f"{label} frame {ti} forward: {d}"
+                    worst = max(worst, d)
+                    allowed = dc.paint_flips(f_cpu[ti], f_gpu[ti])
+                share = max(share, dc.check_detection_frame(
+                    torch.softmax(torch.from_numpy(r), 0),
+                    torch.softmax(torch.from_numpy(o), 0), allowed, DET_TOL,
+                    DET_FLIP_SHARE, f"{label} frame {ti}")[1])
+            assert gpu.object_manager.num_obj >= 2, label
+            result[f"{mode} {setting}"] = (worst, share)
+    print("phase 9a frame processors, card vs cpu at 64x96 (7 frames, "
+          "box-mask detectors): max |dprob| (propagated frames, forward "
+          "predictions) and the largest share of a detection frame allowed "
+          "to differ where the forward predictions paint another id, "
+          f"bounds {DET_TOL:g} and {DET_FLIP_SHARE:g}: "
+          + "; ".join(f"{k} {v[0]:.3g}, {v[1]:.4f}"
+                      for k, v in result.items())
+          + "; object tables equal", flush=True)
+
+
+class DemoReader:
+    """The demos' reader (SimpleVideoReader's items) from memory: (uint8
+    RGB frame, name, path)."""
+
+    def __init__(self, frames):
+        self.frames = frames
+
+    def __len__(self):
+        return len(self.frames)
+
+    def __getitem__(self, i):
+        return self.frames[i], f"{i:05d}.jpg", f"{i:05d}.jpg"
+
+
+class DemoSaver:
+    """The demos' result saver for phases 9b and 9c: writes nothing (the
+    card's machine has no Pillow); checks each saved frame (finite, [1 +
+    objects, H, W] at the frame's size), keeps the frame order and the
+    objects as each frame was saved, and calls after(ti)."""
+
+    def __init__(self, core, after=None):
+        self.core, self.after = core, after
+        self.order, self.objects = [], []
+
+    def save_mask(self, prob, frame_name, need_resize=False, shape=None,
+                  image_np=None, prompts=None, path_to_image=None):
+        ti = int(frame_name[:5])
+        n = self.core.object_manager.num_obj
+        assert tuple(prob.shape) == (n + 1, *shape), (ti, tuple(prob.shape))
+        assert bool(torch.isfinite(prob).all()), f"frame {ti}"
+        self.order.append(ti)
+        self.objects.append(n)
+        if self.after is not None:
+            self.after(ti)
+
+
+class DeviceTimer(HostTimer):
+    """HostTimer whose calls drain the device before and after, so that a
+    call's time includes its device work."""
+
+    def __call__(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            self.ms += (time.perf_counter() - t0) * 1000
+            self.calls += 1
+
+
+def demo_driver(script: str):
+    """demo/<script> as a module (demo/ and evaluation/ on sys.path)."""
+    import importlib
+    for sub in ("evaluation", "demo"):
+        if os.path.join(ROOT, sub) not in sys.path:
+            sys.path.insert(0, os.path.join(ROOT, sub))
+    return importlib.import_module(script)
+
+
+def demo_schedule(args, n_frames):
+    """The semi-online schedule of the frame processors: the voting frames
+    (num_voting_frames - 1, then every detection_every) and the frames of
+    their windows (each voting frame and the num_voting_frames - 1 before
+    it), within n_frames."""
+    votes = list(range(args.num_voting_frames - 1, n_frames,
+                       args.detection_every))
+    window = {v - k for v in votes for k in range(args.num_voting_frames)}
+    return votes, window
+
+
+def demo_run(ak, dev, net_cpu, mode, n_frames, h, w, keep_calls=True):
+    """Phase 9b (mode "auto") or 9c ("text"): the demo's run_demo on
+    n_frames of demo_clip at h x w, as the demo's main drives it (its
+    flags, demo_config, one InferenceCore with long ids, its StepTimer), an
+    in-memory reader and a checking saver; the propagation model phase 3's.
+    9b: demo_automatic_torch with --sam_variant mobile (seeded random
+    MobileSAM) at the demo's defaults (semi-online, a detection every 5
+    frames, 3 voting frames, max_num_objects 200) but
+    SAM_NUM_POINTS_PER_SIDE DEMO_POINTS and SAM_PRED_IOU_THRESHOLD -inf;
+    9c: demo_with_text_torch at its defaults with RectDetector's boxes and
+    Light-HQ-SAM (--sam_variant sam_hq_light, seeded random) as the mask
+    source. Each frame's output is checked (DemoSaver); objects must be
+    admitted; the exact pair's calls are tapped (KernelTap: the last
+    frame's, and the last spatial alignment's; with keep_calls False they
+    are dropped, and the rings they hold with them). Prints ms per frame
+    by kind (StepTimer, CUDA events), the parts of a detection frame (each
+    timed with the device drained around it), the objects over time, the
+    launches and the peak memory above what was allocated before the run.
+    Returns (the last frame's calls, the launches outside the alignments,
+    the last alignment's calls, the alignments' launches)."""
+    from deva_tpu_torch.ext import automatic_processor as ap
+    from deva_tpu_torch.ext import detectors as dets
+    from deva_tpu_torch.ext import with_text_processor as wp
+    from deva_tpu_torch.ext.ext_eval_args import (add_auto_default_args,
+                                                  add_text_default_args)
+    from deva_tpu_torch.inference.core import InferenceCore
+    gc.collect()
+    text = demo_driver("demo_with_text_torch")
+    if mode == "auto":
+        drv = demo_driver("demo_automatic_torch")
+        args = text.make_parser(add_auto_default_args).parse_args([
+            "--sam_variant", "mobile", "--MOBILE_SAM_CHECKPOINT_PATH", "",
+            "--SAM_NUM_POINTS_PER_SIDE", str(DEMO_POINTS),
+            "--SAM_PRED_IOU_THRESHOLD=-inf", "--size", str(min(h, w)),
+            "--device", dev.type])
+        source = dets.build_auto_generator(args)
+        sam = source
+        fusion = (ap, "auto_segment")
+        deviations = (f"SAM_NUM_POINTS_PER_SIDE {DEMO_POINTS} (default 64), "
+                      "SAM_PRED_IOU_THRESHOLD -inf (default 0.88)")
+    else:
+        drv = text
+        args = text.make_parser(add_text_default_args).parse_args([
+            "--prompt", "red.green.blue", "--sam_variant", "sam_hq_light",
+            "--LIGHT_HQ_SAM_CHECKPOINT_PATH", "", "--size", str(min(h, w)),
+            "--device", dev.type])
+        sam = dets._mobile_sam_from_args(args, "sam_hq_light")
+        source = RectDetector(sam)
+        fusion = (wp, "segment_with_text")
+        deviations = "none (RectDetector's boxes for Grounding DINO's)"
+    frames, _ = demo_clip(h, w, n_frames)
+    net = copy.deepcopy(net_cpu).to(dev)
+    core = InferenceCore(net, text.demo_config(args, n_frames), device=dev)
+    core.enabled_long_id()
+    core.object_manager._rng = np.random.default_rng(5)
+    timer = text.StepTimer(dev)
+    tap = KernelTap(ak)
+    history = []
+
+    def after(ti):
+        history.append((ti, core.object_manager.num_obj))
+        tap.frame()
+
+    saver = DemoSaver(core, after)
+    parts = {"SAM encode": DeviceTimer(sam, "_embed"),
+             "SAM decoder": DeviceTimer(sam, "_decode"),
+             "mask post-processing": DeviceTimer(sam, "_masks_to_original"),
+             "_mask_nms": DeviceTimer(dets, "_mask_nms"),
+             "fusion": DeviceTimer(*fusion),
+             "vote": DeviceTimer(core, "vote_in_temporary_buffer")}
+    if mode == "auto":
+        parts["generate"] = DeviceTimer(sam, "generate")
+        parts["forward estimate"] = DeviceTimer(ap, "estimate_forward_mask")
+    else:
+        parts["masks_for_boxes"] = DeviceTimer(sam, "masks_for_boxes")
+    align_launches = dict.fromkeys(EXACT_PAIR, 0)
+    align_ms = []
+    real_align = core.spatial_alignment
+
+    def tapped_align(*a):
+        before = dict(ak.LAUNCHES)
+        tap.tag, tap.calls["align"] = "align", []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return real_align(*a)  # a host array: synchronised
+        finally:
+            tap.tag = "memory"
+            align_ms.append((time.perf_counter() - t0) * 1000)
+            for k in EXACT_PAIR:
+                align_launches[k] += ak.LAUNCHES[k] - before[k]
+
+    core.spatial_alignment = tapped_align
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev) / 2**20
+    torch.cuda.reset_peak_memory_stats(dev)
+    ak.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        drv.run_demo(core, source, DemoReader(frames), saver, vars(args),
+                     timer)
+    finally:
+        tap.restore()
+        for part in parts.values():
+            part.restore()
+    wall = time.perf_counter() - t0
+    launches = dict(ak.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    assert sorted(saver.order) == list(range(n_frames)), saver.order
+    assert history[-1][1] > 0, f"{mode}: no object admitted"
+    votes, window = demo_schedule(args, n_frames)
+    step_ms = timer.steps_ms
+    assert len(step_ms) == n_frames, len(step_ms)
+    prop = [m for ti, m in enumerate(step_ms) if ti not in window]
+    det = [m for ti, m in enumerate(step_ms) if ti in window
+           and ti not in votes]
+    vote = [step_ms[ti] for ti in votes]
+    n_det = len(window)
+    per_det = {k: t.ms / n_det for k, t in parts.items()}
+    calls = {k: t.calls for k, t in parts.items()}
+    name = "9b automatic" if mode == "auto" else "9c text"
+    script = "demo_automatic_torch" if mode == "auto" else \
+        "demo_with_text_torch"
+    print(f"phase {name} demo at {h}x{w}, {n_frames} frames through "
+          f"{script}.run_demo (semi-online, a detection every "
+          f"{args.detection_every}, {args.num_voting_frames} voting frames, "
+          f"max_num_objects {args.max_num_objects}; --sam_variant "
+          f"{args.sam_variant}; deviations from the demo's defaults: "
+          f"{deviations}), ms from its StepTimer (CUDA events): "
+          f"propagation frames median "
+          + (f"{statistics.median(prop):.3f} (mean "
+             f"{statistics.mean(prop):.3f}, {len(prop)} frames)"
+             if prop else "none")
+          + f"; detection frames (SAM and fusion, buffered) median "
+          f"{statistics.median(det):.3f} ({len(det)}); voting frames (SAM, "
+          f"fusion, vote, incorporate_detection, the buffer's steps) "
+          + ", ".join(f"{m:.1f}" for m in vote)
+          + f"; per detection frame ({n_det}), each part timed with the "
+          f"device drained around it: "
+          + ", ".join(f"{k} {v:.3f} ms ({calls[k]} calls)"
+                      for k, v in per_det.items())
+          + f"; spatial alignments {len(align_ms)}, median "
+          + (f"{statistics.median(align_ms):.3f} ms" if align_ms else "-")
+          + f"; objects after each saved frame {history}; launches "
+          f"{launches} (alignments {align_launches}); peak allocated "
+          f"{peak:.1f} MiB ({held:.1f} MiB held before the run); wall "
+          f"{wall:.1f} s", flush=True)
+    memory = {k: launches[k] - align_launches[k] for k in EXACT_PAIR}
+    if not keep_calls:
+        return [], memory, [], align_launches
+    return tap.last_frame, memory, tap.calls.get("align", []), \
+        align_launches
+
+
+def phase9(ak, apx, net_cpu, dev) -> list:
+    """Phases 9a-9c; -> the kernels line's .demo and .demo.align rows, on
+    the arguments of 9b's last frame and of its last spatial alignment,
+    with the launches of both demos (9b and 9c run the same pair)."""
+    phase_sam_parity(dev)
+    phase_processors_parity(net_cpu, dev)
+    last, mem_b, align_calls, align_b = demo_run(ak, dev, net_cpu, "auto",
+                                                 DEMO_FRAMES, H480, W480)
+    _, mem_c, _, align_c = demo_run(ak, dev, net_cpu, "text", DEMO_FRAMES,
+                                    H480, W480, keep_calls=False)
+    total = lambda a, b: {k: a[k] + b[k] for k in EXACT_PAIR}
+    rows = det_kernel_rows(ak, apx, dev, ".demo", last, total(mem_b, mem_c),
+                           "9b's last frame")
+    del last
+    rows += det_kernel_rows(ak, apx, dev, ".demo.align", align_calls,
+                            total(align_b, align_c),
+                            "9b's last spatial alignment")
+    return rows
+
+
 SMI = []
 
 
@@ -3930,6 +4515,7 @@ def main() -> int:
                                 aligned, "6c's last spatial alignment")
     det_rows += phase7(ak, apx, net_cpu, dev)
     det_rows += phase8(ak, apx, net_cpu, dev)
+    det_rows += phase9(ak, apx, net_cpu, dev)
 
     rows = []
     for ring, res_exact, res_approx, run_exact, run_approx, suffix in (

@@ -1062,3 +1062,57 @@ def test_pair_launch_per_pair_approx(dev, monkeypatch):
         assert torch.equal(_bits(th[p]), _bits(t))
         torch.testing.assert_close(out[p], o, rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(usage[p], u, rtol=1e-5, atol=1e-5)
+
+
+def test_resizes_on_the_card_match_the_cpu(dev):
+    """The detector layer's resizes on the card: PIL's uint8 resize bit for
+    bit (integer taps in f64: exact on any device), the antialiased float
+    resize within 1e-6 of the CPU's."""
+    from deva_tpu_torch.ops.resize import (resize_bilinear_aa,
+                                           resize_image_uint8)
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(rng.integers(0, 256, (480, 854, 3))
+                           .astype(np.uint8))
+    for size in ((576, 1024), (120, 213), (480, 854)):
+        assert torch.equal(resize_image_uint8(img.to(dev), size).cpu(),
+                           resize_image_uint8(img, size))
+    logits = torch.from_numpy(rng.standard_normal((4, 256, 256))
+                              .astype(np.float32))
+    for size in ((1024, 1024), (480, 854), (30, 53)):
+        torch.testing.assert_close(
+            resize_bilinear_aa(logits.to(dev), size).cpu(),
+            resize_bilinear_aa(logits, size), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("hq", [False, True])
+def test_mobile_sam_on_the_card_matches_the_cpu(dev, hq):
+    """MobileSAM / Light-HQ-SAM at full width on a 240x320 frame, the same
+    seeded weights on the card and the CPU: embeddings within 5e-3
+    (chip_smoke.py phase 2's f32 budget), masks_for_boxes equal but where
+    the CPU's logit lies within 5e-3 of 0, and generate keeping the same
+    masks with IoUs within 5e-3."""
+    from deva_tpu_torch.ext.mobile_sam import MobileSAM
+    kw = dict(points_per_side=4, pred_iou_thresh=float("-inf"), hq=hq)
+    cpu = MobileSAM(device="cpu", seed=3, **kw)
+    gpu = MobileSAM(cpu.net.state_dict(), device=dev, **kw)
+    rng = np.random.default_rng(1)
+    img = rng.integers(0, 256, (240, 320, 3)).astype(np.uint8)
+    with torch.inference_mode():
+        e_cpu, kw_cpu, shape, scale = cpu._embed(img)
+        e_gpu, _, _, _ = gpu._embed(img)
+        torch.testing.assert_close(e_gpu.cpu(), e_cpu, rtol=0, atol=5e-3)
+        boxes = np.array([[40, 30, 200, 180], [10, 10, 120, 90]],
+                         np.float32)
+        masks, ious = cpu._decode(e_cpu, kw_cpu, boxes=torch.from_numpy(
+            boxes * scale)[None])
+        sel, _ = cpu._best(masks[0], ious[0])
+        logits = cpu._masks_to_original(sel, *shape, 240, 320)
+    near = logits.abs().numpy() <= 5e-3
+    differ = cpu.masks_for_boxes(img, boxes) != gpu.masks_for_boxes(img,
+                                                                    boxes)
+    assert not (differ & ~near).any()
+    g_cpu, g_gpu = cpu.generate(img), gpu.generate(img)
+    assert g_cpu["masks"].shape == g_gpu["masks"].shape
+    np.testing.assert_allclose(g_gpu["iou_preds"], g_cpu["iou_preds"],
+                               rtol=0, atol=5e-3)
+    assert (g_cpu["masks"] != g_gpu["masks"]).mean() <= 1e-3

@@ -143,12 +143,17 @@ def test_port_imports_without_jax_or_pil():
     detection drivers (evaluation/eval_with_detections_torch.py and
     eval_with_detections_batched_torch.py), the referring and saliency
     drivers (eval_ref_davis_torch.py, eval_ref_youtubevos_torch.py,
-    eval_saliency_torch.py), the scorer (eval_jf_torch.py) and
-    scripts/merge_multi_scale_torch.py, with both blocked must work."""
+    eval_saliency_torch.py), the scorer (eval_jf_torch.py),
+    scripts/merge_multi_scale_torch.py, the detector layer (ext/: TinyViT,
+    the SAM decoder, MobileSAM, the detectors, both frame processors, the
+    flags) with demo_utils and simple_video_reader, and the two demos
+    (demo/demo_with_text_torch.py, demo/demo_automatic_torch.py), with
+    both blocked, and transformers blocked too, must work."""
     code = """
 import sys
 sys.modules['jax'] = None
 sys.modules['PIL'] = None
+sys.modules['transformers'] = None
 import importlib, importlib.util, pkgutil
 import deva_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(deva_tpu_torch.__path__,
@@ -182,7 +187,10 @@ for script, fns in (('evaluation/eval_ref_davis_torch.py',
                      ('run_video', 'main')),
                     ('evaluation/eval_jf_torch.py', ('main',)),
                     ('scripts/merge_multi_scale_torch.py',
-                     ('process_vid', 'main'))):
+                     ('process_vid', 'main')),
+                    ('demo/demo_with_text_torch.py',
+                     ('run_demo', 'drive', 'main')),
+                    ('demo/demo_automatic_torch.py', ('run_demo', 'main'))):
     spec = importlib.util.spec_from_file_location(
         script.split('/')[-1][:-3], script)
     mod = importlib.util.module_from_spec(spec)
@@ -197,7 +205,17 @@ for name in ('deva_tpu_torch.inference.batched_detection',
              'deva_tpu_torch.inference.consensus',
              'deva_tpu_torch.inference.result_saver',
              'deva_tpu_torch.metrics.eval_vpq_vipseg',
-             'deva_tpu_torch.data.vps_test_datasets'):
+             'deva_tpu_torch.data.vps_test_datasets',
+             'deva_tpu_torch.ext.tiny_vit',
+             'deva_tpu_torch.ext.sam_decoder',
+             'deva_tpu_torch.ext.convert',
+             'deva_tpu_torch.ext.mobile_sam',
+             'deva_tpu_torch.ext.detectors',
+             'deva_tpu_torch.ext.ext_eval_args',
+             'deva_tpu_torch.ext.with_text_processor',
+             'deva_tpu_torch.ext.automatic_processor',
+             'deva_tpu_torch.inference.demo_utils',
+             'deva_tpu_torch.data.simple_video_reader'):
     assert name in names, name
 assert not any(m == 'deva_tpu' or m.startswith(('deva_tpu.', 'jax', 'flax'))
                for m in sys.modules if sys.modules[m] is not None), \\
