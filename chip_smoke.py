@@ -3860,8 +3860,14 @@ def phase8(ak, apx, net_cpu, dev) -> list:
 # phase 9: the detector layer (MobileSAM, Light-HQ-SAM) and the two demos
 # --------------------------------------------------------------------------
 
-# 9b's and 9c's clip length (frames of 854x480)
+# 9b's and 9c's clip length
 DEMO_FRAMES = 30
+# 9c's input frames: the example clip's 1280x720, so that the frame resize
+# to --size 480 (get_input_frame_for_deva) and the detections' resize run
+# on the measured path (9b's 854x480 frames need neither)
+H720, W720 = 720, 1280
+# the demos' --size (their default): the shorter side the core works at
+DEMO_SIZE = 480
 # 9b's SAM_NUM_POINTS_PER_SIDE: 64 prompts, one decoder batch of the
 # default 64 (the default 64 per side would push 4096 masks through the
 # O(n^2) numpy _mask_nms on every detection frame)
@@ -4041,79 +4047,27 @@ def phase_sam_parity(dev) -> None:
           + " MiB above what it found allocated", flush=True)
 
 
-class ProcSaver:
-    """A frame processor's result saver for phase 9a: keeps each saved
-    frame's output on the host by frame index, writes nothing."""
-
-    def __init__(self):
-        self.probs = {}
-
-    def save_mask(self, prob, frame_name, **kw):
-        self.probs[int(frame_name[:5])] = prob.cpu().numpy()
-
-
-def spied_forwards(core, forwards):
-    """Wrap core.incorporate_detection so that it records the forward
-    prediction it makes (its _segment call, [1 + n, H, W] on the host,
-    unpadded; None where it makes none) by frame index."""
-    real = core.incorporate_detection
-
-    def incorporate(image, mask, segments, **kw):
-        ti, n = core.curr_ti + 1, core.object_manager.num_obj
-        seen, segment = [], core._segment
-
-        def spy(*a, **k):
-            seen.append(segment(*a, **k))
-            return seen[-1]
-
-        core._segment = spy
-        try:
-            logits = real(image, mask, segments, **kw)
-        finally:
-            del core._segment
-        forward = None
-        if seen:
-            lw, uw, lh, uh = core.pad
-            forward = seen[0][:n + 1].cpu().numpy()
-            hh, ww = forward.shape[-2:]
-            forward = forward[:, lh:hh - uh, lw:ww - uw]
-        forwards[ti] = forward
-        return logits
-
-    core.incorporate_detection = incorporate
-
-
 def processor_run(core, mode, setting, frames):
-    """The text or the automatic processor over the frames on one core,
-    RectDetector as the source (box masks), identity alignment in the
-    semi-online vote (random weights align noise,
-    tests/test_ext_processors.py). -> (outputs by frame, the forward
-    prediction of each incorporate_detection by frame, object tables per
-    frame)."""
+    """The text or the automatic processor over the frames on one core
+    (detection_clips.run_processor), RectDetector as the source (box
+    masks). -> (outputs by frame index, the forward prediction of each
+    incorporate_detection by frame index, object tables per frame)."""
     from deva_tpu_torch import detection_clips as dc
     from deva_tpu_torch.ext.automatic_processor import \
         process_frame_automatic
     from deva_tpu_torch.ext.with_text_processor import \
         process_frame_with_text
     from deva_tpu_torch.inference.demo_utils import flush_buffer
-    core.enabled_long_id()
-    if setting == "semionline":
-        core.spatial_alignment = lambda sti, simg, smask, tti, timg: \
-            np.concatenate([np.full_like(smask[:1], 0.5), smask], 0)
-    forwards, tables, saver = {}, [], ProcSaver()
-    spied_forwards(core, forwards)
     ext_cfg = {"temporal_setting": setting, "detection_every": 3,
                "prompt": "a.b.c", "DINO_THRESHOLD": 0.35,
                "DINO_NMS_THRESHOLD": 0.8, "suppress_small_objects": False,
                "SAM_NUM_POINTS_PER_SIDE": 8, "SAM_OVERLAP_THRESHOLD": 0.8}
     process = process_frame_with_text if mode == "text" else \
         process_frame_automatic
-    for ti, frame in enumerate(frames):
-        process(core, RectDetector(), ext_cfg, f"{ti:05d}.jpg", saver, ti,
-                image_np=frame)
-        tables.append(dc.object_table(core))
-    flush_buffer(core, saver)
-    return saver.probs, forwards, tables
+    forwards, saver = {}, dc.RecordingSaver()
+    tables = dc.run_processor(core, process, flush_buffer, RectDetector(),
+                              ext_cfg, frames, saver, forwards)
+    return {int(k[:5]): v for k, v in saver.probs.items()}, forwards, tables
 
 
 def phase_processors_parity(net_cpu, dev) -> None:
@@ -4188,8 +4142,9 @@ class DemoReader:
 class DemoSaver:
     """The demos' result saver for phases 9b and 9c: writes nothing (the
     card's machine has no Pillow); checks each saved frame (finite, [1 +
-    objects, H, W] at the frame's size), keeps the frame order and the
-    objects as each frame was saved, and calls after(ti)."""
+    objects, H, W] at the size the core processed the frame at: the
+    frame's, or its --size resize), keeps the frame order and the objects
+    as each frame was saved, and calls after(ti)."""
 
     def __init__(self, core, after=None):
         self.core, self.after = core, after
@@ -4197,9 +4152,12 @@ class DemoSaver:
 
     def save_mask(self, prob, frame_name, need_resize=False, shape=None,
                   image_np=None, prompts=None, path_to_image=None):
+        from deva_tpu_torch.ext.detectors import _target_shape
         ti = int(frame_name[:5])
         n = self.core.object_manager.num_obj
-        assert tuple(prob.shape) == (n + 1, *shape), (ti, tuple(prob.shape))
+        size = _target_shape(*shape, self.core.cfg.size) if need_resize \
+            else shape
+        assert tuple(prob.shape) == (n + 1, *size), (ti, tuple(prob.shape))
         assert bool(torch.isfinite(prob).all()), f"frame {ti}"
         self.order.append(ti)
         self.objects.append(n)
@@ -4275,7 +4233,7 @@ def demo_run(ak, dev, net_cpu, mode, n_frames, h, w, keep_calls=True):
         args = text.make_parser(add_auto_default_args).parse_args([
             "--sam_variant", "mobile", "--MOBILE_SAM_CHECKPOINT_PATH", "",
             "--SAM_NUM_POINTS_PER_SIDE", str(DEMO_POINTS),
-            "--SAM_PRED_IOU_THRESHOLD=-inf", "--size", str(min(h, w)),
+            "--SAM_PRED_IOU_THRESHOLD=-inf", "--size", str(DEMO_SIZE),
             "--device", dev.type])
         source = dets.build_auto_generator(args)
         sam = source
@@ -4286,7 +4244,7 @@ def demo_run(ak, dev, net_cpu, mode, n_frames, h, w, keep_calls=True):
         drv = text
         args = text.make_parser(add_text_default_args).parse_args([
             "--prompt", "red.green.blue", "--sam_variant", "sam_hq_light",
-            "--LIGHT_HQ_SAM_CHECKPOINT_PATH", "", "--size", str(min(h, w)),
+            "--LIGHT_HQ_SAM_CHECKPOINT_PATH", "", "--size", str(DEMO_SIZE),
             "--device", dev.type])
         sam = dets._mobile_sam_from_args(args, "sam_hq_light")
         source = RectDetector(sam)
@@ -4310,8 +4268,13 @@ def demo_run(ak, dev, net_cpu, mode, n_frames, h, w, keep_calls=True):
              "SAM decoder": DeviceTimer(sam, "_decode"),
              "mask post-processing": DeviceTimer(sam, "_masks_to_original"),
              "_mask_nms": DeviceTimer(dets, "_mask_nms"),
+             "_resize_bilinear (masks to --size; 9b: the forward mask's blur)":
+                 DeviceTimer(dets, "_resize_bilinear"),
              "fusion": DeviceTimer(*fusion),
              "vote": DeviceTimer(core, "vote_in_temporary_buffer")}
+    # every frame's host resize to --size (uint8, PIL's taps), in the
+    # processor's module
+    frame_resize = HostTimer(fusion[0], "get_input_frame_for_deva")
     if mode == "auto":
         parts["generate"] = DeviceTimer(sam, "generate")
         parts["forward estimate"] = DeviceTimer(ap, "estimate_forward_mask")
@@ -4346,6 +4309,7 @@ def demo_run(ak, dev, net_cpu, mode, n_frames, h, w, keep_calls=True):
                      timer)
     finally:
         tap.restore()
+        frame_resize.restore()
         for part in parts.values():
             part.restore()
     wall = time.perf_counter() - t0
@@ -4366,7 +4330,9 @@ def demo_run(ak, dev, net_cpu, mode, n_frames, h, w, keep_calls=True):
     name = "9b automatic" if mode == "auto" else "9c text"
     script = "demo_automatic_torch" if mode == "auto" else \
         "demo_with_text_torch"
-    print(f"phase {name} demo at {h}x{w}, {n_frames} frames through "
+    size = dets._target_shape(h, w, args.size)
+    print(f"phase {name} demo on {n_frames} frames of {h}x{w} "
+          f"(--size {args.size}: processed at {size[0]}x{size[1]}) through "
           f"{script}.run_demo (semi-online, a detection every "
           f"{args.detection_every}, {args.num_voting_frames} voting frames, "
           f"max_num_objects {args.max_num_objects}; --sam_variant "
@@ -4380,6 +4346,9 @@ def demo_run(ak, dev, net_cpu, mode, n_frames, h, w, keep_calls=True):
           f"{statistics.median(det):.3f} ({len(det)}); voting frames (SAM, "
           f"fusion, vote, incorporate_detection, the buffer's steps) "
           + ", ".join(f"{m:.1f}" for m in vote)
+          + f"; frame resize to --size (get_input_frame_for_deva, host) "
+          f"{frame_resize.ms / max(frame_resize.calls, 1):.3f} ms per frame "
+          f"({frame_resize.calls} calls)"
           + f"; per detection frame ({n_det}), each part timed with the "
           f"device drained around it: "
           + ", ".join(f"{k} {v:.3f} ms ({calls[k]} calls)"
@@ -4406,7 +4375,7 @@ def phase9(ak, apx, net_cpu, dev) -> list:
     last, mem_b, align_calls, align_b = demo_run(ak, dev, net_cpu, "auto",
                                                  DEMO_FRAMES, H480, W480)
     _, mem_c, _, align_c = demo_run(ak, dev, net_cpu, "text", DEMO_FRAMES,
-                                    H480, W480, keep_calls=False)
+                                    H720, W720, keep_calls=False)
     total = lambda a, b: {k: a[k] + b[k] for k in EXACT_PAIR}
     rows = det_kernel_rows(ak, apx, dev, ".demo", last, total(mem_b, mem_c),
                            "9b's last frame")

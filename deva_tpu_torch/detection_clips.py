@@ -1,9 +1,10 @@
 """Synthetic clips with detections, the online detection loops over them
 (per video, and in lockstep through a BatchedDetectionPropagator), and the
-helpers that hold one run of detection fusion against another: written
-once for chip_smoke.py's phases 6 and 7, profile_step.py --detections,
+helpers that hold one run of detection fusion against another, and the
+frame processors' loop with its spies: written once for chip_smoke.py's
+phases 6, 7 and 9a, profile_step.py --detections,
 tests/test_torch_cuda.py and the tests/test_torch_detection*.py and
-tests/test_torch_batched_detection*.py files.
+tests/test_torch_batched_detection*.py and tests/test_torch_ext_*.py files.
 
 Two clips:
 - `small_clip`: 64x96 frames of tests/test_detection_parity.py's kind
@@ -185,10 +186,12 @@ def object_table(core):
             for o, t in core.object_manager.obj_to_tmp_id.items()]
 
 
-def incorporate_seen(core, image, mask, segments, **kwargs):
-    """core.incorporate_detection -> (its logits, the forward prediction it
-    made for match_and_merge: probabilities [1 + n, H, W] on the host,
-    unpadded, or None where it made none)."""
+def incorporate_seen(core, image, mask, segments, incorporate=None,
+                     **kwargs):
+    """core.incorporate_detection (or `incorporate`, the same method
+    saved before a wrapper replaced it) -> (its logits, the forward
+    prediction it made for match_and_merge: probabilities [1 + n, H, W] on
+    the host, unpadded, or None where it made none)."""
     seen = []
     segment = core._segment
 
@@ -199,7 +202,8 @@ def incorporate_seen(core, image, mask, segments, **kwargs):
     n = core.object_manager.num_obj
     core._segment = spy
     try:
-        logits = core.incorporate_detection(image, mask, segments, **kwargs)
+        logits = (incorporate or core.incorporate_detection)(
+            image, mask, segments, **kwargs)
     finally:
         del core._segment  # the class's method again
     if not seen:
@@ -208,6 +212,79 @@ def incorporate_seen(core, image, mask, segments, **kwargs):
     forward = host(seen[0])[:n + 1]
     h, w = forward.shape[-2:]
     return logits, forward[:, lh:h - uh, lw:w - uw]
+
+
+def spy_incorporate(core, forwards: dict, perfect: bool = False) -> None:
+    """Wrap core.incorporate_detection for the frame processors, which call
+    it themselves: record the forward prediction of each call
+    (incorporate_seen) under the index of the frame it is for. With
+    perfect, merge against a perfect forward prediction once objects
+    exist: the detection mask itself, whose segment ids 1..n are the tmp
+    ids of the objects the first detection made (for detectors whose
+    segments never move)."""
+    real = core.incorporate_detection
+
+    def incorporate(image, mask, segments, **kw):
+        ti = core.curr_ti + 1
+        if perfect and core.object_manager.num_obj:
+            kw["forward_mask"] = np.asarray(mask)
+        logits, forwards[ti] = incorporate_seen(core, image, mask, segments,
+                                                incorporate=real, **kw)
+        return logits
+
+    core.incorporate_detection = incorporate
+
+
+def identity_alignment(core) -> None:
+    """Make the semi-online vote align each buffered frame by identity
+    (every segment onto itself, the background at 0.5): random weights
+    align noise, and the vote would select nothing
+    (tests/test_ext_processors.py)."""
+    core.spatial_alignment = lambda sti, simg, smask, tti, timg: \
+        np.concatenate([np.full_like(smask[:1], 0.5), smask], 0)
+
+
+class RecordingSaver:
+    """A frame processor's result saver that keeps each saved frame's
+    output (probabilities or logits) on the host by frame name, and passes
+    the frame on to `saver` (a ResultSaver of either package) if one is
+    given."""
+
+    def __init__(self, saver=None):
+        self.saver, self.probs = saver, {}
+
+    def save_mask(self, prob, frame_name, **kw):
+        self.probs[frame_name] = host(prob)
+        if self.saver is not None:
+            self.saver.save_mask(prob, frame_name, **kw)
+
+
+def run_processor(core, process, flush, source, ext_cfg: dict, frames,
+                  saver, forwards: dict, perfect: bool = False,
+                  before=None, prompts=None) -> list:
+    """A frame processor (process_frame_with_text or
+    process_frame_automatic, of either package) over uint8 frames on one
+    core, as the demos drive it: long ids, identity alignment when
+    ext_cfg's temporal_setting is semi-online, each frame saved through
+    `saver` as "00000.jpg"..., then `flush` (flush_buffer) of what the
+    buffer holds. Records the forward predictions in `forwards`
+    (spy_incorporate); calls before(ti) before each frame and before(len(
+    frames)) before the flush. -> object tables after each frame."""
+    core.enabled_long_id()
+    if ext_cfg["temporal_setting"] == "semionline":
+        identity_alignment(core)
+    spy_incorporate(core, forwards, perfect)
+    tables = []
+    for ti, frame in enumerate(frames):
+        if before is not None:
+            before(ti)
+        process(core, source, ext_cfg, f"{ti:05d}.jpg", saver, ti,
+                image_np=frame)
+        tables.append(object_table(core))
+    if before is not None:
+        before(len(frames))
+    flush(core, saver, prompts=prompts)
+    return tables
 
 
 def paint_flips(forward_a, forward_b) -> Optional[np.ndarray]:

@@ -150,12 +150,13 @@ class HFGroundedSAM:
                 return_tensors="pt").to(self.device)
             with torch.no_grad():
                 o = self.sam_model(**inputs, multimask_output=True)
+            # post-processed where the logits are; only the best mask
+            # comes to the host
             masks = self.sam_processor.image_processor.\
-                post_process_masks(o.pred_masks.cpu(),
-                                   inputs["original_sizes"].cpu(),
-                                   inputs["reshaped_input_sizes"].cpu())[0][0]
+                post_process_masks(o.pred_masks, inputs["original_sizes"],
+                                   inputs["reshaped_input_sizes"])[0][0]
             scores = o.iou_scores[0, 0].cpu().numpy()
-            out.append(masks[int(np.argmax(scores))].numpy())
+            out.append(masks[int(np.argmax(scores))].cpu().numpy())
         return np.stack(out) if out else np.zeros((0, *image_np.shape[:2]),
                                                   bool)
 
@@ -204,15 +205,22 @@ class HFAutomaticSAM:
                 return_tensors="pt").to(self.device)
             with torch.no_grad():
                 o = self.model(**inputs, multimask_output=True)
+            # post-processed where the logits are ([P, 3, H, W]); only the
+            # best mask of each prompt that passes the filter comes to the
+            # host
             masks = self.processor.image_processor.post_process_masks(
-                o.pred_masks.cpu(), inputs["original_sizes"].cpu(),
-                inputs["reshaped_input_sizes"].cpu())[0]  # [P, 3, H, W]
+                o.pred_masks, inputs["original_sizes"],
+                inputs["reshaped_input_sizes"])[0]
             ious = o.iou_scores[0].cpu().numpy()          # [P, 3]
             best = ious.argmax(-1)
-            for pi in range(masks.shape[0]):
-                if ious[pi, best[pi]] >= self.pred_iou_thresh:
-                    all_masks.append(masks[pi, best[pi]].numpy())
-                    all_ious.append(float(ious[pi, best[pi]]))
+            rows = np.nonzero(ious[np.arange(len(best)), best]
+                              >= self.pred_iou_thresh)[0]
+            if len(rows):
+                kept = masks[torch.as_tensor(rows, device=masks.device),
+                             torch.as_tensor(best[rows],
+                                             device=masks.device)]
+                all_masks.extend(kept.cpu().numpy())
+                all_ious.extend(float(ious[pi, best[pi]]) for pi in rows)
         if not all_masks:
             return {"masks": np.zeros((0, h, w), np.float32),
                     "iou_preds": np.zeros((0,), np.float32)}

@@ -136,10 +136,12 @@ class MobileSAM:
                            h: int, w: int) -> torch.Tensor:
         """[..., 256, 256] logits over the padded square -> [..., h, w]:
         upscale to the square, crop the pad, resize to the frame (the
-        second resize shrinks, antialiased, as jax.image.resize does)."""
+        second resize shrinks, antialiased, as jax.image.resize does), in
+        f32 as jax.image.resize computes."""
         size = self.cfg.image_size
-        up = resize_bilinear_aa(logits, (size, size))[..., :nh, :nw]
-        return resize_bilinear_aa(up, (h, w))
+        up = resize_bilinear_aa(logits, (size, size),
+                                torch.float32)[..., :nh, :nw]
+        return resize_bilinear_aa(up, (h, w), torch.float32)
 
     @staticmethod
     def _best(masks, ious):

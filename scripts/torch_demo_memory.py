@@ -1,5 +1,6 @@
 """Peak device memory of each top-level part of chip_smoke.py's phases 9b
-and 9c (the two demos at 480p), on the card.
+and 9c (the two demos, at 854x480 and 1280x720 input, processed at 480p),
+on the card.
 
     python scripts/torch_demo_memory.py
 
@@ -12,6 +13,7 @@ above it) pairs.
 """
 import json
 import os
+import subprocess
 import sys
 
 import torch
@@ -55,16 +57,20 @@ def main():
     from deva_tpu_torch.ops import cuda_build
     cuda_build.build()
     dev = torch.device("cuda", 0)
-    print(torch.cuda.get_device_name(0), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip(),
+          flush=True)
     net_cpu = init_weights(DEVANetwork(), seed=0).eval()
-    for mode in ("auto", "text"):
+    for mode, (h, w) in (("auto", (cs.H480, cs.W480)),
+                         ("text", (cs.H720, cs.W720))):
         rec = {}
         parts = [MemPart(core_mod.InferenceCore, n, rec) for n in (
             "step", "incorporate_detection", "vote_in_temporary_buffer")]
         parts += [MemPart(MobileSAM, n, rec) for n in ("generate",
                                                        "masks_for_boxes")]
         parts.append(MemPart(ap, "estimate_forward_mask", rec))
-        cs.demo_run(ak, dev, net_cpu, mode, cs.DEMO_FRAMES, cs.H480, cs.W480,
+        cs.demo_run(ak, dev, net_cpu, mode, cs.DEMO_FRAMES, h, w,
                     keep_calls=False)
         for p in parts:
             setattr(p.owner, p.name, p.fn)

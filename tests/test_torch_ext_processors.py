@@ -47,7 +47,8 @@ from deva_tpu.ext.with_text_processor import \
 from deva_tpu.inference.demo_utils import flush_buffer as jax_flush
 from deva_tpu.inference.result_saver import ResultSaver as JaxResultSaver
 
-from deva_tpu_torch.detection_clips import host, object_table, paint_flips
+from deva_tpu_torch.detection_clips import (RecordingSaver, paint_flips,
+                                           run_processor)
 from deva_tpu_torch.ext import detectors as det
 from deva_tpu_torch.ext.automatic_processor import process_frame_automatic
 from deva_tpu_torch.ext.with_text_processor import process_frame_with_text
@@ -212,52 +213,8 @@ def test_auto_segment_ids_c4():
 # the frame processors
 # --------------------------------------------------------------------------
 
-class Recorder:
-    """A ResultSaver that also keeps each saved frame's probabilities (or
-    logits) on the host."""
-
-    def __init__(self, saver):
-        self.saver, self.probs = saver, {}
-
-    def save_mask(self, prob, frame_name, **kw):
-        self.probs[frame_name] = host(prob)
-        self.saver.save_mask(prob, frame_name, **kw)
-
-
-def _identity_alignment(core):
-    core.spatial_alignment = lambda sti, simg, smask, tti, timg: \
-        np.concatenate([np.full_like(smask[:1], 0.5), smask], 0)
-
-
-def _spy(core, forwards, encodes, perfect=False):
-    """Wrap core.incorporate_detection: record the forward prediction it
-    makes (its _segment call: [1 + n, H, W] on the host) under the frame's
-    index; with perfect, merge against a perfect forward prediction
-    instead, once objects exist: the detection mask itself, whose segment
-    ids 1..n are the tmp ids of the objects the first detection made (the
-    synthetic detectors' segments never move). And count the feature
-    store's encodes."""
-    real = core.incorporate_detection
-
-    def incorporate(image, mask, segments, **kw):
-        ti, n = core.curr_ti + 1, core.object_manager.num_obj
-        seen, segment = [], core._segment
-
-        def spy(*a, **k):
-            seen.append(segment(*a, **k))
-            return seen[-1]
-
-        if perfect and n:
-            kw["forward_mask"] = np.asarray(mask)
-        core._segment = spy
-        try:
-            out = real(image, mask, segments, **kw)
-        finally:
-            del core._segment
-        forwards[ti] = host(seen[-1])[:n + 1] if seen else None
-        return out
-
-    core.incorporate_detection = incorporate
+def _count_encodes(core, encodes):
+    """Count the feature store's encodes into encodes[-1]."""
     store = core.image_feature_store
     encode = store._encode
 
@@ -274,13 +231,10 @@ def _run(core, package, tmp_path, mode, setting, frames, perfect=False):
     maps per frame, the JSON's segment ids per frame)."""
     out = str(tmp_path / package)
     saver_cls = ResultSaver if package == "port" else JaxResultSaver
-    saver = Recorder(saver_cls(out, None, dataset="demo",
+    saver = RecordingSaver(saver_cls(out, None, dataset="demo",
                                object_manager=core.object_manager))
-    core.enabled_long_id()
-    if setting == "semionline":
-        _identity_alignment(core)
     forwards, encodes = {}, []
-    _spy(core, forwards, encodes, perfect)
+    _count_encodes(core, encodes)
     process = {("port", "text"): process_frame_with_text,
                ("jax", "text"): jax_with_text,
                ("port", "auto"): process_frame_automatic,
@@ -294,15 +248,11 @@ def _run(core, package, tmp_path, mode, setting, frames, perfect=False):
             "suppress_small_objects": False, "SAM_NUM_POINTS_PER_SIDE": 8,
             "SAM_OVERLAP_THRESHOLD": 0.8}
     ext_cfg.update(temporal_setting=setting, detection_every=3)
-    tables = []
-    for ti, frame in enumerate(frames):
-        encodes.append(0)
-        process(core, source, ext_cfg, f"{ti:05d}.jpg", saver, ti,
-                image_np=frame)
-        tables.append(object_table(core))
-    encodes.append(0)
-    (flush_buffer if package == "port" else jax_flush)(
-        core, saver, prompts=["cat", "dog"] if mode == "text" else None)
+    tables = run_processor(
+        core, process, flush_buffer if package == "port" else jax_flush,
+        source, ext_cfg, frames, saver, forwards, perfect,
+        before=lambda ti: encodes.append(0),
+        prompts=["cat", "dog"] if mode == "text" else None)
     saver.saver.end()
     from PIL import Image
     names = sorted(os.listdir(os.path.join(out, "Annotations")))

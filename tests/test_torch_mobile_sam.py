@@ -216,3 +216,22 @@ def test_get_input_frame_for_deva_matches_pil(shape, min_side):
     want = pil_frame(img, min_side)
     assert got.shape == want.shape and got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("src,dst", [((720, 1280), (480, 853)),
+                                     ((720, 1280), (120, 213)),
+                                     ((1080, 1920), (480, 853)),
+                                     ((480, 854), (576, 1024)),
+                                     ((37, 53), (5, 90))])
+def test_resize_image_uint8_matches_pil(src, dst):
+    """PIL's 8-bit BILINEAR resize bit for bit: shrinking by up to 6 (wide
+    windows), growing, and one axis each way."""
+    from PIL import Image
+
+    from deva_tpu_torch.ops.resize import resize_image_uint8
+    img = np.random.default_rng(src[0]).integers(0, 256, (*src, 3)) \
+        .astype(np.uint8)
+    got = resize_image_uint8(torch.from_numpy(img), dst)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (*dst, 3)
+    want = np.asarray(Image.fromarray(img).resize(dst[::-1], Image.BILINEAR))
+    assert np.array_equal(got.numpy(), want)

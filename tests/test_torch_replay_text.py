@@ -26,15 +26,15 @@ from deva_tpu.inference.demo_utils import flush_buffer as jax_flush
 from deva_tpu.inference.result_saver import ResultSaver as JaxResultSaver
 
 from deva_tpu_torch.config import InferenceConfig
-from deva_tpu_torch.detection_clips import object_table, paint_flips
+from deva_tpu_torch.detection_clips import (RecordingSaver, paint_flips,
+                                           run_processor)
 from deva_tpu_torch.ext import detectors as det
 from deva_tpu_torch.ext.with_text_processor import process_frame_with_text
 from deva_tpu_torch.inference.core import InferenceCore
 from deva_tpu_torch.inference.demo_utils import flush_buffer
 from deva_tpu_torch.inference.result_saver import ResultSaver
 
-from test_torch_ext_processors import ATOL, Recorder, _identity_alignment
-from test_torch_ext_processors import _spy as spy_forward
+from test_torch_ext_processors import ATOL
 from torch_detection_common import models  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,30 +48,24 @@ def _run_replay(core, package, tmp_path):
     from PIL import Image
     out = str(tmp_path / package)
     saver_cls = ResultSaver if package == "port" else JaxResultSaver
-    saver = Recorder(saver_cls(out, None, dataset="demo",
-                               object_manager=core.object_manager))
-    core.enabled_long_id()
-    _identity_alignment(core)
-    forwards, encodes = {}, []
-    spy_forward(core, forwards, encodes)
+    saver = RecordingSaver(saver_cls(out, None, dataset="demo",
+                                     object_manager=core.object_manager))
     process = process_frame_with_text if package == "port" else \
         jax_with_text
     source = (det if package == "port" else jax_det).ReplayDetector(FIXTURE)
     ext_cfg = {"prompt": "person.bench.tree", "temporal_setting":
                "semionline", "detection_every": 5, "DINO_THRESHOLD": 0.35,
                "DINO_NMS_THRESHOLD": 0.8}
-    names = sorted(os.listdir(CLIP))
-    tables = []
-    for ti, name in enumerate(names):
-        encodes.append(0)
-        img = np.asarray(Image.open(os.path.join(CLIP, name)).convert("RGB"))
-        process(core, source, ext_cfg, name, saver, ti, image_np=img)
-        tables.append(object_table(core))
-    (flush_buffer if package == "port" else jax_flush)(core, saver,
-                                                       prompts=["person"])
+    frames = [np.asarray(Image.open(os.path.join(CLIP, name)).convert("RGB"))
+              for name in sorted(os.listdir(CLIP))]
+    forwards = {}
+    tables = run_processor(
+        core, process, flush_buffer if package == "port" else jax_flush,
+        source, ext_cfg, frames, saver, forwards, prompts=["person"])
     saver.saver.end()
     anns = saver.saver.video_json["annotations"]
-    return ([saver.probs[n] for n in names], forwards, tables,
+    return ([saver.probs[f"{ti:05d}.jpg"] for ti in range(len(frames))],
+            forwards, tables,
             [sorted(s["id"] for s in a["segments_info"]) for a in anns])
 
 
