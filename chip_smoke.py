@@ -9,7 +9,9 @@ BatchedDetectionPropagator) on the card, in f32 and in deva_tpu's serving
 dtypes (bf16 compute, bf16 memory rings); and the evaluation drivers
 (eval_vos_torch with flips and score maps, the referring and saliency
 drivers' soft-mask bidirectional propagation); and the detector layer
-(MobileSAM, Light-HQ-SAM, the frame processors) with the two demos.
+(MobileSAM, Light-HQ-SAM, the frame processors) with the two demos; and
+the training stack (the train step card against CPU, the stage-3 step at
+full width, learn-to-track served by InferenceCore, the stage driver).
 
     python3 chip_smoke.py
 
@@ -196,6 +198,32 @@ tests/test_amp.py's whole-clip budget against the f32 run, frame by frame.
    launches and the peak memory; the exact pair on the arguments of 9b's
    last frame and last spatial alignment: rows `.demo` and `.demo.align`.
 
+10. Training (deva_tpu_torch/training), f32 with TF32 off unless said.
+   10a: one train step of the full-width network at 64x64 (B=2, T=4,
+   num_ref_frames 2, 3 objects, it 0 so every pixel counts) on the card
+   and on the CPU from the same weights, batch and draws: the total loss
+   within 1e-4 relative, each gradient within 1e-3 of its tensor's
+   largest, the updates within 1e-2 * lr where the gradient is clear of 0
+   and 2 * lr anywhere, each gap printed; a tensor that misses in f32
+   (ReLU inputs within f32 rounding of the kink: at full width both
+   devices' f32 gradients lie up to a few percent from float64 in some
+   tensors) must agree in float64 between the two devices, within 1e-4
+   (F64_GRAD_REL). 10b: the
+   full-width step at stage-3 shapes (384x384, T=8, num_ref_frames 3, 3
+   objects, synthetic moving squares): f32 B=2, f32 B=2 --remat (losses
+   within 1e-5 of the plain run's at the first step, 1e-3 after it, where
+   the backward's atomics have rounded the updates apart) and bf16
+   --remat B=4 (first loss finite and within 5% of f32's on its batch),
+   each 2 warm-up and 5 timed steps: ms/step, clips/s, forward, backward
+   and update ms (CUDA events), peak memory. 10c: toy.train_toy (the tiny
+   model, 120 steps) on the card, then the held-out IoU through
+   InferenceCore above 0.5 and the random init's + 0.3, with the exact
+   pair launched during the evaluation; the weights saved by save_network
+   and reloaded give one clip the same IoU. 10d: training.train.main
+   --stages 3 at the tiny widths on the card, 2 iterations with a
+   checkpoint, then a resume to 4, VOSDataset replaced by an in-memory
+   synthetic dataset.
+
 The second-to-last line of output is a JSON object with each kernel's
 launches (phase 3 for the exact pair, phase 4 for the approx pair), largest
 error against its plain twin, and its time, its plain twin's, its bound and
@@ -224,12 +252,14 @@ from __future__ import annotations
 
 import copy
 import gc
+import glob
 import json
 import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -4386,6 +4416,399 @@ def phase9(ak, apx, net_cpu, dev) -> list:
     return rows
 
 
+# --------------------------------------------------------------------------
+# phase 10: training (deva_tpu_torch/training)
+# --------------------------------------------------------------------------
+
+# TrainConfig's stage-3 frames and objects at the stage driver's crop: the
+# shape of deva_tpu's bench.py --train step
+TRAIN_CROP, TRAIN_T, TRAIN_REF, TRAIN_OBJ = 384, 8, 3, 3
+# 10b's runs: (label, compute dtype, remat, batch)
+TRAIN_RUNS = (("f32", "float32", False, 2), ("f32 remat", "float32", True, 2),
+              ("bf16 remat", "bfloat16", True, 4))
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+# 10a's budgets, card against CPU: the total loss, each
+# gradient against its tensor's largest, each update against the rate
+TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_STEP_REL = 1e-4, 1e-3, 1e-2
+# a tensor whose exact gradient is 0 (the key projection's bias cancels in
+# the similarity) carries rounding noise alone: each tensor's scale is at
+# least this share of the largest gradient of all
+GRAD_FLOOR = 1e-6
+# 10a's float64 second opinion, card against CPU: the f64 runs still round
+# to f32 where the port casts explicitly (read_memory's output to the
+# config's compute dtype, upsample_bilinear's f32 stencil), which left
+# 9.1e-7 and 2.9e-6 of a tensor's largest on the H100; 30x that, and ten
+# times below the f32 budget
+F64_GRAD_REL = 1e-4
+
+
+def train_batch(rng, b, t, h, w, n_obj):
+    """A trainer batch (numpy) of b clips: n_obj of toy.make_clip's moving
+    squares per clip, each pasted over the last, then pixel noise over the
+    whole frame (a flat square repeats each feature value over its pixels,
+    and one that lies within rounding of a ReLU's kink would move whole
+    gradients between the two devices)."""
+    from deva_tpu_torch.training.toy import make_clip
+    rgb = np.zeros((b, t, h, w, 3), np.float32)
+    cls_gt = np.zeros((b, t, h, w), np.int32)
+    for i in range(b):
+        for j in range(n_obj):
+            frames, masks = make_clip(rng, t, h, w, size=h // 5)
+            on = masks == 1
+            rgb[i] = frames if j == 0 else np.where(on[..., None], frames,
+                                                    rgb[i])
+            cls_gt[i][on] = j + 1
+    rgb += 0.02 * rng.standard_normal(rgb.shape).astype(np.float32)
+    first = np.stack([cls_gt[:, 0] == j + 1 for j in range(n_obj)],
+                     1).astype(np.float32)
+    return {"rgb": rgb, "first_frame_gt": first, "cls_gt": cls_gt,
+            "selector": np.ones((b, n_obj), np.float32)}
+
+
+def to_dev(batch, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def grad_gap(ref: dict, other: dict) -> dict:
+    """Each tensor's largest |other - ref| over its scale: its largest |ref|,
+    at least GRAD_FLOOR of the largest of all."""
+    floor = GRAD_FLOOR * max(float(g.abs().max()) for g in ref.values())
+    return {n: float((other[n].double() - g.double()).abs().max()) /
+            max(float(g.abs().max()), floor) for n, g in ref.items()}
+
+
+def grads_f64(net_cpu, batch, cfg, draws, dev):
+    """The gradients of the training loss in float64 on `dev`, clipped as
+    train_step clips them: a copy of the weights, the compute dtype and the
+    port's explicit f32 casts (Tensor.float, patched for the call) made
+    float64."""
+    from deva_tpu_torch.models.layers import set_compute_dtype
+    from deva_tpu_torch.training.trainer import Trainer, clip_by_global_norm
+    net = set_compute_dtype(copy.deepcopy(net_cpu).double().to(dev),
+                            torch.float64)
+    trainer = Trainer(net, cfg)
+    b64 = {k: torch.from_numpy(v.astype(np.float64) if v.dtype == np.float32
+                               else v).to(dev) for k, v in batch.items()}
+    f32_cast = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        trainer.losses(b64, draws)["total_loss"].backward()
+    finally:
+        torch.Tensor.float = f32_cast
+    clip_by_global_norm([p.grad for p in net.parameters()],
+                        cfg.clip_grad_norm)  # as train_step's gradients
+    return {n: p.grad.cpu() for n, p in net.named_parameters()}
+
+
+def phase_train_parity(net_cpu, dev) -> None:
+    """10a: one train step of the full-width network at 64x64, B=2, T=4,
+    num_ref_frames 2, 3 objects, it 0 (every pixel counts), on the card and
+    on the CPU from the same weights, batch and draws. The total loss within
+    TRAIN_LOSS_REL, each gradient within TRAIN_GRAD_REL of its tensor's
+    largest, each update (new - old) within TRAIN_STEP_REL * lr where the
+    CPU's gradient is above 1e-3 of its tensor's largest and within 2 * lr
+    everywhere (Adam's first step is about lr * sign(g)). A tensor whose
+    f32 gradients miss must show that the miss is f32 rounding (a ReLU
+    input within rounding of 0 takes the other side on the other device
+    and moves every gradient upstream of it; at full width both devices'
+    f32 gradients lie up to a few percent from float64 in some tensors):
+    then the float64 gradients of the card and of the CPU agree within
+    F64_GRAD_REL in every tensor."""
+    from deva_tpu_torch.config import TrainConfig
+    from deva_tpu_torch.training.trainer import Trainer, draw_sequence
+    cfg = TrainConfig(num_frames=4, num_ref_frames=2)
+    batch = train_batch(np.random.default_rng(21), 2, 4, 64, 64, TRAIN_OBJ)
+    draws = draw_sequence(cfg, 2, 4, torch.Generator().manual_seed(21))
+    assert draws[2][0] is not None  # frame 3 reads drawn frames
+    runs = {}
+    for name, device in (("cpu", torch.device("cpu")), ("card", dev)):
+        net = copy.deepcopy(net_cpu).to(device)
+        old = {n: p.detach().cpu().clone() for n, p in net.named_parameters()}
+        trainer = Trainer(net, cfg)
+        metrics = trainer.train_step(to_dev(batch, device), draws)
+        runs[name] = (float(metrics["total_loss"]),
+                      {n: p.grad.cpu() for n, p in net.named_parameters()},
+                      {n: p.detach().cpu() - old[n]
+                       for n, p in net.named_parameters()})
+    (loss_c, grads_c, steps_c), (loss_g, grads_g, steps_g) = \
+        runs["cpu"], runs["card"]
+    loss_gap = abs(loss_g - loss_c) / abs(loss_c)
+    gaps = grad_gap(grads_c, grads_g)
+    worst = max(gaps, key=gaps.get)
+    lr = cfg.lr
+    step_clear, step_all = 0.0, 0.0
+    floor = GRAD_FLOOR * max(float(g.abs().max()) for g in grads_c.values())
+    for n, g in grads_c.items():
+        d = (steps_g[n] - steps_c[n]).abs()
+        clear = g.abs() > 1e-3 * max(float(g.abs().max()), floor)
+        step_clear = max(step_clear, float(torch.where(clear, d, 0).max()))
+        step_all = max(step_all, float(d.max()))
+    print(f"phase 10a train step card vs CPU (full width, 64x64, B=2, T=4, "
+          f"{TRAIN_OBJ} objects, it 0): total loss {loss_g:.6f} vs "
+          f"{loss_c:.6f} (rel gap {loss_gap:.2e}); worst gradient gap "
+          f"{gaps[worst]:.2e} of its tensor's largest ({worst}); update "
+          f"gaps {step_clear / lr:.2e} lr where the gradient is clear, "
+          f"{step_all / lr:.2e} lr anywhere", flush=True)
+    assert loss_gap <= TRAIN_LOSS_REL, loss_gap
+    assert step_all <= 2 * lr, step_all
+    missed = {n for n, gap in gaps.items() if gap > TRAIN_GRAD_REL}
+    if missed or step_clear > TRAIN_STEP_REL * lr:
+        g64_cpu = grads_f64(net_cpu, batch, cfg, draws, torch.device("cpu"))
+        g64_card = grads_f64(net_cpu, batch, cfg, draws, dev)
+        gaps64 = grad_gap(g64_cpu, g64_card)
+        vs_cpu, vs_card = grad_gap(g64_cpu, grads_c), grad_gap(g64_cpu,
+                                                               grads_g)
+        worst = sorted(missed, key=gaps.get)[-5:]
+        print(f"phase 10a: {len(missed)} tensor(s) above {TRAIN_GRAD_REL} "
+              f"in f32; float64 card vs CPU worst gap "
+              f"{max(gaps64.values()):.2e}; the worst five (f32 gap, CPU "
+              f"f32 vs f64, card f32 vs f64): "
+              f"{[(n, gaps[n], vs_cpu[n], vs_card[n]) for n in worst]}",
+              flush=True)
+        assert max(gaps64.values()) <= F64_GRAD_REL, gaps64
+    del runs
+
+
+def train_timed(net_cpu, dev, dtype, remat, batches, draws) -> dict:
+    """TRAIN_WARMUP + TRAIN_TIMED train steps of a fresh copy of the weights
+    on the device batches; -> per-step total losses, CUDA-event ms of the
+    forward (losses), backward and update of each timed step, and the peak
+    allocated memory."""
+    from deva_tpu_torch.config import TrainConfig
+    from deva_tpu_torch.training.trainer import Trainer
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    net = with_dtype(net_cpu, dtype).to(dev)
+    trainer = Trainer(net, TrainConfig(num_frames=TRAIN_T,
+                                       num_ref_frames=TRAIN_REF,
+                                       remat=remat))
+    losses, parts = [], []
+    for i, (batch, d) in enumerate(zip(batches, draws)):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        marks[0].record()
+        order = iter(marks[1:])
+        metrics = trainer.train_step(batch, d,
+                                     on_phase=lambda _: next(order).record())
+        marks[3].synchronize()
+        losses.append(float(metrics["total_loss"]))
+        if i >= TRAIN_WARMUP:
+            parts.append([marks[k].elapsed_time(marks[k + 1])
+                          for k in range(3)])
+    peak = torch.cuda.max_memory_allocated(dev)
+    del trainer, net
+    return {"losses": losses, "parts": parts, "peak": peak}
+
+
+def phase_train_stage3(net_cpu, dev) -> list:
+    """10b: the full-width train step at stage-3 shapes, three runs (f32 at
+    B=2, the same with --remat, bf16 with --remat at B=4), each 2 warm-up
+    and 5 timed steps on the same batches and draws; the remat run's losses
+    within 1e-5 of the plain run's at the first step (1e-3 after it), and
+    bf16's first-step loss finite and within 5% of f32's on the same
+    weights, batch and draws."""
+    from deva_tpu_torch.config import TrainConfig
+    from deva_tpu_torch.training.trainer import Trainer, draw_sequence
+    n = TRAIN_WARMUP + TRAIN_TIMED
+    rng = np.random.default_rng(22)
+    host = [train_batch(rng, 4, TRAIN_T, TRAIN_CROP, TRAIN_CROP, TRAIN_OBJ)
+            for _ in range(n)]
+    cfg = TrainConfig(num_frames=TRAIN_T, num_ref_frames=TRAIN_REF)
+    gen = torch.Generator().manual_seed(22)
+    draws4 = [draw_sequence(cfg, 4, TRAIN_T, gen) for _ in range(n)]
+    batches4 = [to_dev(b, dev) for b in host]  # set-up
+    del host
+    rows, results = [], {}
+    for label, dtype, remat, b in TRAIN_RUNS:
+        batches = [{k: v[:b] for k, v in x.items()} for x in batches4]
+        draws = [[(None if r is None else r[:b], deep) for r, deep in d]
+                 for d in draws4]
+        res = train_timed(net_cpu, dev, dtype, remat, batches, draws)
+        results[label] = res
+        fwd, bwd, upd = (statistics.median(p[k] for p in res["parts"])
+                         for k in range(3))
+        step = statistics.median(sum(p) for p in res["parts"])
+        row = {"run": label, "batch": b, "ms_per_step": step,
+               "clips_per_s": b * 1000 / step, "forward_ms": fwd,
+               "backward_ms": bwd, "update_ms": upd,
+               "steps_ms": [sum(p) for p in res["parts"]],
+               "peak_gib": res["peak"] / 2 ** 30,
+               "losses": res["losses"]}
+        rows.append(row)
+        print(f"phase 10b {label} B={b} ({TRAIN_CROP}x{TRAIN_CROP}, "
+              f"T={TRAIN_T}, {TRAIN_OBJ} objects, full width): "
+              f"{step:.1f} ms/step (median of {TRAIN_TIMED}), "
+              f"{b * 1000 / step:.2f} clips/s, forward {fwd:.1f} ms, "
+              f"backward {bwd:.1f} ms, update {upd:.1f} ms, peak "
+              f"{res['peak'] / 2 ** 30:.2f} GiB; losses "
+              f"{[round(x, 5) for x in res['losses']]} {smi_line()}",
+              flush=True)
+        assert all(np.isfinite(res["losses"])), res["losses"]
+    # the first step starts from the same weights: the same function, to
+    # rounding (equal on the H100). Later steps start from weights that the
+    # backward's atomics (the bilinear upsample's, cuDNN's) rounded apart,
+    # as they would two plain runs: 5.4e-6 and 3.9e-5 by the seventh step
+    # on the H100, so those are held to 1e-3 only
+    plain, remat = results["f32"]["losses"], results["f32 remat"]["losses"]
+    gaps = [abs(a - b) / abs(a) for a, b in zip(plain, remat)]
+    remat_gap = max(gaps)
+    assert gaps[0] <= 1e-5 and remat_gap <= 1e-3, (plain, remat)
+    # f32 on bf16's batch and draws, forward only, for its first loss
+    net = with_dtype(net_cpu, "float32").to(dev)
+    with torch.no_grad():
+        ref = float(Trainer(net, cfg).losses(batches4[0], draws4[0])[
+            "total_loss"])
+    del net
+    bf16_first = results["bf16 remat"]["losses"][0]
+    bf16_gap = abs(bf16_first - ref) / abs(ref)
+    print(f"phase 10b: remat vs plain losses, rel gap {gaps[0]:.2e} at "
+          f"the first step, worst {remat_gap:.2e}; bf16 first-step loss {bf16_first:.5f} vs f32 "
+          f"{ref:.5f} on its batch (rel gap {bf16_gap:.2e})", flush=True)
+    assert bf16_gap <= 0.05, (bf16_first, ref)
+    print("phase 10b json " + json.dumps({"train": rows}), flush=True)
+    return rows
+
+
+def phase_train_toy(ak, dev, tmp) -> None:
+    """10c: toy.train_toy (the tiny model, 120 steps, deva_tpu's
+    calibration) on the card, then eval_iou on held-out clips through
+    InferenceCore on the card, against the random-init IoU; the exact pair
+    must launch during the evaluation. save_network, load_network_weights
+    and one clip again: the same IoU."""
+    from deva_tpu_torch.training import checkpoint as ckpt
+    from deva_tpu_torch.training import toy
+    net0 = toy.tiny_model().to(dev).eval()
+    iou0 = toy.eval_iou(net0)
+    del net0
+    t0 = time.perf_counter()
+    net, losses = toy.train_toy(device=dev, log=lambda *_: None)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    ak.reset_launch_counts()
+    iou = toy.eval_iou(net)
+    launches = {k: ak.LAUNCHES[k] for k in EXACT_PAIR}
+    print(f"phase 10c learn-to-track: 120 steps in {train_s:.1f} s, total "
+          f"loss every 10 steps {[round(x, 4) for x in losses]}; held-out "
+          f"IoU {iou:.4f} (random init {iou0:.4f}); launches during the "
+          f"evaluation {launches}", flush=True)
+    assert iou > 0.5 and iou > iou0 + 0.3, (iou, iou0)
+    assert all(launches[k] > 0 for k in EXACT_PAIR), launches
+    path = ckpt.save_network(net, os.path.join(tmp, "toy"), 120)
+    again = toy.tiny_model()
+    again.load_state_dict(ckpt.load_network_weights(path), strict=True)
+    again = again.to(dev).eval()
+    one, one_again = (toy.eval_iou(m, n_clips=1) for m in (net, again))
+    print(f"phase 10c: {os.path.basename(path)} reloaded, one clip's IoU "
+          f"{one_again:.4f} (trained network {one:.4f})", flush=True)
+    assert one_again == one, (one, one_again)
+
+
+class NullSummaryWriter:
+    """Stand-in for tensorboardX.SummaryWriter (the card's machine has no
+    tensorboardX): takes what the logger writes and keeps nothing."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def add_scalar(self, *args, **kwargs):
+        pass
+
+    add_image = add_text = add_scalar
+
+
+class SyntheticVOS:
+    """In-memory stand-in for training/data.VOSDataset (the card's machine
+    has no PIL): the constructor's arguments, and items of its format,
+    moving squares from train_batch, with up to max_num_obj objects."""
+
+    def __init__(self, im_root, gt_root, max_jump, *, size=384, subset=None,
+                 num_frames=3, max_num_obj=3, data_ratio=1.0):
+        self.size, self.num_frames = size, num_frames
+        self.max_num_obj = max_num_obj
+
+    def __len__(self):
+        return 8
+
+    def __getitem__(self, idx):
+        rng = np.random.default_rng(1000 + idx)
+        n_obj = 1 + idx % self.max_num_obj
+        b = train_batch(rng, 1, self.num_frames, self.size, self.size,
+                        n_obj)
+        first = np.zeros((self.max_num_obj, self.size, self.size),
+                         np.float32)
+        first[:n_obj] = b["first_frame_gt"][0]
+        selector = (np.arange(self.max_num_obj) < n_obj).astype(np.float32)
+        return {"rgb": b["rgb"][0], "first_frame_gt": first,
+                "cls_gt": b["cls_gt"][0], "selector": selector,
+                "info": {"name": f"synthetic{idx}", "num_objects": n_obj}}
+
+
+def phase_train_driver(dev, tmp) -> None:
+    """10d: training.train.main --stages 3 on the card at the tiny widths
+    for 4 iterations, a checkpoint at 2 and a resume to 4, with VOSDataset
+    replaced by SyntheticVOS (as 9c replaces Grounding DINO's detect()) and,
+    where tensorboardX is missing, its SummaryWriter by
+    NullSummaryWriter."""
+    from deva_tpu_torch.training import train
+    flags = ["--stages", "3", "--pix_feat_dim", "64", "--key_dim", "16",
+             "--value_dim", "32", "--crop_size", "64", "--num_workers", "0",
+             "--device", dev.type,
+             "--s3_batch_size", "4", "--s3_num_frames", "4",
+             "--s3_num_ref_frames", "2", "--log_text_interval", "1",
+             "--save_network_interval", "2",
+             "--save_checkpoint_interval", "2"]
+    real, cwd = train.VOSDataset, os.getcwd()
+    train.VOSDataset = SyntheticVOS
+    stub = None
+    try:
+        import tensorboardX  # noqa: F401
+    except ImportError:
+        stub = type(sys)("tensorboardX")
+        stub.SummaryWriter = NullSummaryWriter
+        sys.modules["tensorboardX"] = stub
+    os.chdir(tmp)
+    try:
+        train.main(flags + ["--exp_id", "phase10d", "--s3_iterations", "2"])
+        ckpts = glob.glob(os.path.join("saves", "*", "*_checkpoint_2.pth"))
+        assert len(ckpts) == 1, ckpts
+        final = train.main(flags + ["--exp_id", "NULL", "--s3_iterations",
+                                    "4", "--load_checkpoint", ckpts[0]])
+        saved = sorted(os.path.relpath(p) for p in glob.glob(
+            os.path.join("saves", "**", "*.pth"), recursive=True))
+    finally:
+        train.VOSDataset = real
+        os.chdir(cwd)
+        if stub is not None:
+            del sys.modules["tensorboardX"]
+    assert all(bool(torch.isfinite(v.float()).all()) for v in final.values())
+    print(f"phase 10d: train.main --stages 3 on {dev}: saved {saved}, "
+          f"resumed at 2 and finished at 4", flush=True)
+
+
+def phase10(ak, net_cpu, dev) -> list:
+    """Phases 10a-10d (training), each timed on the host clock; -> 10b's
+    rows."""
+    t0 = time.perf_counter()
+    times = {}
+
+    def lap(name):
+        nonlocal t0
+        times[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    phase_train_parity(net_cpu, dev)
+    lap("10a")
+    rows = phase_train_stage3(net_cpu, dev)
+    lap("10b")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_train_toy(ak, dev, tmp)
+        lap("10c")
+        phase_train_driver(dev, tmp)
+        lap("10d")
+    print(f"phase 10 took {sum(times.values()):.1f} s: {times}", flush=True)
+    return rows
+
+
 SMI = []
 
 
@@ -4485,6 +4908,7 @@ def main() -> int:
     det_rows += phase7(ak, apx, net_cpu, dev)
     det_rows += phase8(ak, apx, net_cpu, dev)
     det_rows += phase9(ak, apx, net_cpu, dev)
+    phase10(ak, net_cpu, dev)
 
     rows = []
     for ring, res_exact, res_approx, run_exact, run_approx, suffix in (

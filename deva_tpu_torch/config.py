@@ -130,6 +130,32 @@ class InferenceConfig:
         return n  # beyond the largest bucket: exact (rare)
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (deva_tpu/config.py:TrainConfig; per-stage
+    values: reference:deva/utils/configuration.py:45-64)."""
+    batch_size: int = 16
+    num_frames: int = 8
+    num_ref_frames: int = 3
+    lr: float = 1e-5
+    weight_decay: float = 0.05
+    iterations: int = 150_000
+    steps: tuple = (120_000, 140_000)
+    gamma: float = 0.1
+    clip_grad_norm: float = 3.0
+    deep_update_prob: float = 0.2
+    max_num_obj: int = 3
+    # bootstrapped CE schedule (reference:deva/model/losses.py:24-45)
+    start_warm: int = 20_000
+    end_warm: int = 70_000
+    amp_dtype: str = "bfloat16"
+    # recompute each sub-module call of the unrolled recurrence in the
+    # backward pass (torch.utils.checkpoint) instead of keeping its
+    # activations: more operations, far less activation memory. The same
+    # numbers.
+    remat: bool = False
+
+
 def flat_config(model: ModelConfig = ModelConfig(),
                 infer: InferenceConfig = InferenceConfig()) -> dict:
     """A reference-style flat dict view of both configs."""

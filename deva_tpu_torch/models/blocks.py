@@ -182,13 +182,23 @@ class DecoderFeatureProcessor(nn.Module):
 
 
 class LinearPredictor(nn.Module):
-    """The training-only aux mask predictor. Only its weights exist here, so
-    that upstream and deva_tpu checkpoints load strictly; its forward comes
-    with training (ROADMAP A10)."""
+    """The training-only aux mask predictor: a per-object linear classifier
+    over the frame features, whose weights (pix_dim of them and a bias) a
+    1x1 GConv2D makes from the object's sensory state
+    (deva_tpu/models/blocks.py:285-298)."""
 
     def __init__(self, x_dim: int, pix_dim: int):
         super().__init__()
         self.projection = GConv2D(x_dim, pix_dim + 1, 1)
+
+    def forward(self, im_feat: torch.Tensor,
+                pred_feat: torch.Tensor) -> torch.Tensor:
+        """im_feat [B, Cp, h, w]; pred_feat [B, O, Cx, h, w]
+        -> [B, O, 1, h, w] in the compute dtype."""
+        params = self.projection(pred_feat)  # [B, O, Cp + 1, h, w]
+        x = (im_feat[:, None].to(params.dtype) * params[:, :, :-1]).sum(
+            dim=2, keepdim=True)
+        return x + params[:, :, -1:]
 
 
 def _gru_update(values: torch.Tensor, h: torch.Tensor,

@@ -40,12 +40,17 @@ class MaskDecoder(nn.Module):
 
     def forward(self, multi_scale_features, memory_readout: torch.Tensor,
                 sensory: torch.Tensor, last_mask: torch.Tensor,
-                update_sensory: bool = True):
+                need_aux: bool = False, update_sensory: bool = True):
         """multi_scale_features: (f16 [B,512,h,w], f8, f4);
         memory_readout/sensory: [B, O, C, h, w]; last_mask [B, O, 1, h, w]
         (already area-downsampled to stride 16)
-        -> (new_sensory, logits [B, O, 4h, 4w])."""
+        -> (new_sensory, logits [B, O, 4h, 4w]) and, with need_aux, the
+        training aux logits [B, O, h, w] of the sensory state as it came in
+        (deva_tpu/models/decoder.py:43-47)."""
         f16, f8, f4 = multi_scale_features
+        aux_logits = None
+        if need_aux:
+            aux_logits = self.sensory_linear_pred(f16, sensory)[:, :, 0]
         skip8, skip4 = self.decoder_feat_proc([f8, f4])
 
         p16 = memory_readout.to(self.compute_dtype) + self.sensory_compress(
@@ -68,4 +73,6 @@ class MaskDecoder(nn.Module):
                 dim=2)
             new_sensory = self.sensory_update(
                 p16, downsample_area(p8, 2), p4_with_logit_s16, sensory)
+        if need_aux:
+            return new_sensory, logits_g[:, :, 0], aux_logits
         return new_sensory, logits_g[:, :, 0]

@@ -1,11 +1,12 @@
 """DEVANetwork: the temporal-propagation model, NCHW.
 
-Port of deva_tpu/models/network.py with its four inference modes:
+Port of deva_tpu/models/network.py with its five modes:
   encode_image   image -> multi-scale features + key features
   transform_key  key features -> (key, shrinkage, selection)
   encode_mask    image + mask (+ sensory) -> memory value (+ sensory)
+  read_memory    the dense-softmax memory readout of training
   segment        memory readout + sensory + last mask -> probabilities
-(The dense training readout `read_memory` is not ported yet.)
+                 (and, for training, the aux head's)
 
 Grouped tensors are [B, O, C, H, W]. `selector` [B, O] masks padded object
 slots. Submodule names are upstream DEVA's, so an upstream state dict (or
@@ -30,6 +31,8 @@ from deva_tpu_torch.models.decoder import MaskDecoder
 from deva_tpu_torch.models.encoders import MaskEncoder, PixelEncoder
 from deva_tpu_torch.models.layers import set_compute_dtype
 from deva_tpu_torch.ops.aggregate import aggregate_logits
+from deva_tpu_torch.ops.memory_attention import (full_softmax, get_similarity,
+                                                 readout)
 from deva_tpu_torch.ops.resize import downsample_area, upsample_bilinear
 
 
@@ -61,21 +64,54 @@ class DEVANetwork(nn.Module):
         return self.mask_encoder(image, pix_f16, sensory, masks,
                                  deep_update=deep_update)
 
+    def read_memory(self, query_key: torch.Tensor,
+                    query_selection: torch.Tensor, memory_key: torch.Tensor,
+                    memory_shrinkage: torch.Tensor,
+                    memory_value: torch.Tensor) -> torch.Tensor:
+        """The dense attention readout of training: every memory token of
+        each batch element, no top-k (deva_tpu/models/network.py:69-89,
+        reference:deva/model/network.py:72-92).
+
+        query_key/query_selection [B, Ck, h, w]; memory_key [B, N, Ck];
+        memory_shrinkage [B, N]; memory_value [B, O, N, Cv]
+        -> [B, O, Cv, h, w] in the compute dtype."""
+        b, ck, h, w = query_key.shape
+        qk = query_key.flatten(2).transpose(1, 2)  # [B, hw, Ck]
+        qe = query_selection.flatten(2).transpose(1, 2)
+        aff = full_softmax(get_similarity(memory_key, memory_shrinkage, qk,
+                                          qe))  # [B, hw, N]
+        out = readout(aff[:, None], memory_value)  # [B, O, hw, Cv]
+        return out.transpose(2, 3).reshape(b, out.shape[1], -1, h, w).to(
+            self.config.compute_dtype)
+
     def segment(self, multi_scale_features, memory_readout: torch.Tensor,
                 sensory: torch.Tensor, last_mask: torch.Tensor,
                 selector: Optional[torch.Tensor] = None,
-                update_sensory: bool = True):
+                need_aux: bool = False, update_sensory: bool = True):
         """memory_readout/sensory [B, O, C, h, w]; last_mask [B, O, H, W]
-        -> (new_sensory, logits [B, O+1, H, W], prob [B, O+1, H, W])."""
+        -> (new_sensory, logits [B, O+1, H, W], prob [B, O+1, H, W]) and,
+        with need_aux, the aux head's (logits, prob) [B, O+1, H, W]: the
+        stride-16 aux logits through the same sigmoid, selector and
+        aggregation, x16 bilinear (deva_tpu/models/network.py:110-121)."""
         lm = downsample_area(last_mask, 16)[:, :, None]  # [B, O, 1, h, w]
-        new_sensory, logits = self.mask_decoder(
-            multi_scale_features, memory_readout, sensory, lm,
-            update_sensory=update_sensory)
-        prob = torch.sigmoid(logits.float())  # [B, O, 4h, 4w]
-        if selector is not None:
-            prob = prob * selector[:, :, None, None]
-        lg = upsample_bilinear(aggregate_logits(prob, axis=1), 4)
-        return new_sensory, lg, torch.softmax(lg, dim=1)
+        out = self.mask_decoder(multi_scale_features, memory_readout,
+                                sensory, lm, need_aux=need_aux,
+                                update_sensory=update_sensory)
+        lg, prob = _aggregate(out[1], selector, 4)
+        if need_aux:
+            return (out[0], lg, prob) + _aggregate(out[2], selector, 16)
+        return out[0], lg, prob
+
+
+def _aggregate(logits: torch.Tensor, selector: Optional[torch.Tensor],
+               factor: int):
+    """Per-object logits [B, O, h, w] -> (joint logits [B, O+1, h*factor,
+    w*factor], their softmax), in f32."""
+    prob = torch.sigmoid(logits.float())
+    if selector is not None:
+        prob = prob * selector[:, :, None, None]
+    lg = upsample_bilinear(aggregate_logits(prob, axis=1), factor)
+    return lg, torch.softmax(lg, dim=1)
 
 
 @torch.no_grad()

@@ -1116,3 +1116,22 @@ def test_mobile_sam_on_the_card_matches_the_cpu(dev, hq):
     np.testing.assert_allclose(g_gpu["iou_preds"], g_cpu["iou_preds"],
                                rtol=0, atol=5e-3)
     assert (g_cpu["masks"] != g_gpu["masks"]).mean() <= 1e-3
+
+
+def test_train_step_card_matches_cpu(dev):
+    """chip_smoke.py's phase 10a: one train step of the full-width network
+    (64x64, B=2, T=4, num_ref_frames 2, 3 objects, it 0) on the card and on
+    the CPU from the same weights, batch and draws; the total loss within
+    1e-4 relative, every gradient within 1e-3 of its tensor's largest, the
+    updates within 1e-2 * lr where the gradient is clear of 0 and within
+    2 * lr anywhere; a tensor that misses in f32 (ReLU inputs within f32
+    rounding of the kink) must agree in float64 between the devices within
+    1e-4 of its largest (chip_smoke.F64_GRAD_REL)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    from deva_tpu_torch.models.network import DEVANetwork, init_weights
+    chip_smoke.phase_train_parity(init_weights(DEVANetwork(), seed=0).eval(),
+                                  dev)

@@ -147,13 +147,18 @@ def test_port_imports_without_jax_or_pil():
     scripts/merge_multi_scale_torch.py, the detector layer (ext/: TinyViT,
     the SAM decoder, MobileSAM, the detectors, both frame processors, the
     flags) with demo_utils and simple_video_reader, and the two demos
-    (demo/demo_with_text_torch.py, demo/demo_automatic_torch.py), with
-    both blocked, and transformers blocked too, must work."""
+    (demo/demo_with_text_torch.py, demo/demo_automatic_torch.py), and the
+    training stack (training/: the trainer, losses, checkpoints, the stage
+    driver, the toy, the datasets and their transforms; utils/logger.py,
+    utils/image_saver.py), with both blocked, and transformers, cv2 and
+    tensorboardX blocked too, must work."""
     code = """
 import sys
 sys.modules['jax'] = None
 sys.modules['PIL'] = None
 sys.modules['transformers'] = None
+sys.modules['cv2'] = None
+sys.modules['tensorboardX'] = None
 import importlib, importlib.util, pkgutil
 import deva_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(deva_tpu_torch.__path__,
@@ -215,7 +220,20 @@ for name in ('deva_tpu_torch.inference.batched_detection',
              'deva_tpu_torch.ext.with_text_processor',
              'deva_tpu_torch.ext.automatic_processor',
              'deva_tpu_torch.inference.demo_utils',
-             'deva_tpu_torch.data.simple_video_reader'):
+             'deva_tpu_torch.data.simple_video_reader',
+             'deva_tpu_torch.training.trainer',
+             'deva_tpu_torch.training.losses',
+             'deva_tpu_torch.training.checkpoint',
+             'deva_tpu_torch.training.configuration',
+             'deva_tpu_torch.training.train',
+             'deva_tpu_torch.training.toy',
+             'deva_tpu_torch.training.data.utils',
+             'deva_tpu_torch.training.data.transforms',
+             'deva_tpu_torch.training.data.tps',
+             'deva_tpu_torch.training.data.static_dataset',
+             'deva_tpu_torch.training.data.vos_dataset',
+             'deva_tpu_torch.utils.logger',
+             'deva_tpu_torch.utils.image_saver'):
     assert name in names, name
 assert not any(m == 'deva_tpu' or m.startswith(('deva_tpu.', 'jax', 'flax'))
                for m in sys.modules if sys.modules[m] is not None), \\
