@@ -11,7 +11,9 @@ dtypes (bf16 compute, bf16 memory rings); and the evaluation drivers
 drivers' soft-mask bidirectional propagation); and the detector layer
 (MobileSAM, Light-HQ-SAM, the frame processors) with the two demos; and
 the training stack (the train step card against CPU, the stage-3 step at
-full width, learn-to-track served by InferenceCore, the stage driver).
+full width, learn-to-track served by InferenceCore, the stage driver); and
+multi-GPU serving over two ranks (object-sharded VOS and detection
+drivers, memory-sharded attention, video-sharded batched propagation).
 
     python3 chip_smoke.py
 
@@ -223,6 +225,37 @@ tests/test_amp.py's whole-clip budget against the f32 run, frame by frame.
    --stages 3 at the tiny widths on the card, 2 iterations with a
    checkpoint, then a resume to 4, VOSDataset replaced by an in-memory
    synthetic dataset.
+11. Multi-GPU serving (deva_tpu_torch/parallel), two ranks started as
+   subprocesses of this script with torchrun's environment: on a machine
+   with one card both share it over gloo (NCCL refuses two ranks on one
+   card; every time of a collective is then gloo's, through host copies,
+   and no number is a scaling number), with two or more each takes its own
+   over NCCL; a rank that fails or passes RANK_TIMEOUT fails the phase.
+   Full-width ModelConfig(), seeded weights identical on both ranks, TF32
+   off; each sharded run is held to the unsharded run on the same card
+   (rank 0, while rank 1 waits), by phase 3's card-against-CPU budget
+   (DET_TOL), an argmax flipping only where the unsharded run's top two
+   channels tie within ALIGN_TIE (the detection phases' rule). 11a: eval_vos_torch.run_video with
+   --obj_shards 2 (InferenceCore(obj_mesh=)) on an 854x480 clip with 16
+   objects, 30 frames, mem_every 5, long-term on (a 5-frame working
+   memory, so that it consolidates), exact and approx by chunks of 5:
+   each rank's peak allocated memory and ms/frame beside the unsharded
+   run's, every propagated frame launching both kernels of the method.
+   11b: eval_with_detections_torch.run_video online with --obj_shards 2,
+   30 frames, a detection every 5th (two stuff bands and things 1-5, 7, 8
+   of phase 6b's detections), merged against perfect forward predictions
+   so that no host decision reads device output; thing 8 joins at frame
+   20 (o_cap 8 -> 16), thing 7 is purged at 25: equal object tables at
+   every frame. 11c: parallel.
+   attend_mem_sharded at N=16712 (phase 1's validity) over the 'data'
+   axis, Q=1620, Ck=64, k=30, C=1024, one launch of each exact kernel per
+   rank, against the single-device attend_topk on the rows whose k-th
+   value is unique (within 1e-5 of each row's largest output), timed.
+   11d: BatchedPropagator(mesh=) at B=4 480p (phase 5's clips), two videos
+   a rank, 20 frames with long-term memory engaged, each video within
+   phase 5's budgets of the unsharded B=4 group, ring and long-term sizes
+   equal. Alone: a script under a git-ignored profiles*/ directory that
+   builds the kernels and calls phase11() (README).
 
 The second-to-last line of output is a JSON object with each kernel's
 launches (phase 3 for the exact pair, phase 4 for the approx pair), largest
@@ -244,8 +277,11 @@ exact pair at 8c's last frame, launches of 8c outside the consensus;
 ".ref.align": at the consensus' last alignment, launches of the
 alignments), and for the demos (".demo": the exact pair at 9b's last
 frame, launches of 9b and 9c outside the alignments; ".demo.align": at
-9b's last spatial alignment, launches of both demos' alignments); the last
-line is
+9b's last spatial alignment, launches of both demos' alignments), and for
+object and memory sharding (".osh": the exact pair at 11a's last exact
+frame on rank 0's object slots, launches of rank 0's 11a exact run;
+".msh": at 11c's call on rank 0's token shard, launches of that call);
+the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
 from __future__ import annotations
@@ -4832,10 +4868,517 @@ def phase7(ak, apx, net_cpu, dev) -> list:
     return rows
 
 
+# --------------------------------------------------------------------------
+# phase 11: multi-GPU serving (object, memory and video sharding, 2 ranks)
+# --------------------------------------------------------------------------
+
+# 11a's clip: 854x480, 16 objects in a 4 x 4 grid of boxes, 30 frames;
+# the driver's flags but a working memory of 5 frames (2 kept), so that
+# long-term memory consolidates at frame 20 (the default 10 would not
+# within 30 frames)
+P11_OBJECTS, P11_FRAMES = 16, 30
+P11_LT_FLAGS = ["--max_mid_term_frames", "5", "--min_mid_term_frames", "2"]
+# 11b: online detection fusion, a detection every 5 frames, of two stuff
+# bands and things 1-5, 7 and 8 of detection_clips.detections: 8 objects,
+# thing 8 joins at frame 20 (o_cap 8 -> 16), thing 7 is gone from frame 25
+# and, with max_missed_detection_count 0, purged there
+P11_DET_FRAMES, P11_MISSED = 30, 0
+P11_DET_IDS = (21, 22, 1, 2, 3, 4, 5, 7, 8)
+# 11c: the memory-sharded attention's shapes (phase 1's at N=16712)
+P11_N, P11_Q, P11_CK, P11_K, P11_O, P11_CV = 16712, 1620, 64, 30, 2, 512
+# 11d: B=4 480p videos, 20 frames, long-term memory engaged by frame 9
+P11_BATCH_FRAMES = 20
+P11_BATCH_CFG = dict(mem_every=2, max_mid_term_frames=5,
+                     min_mid_term_frames=2)
+# each rank's time limit, and the phase's ranks
+RANK_TIMEOUT, P11_WORLD = 600, 2
+
+
+def p11_clip():
+    """11a's frames and first mask (16 boxes, ids 1-16)."""
+    frames = synthetic_video(np.random.default_rng(51), H480, W480,
+                             P11_FRAMES)
+    mask = np.zeros((H480, W480), np.int64)
+    dh, dw = H480 // 4, W480 // 4
+    for i in range(P11_OBJECTS):
+        r, c = divmod(i, 4)
+        mask[r * dh + dh // 8:(r + 1) * dh - dh // 8,
+             c * dw + dw // 8:(c + 1) * dw - dw // 8] = i + 1
+    return frames, mask
+
+
+class TapSaver(VosSaver):
+    """VosSaver that calls after() on each written frame."""
+
+    def __init__(self, after):
+        super().__init__()
+        self.after = after
+
+    def save_mask(self, out_mask, frame):
+        super().save_mask(out_mask, frame)
+        self.after()
+
+
+def p11_vos(drv, net, dev, frames, mask, flags, obj_mesh, keep: bool,
+            after=lambda: None):
+    """11a's run through eval_vos_torch.run_video with --obj_shards's
+    core (obj_mesh; None unsharded). -> (probabilities on the host if keep,
+    the StepTimer's ms per frame, the peak allocated MiB)."""
+    import dataclasses
+    from deva_tpu_torch.inference.core import InferenceCore
+    args = drv.get_args(flags + ["--device", "cuda"])
+    cfg = drv.base_config(args)
+    core = InferenceCore(net, dataclasses.replace(
+        cfg, enable_long_term_count_usage=drv.count_usage(cfg, len(frames))),
+        device=dev, obj_mesh=obj_mesh)
+    probs = StepTap(core).probs if keep else None
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timer = drv.StepTimer(dev)
+    drv.run_video(core, VosReader(frames, {0: (mask, np.arange(
+        1, P11_OBJECTS + 1))}, "v480"), args, TapSaver(after), timer)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    chunk = int(flags[flags.index("--chunk") + 1]) if "--chunk" in flags \
+        else 1
+    sizes = [1] + [min(chunk, P11_FRAMES - s)
+                   for s in range(1, P11_FRAMES, chunk)]
+    per_frame = [ms / k for ms, k in zip(timer.steps_ms, sizes)
+                 for _ in range(k)]
+    assert core.memory.long_buckets, "11a: long-term memory never engaged"
+    return probs, per_frame, peak
+
+
+def p11_hold(ref, got, label):
+    """A sharded run's frames against the unsharded run's on the same card,
+    phase 3's card-against-CPU budget (DET_TOL) on every pixel, and the
+    labels as the detection phases hold them: an argmax may flip only
+    where the unsharded run's top two channels tie within ALIGN_TIE
+    (random weights give near-flat probabilities). -> (max |dprob|, the
+    largest share of a frame flipped)."""
+    worst = flips = 0.0
+    assert len(ref) == len(got), (label, len(ref), len(got))
+    for ti, (a, b) in enumerate(zip(ref, got)):
+        a, b = torch.as_tensor(a).float(), torch.as_tensor(b).float()
+        assert a.shape == b.shape, (label, ti, a.shape, b.shape)
+        assert bool(torch.isfinite(b).all()), (label, ti)
+        diff = (a - b).abs()
+        flip = a.argmax(0) != b.argmax(0)
+        top2 = a.topk(min(2, a.shape[0]), dim=0).values
+        odd = flip & ((top2[0] - top2[-1]) > ALIGN_TIE)
+        beyond = (diff > DET_TOL).any(0)
+        assert not bool(beyond.any()) and not bool(odd.any()), (
+            f"{label} frame {ti}: {int(beyond.sum())} pixels beyond "
+            f"{DET_TOL}, {int(odd.sum())} argmax flips off a tie")
+        worst = max(worst, diff.max().item())
+        flips = max(flips, flip.float().mean().item())
+    return worst, flips
+
+
+def p11_gather_floats(values, dev):
+    """Each rank's list of floats, on every rank (one list all_gather)."""
+    import torch.distributed as dist
+    t = torch.tensor(values, dtype=torch.float64, device=dev)
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t)
+    return [p.tolist() for p in parts]
+
+
+def p11_vos_phase(ak, apx, drv, net, dev, rank, obj_mesh, report):
+    """11a: the VOS driver's run_video with --obj_shards 2, exact and
+    approx by chunks of 5, against the unsharded core on the same card
+    (rank 0, while rank 1 waits). -> the .osh rows (rank 0)."""
+    import torch.distributed as dist
+    frames, mask = p11_clip()
+    rows = []
+    for method, flags in (("exact", P11_LT_FLAGS),
+                          ("approx", P11_LT_FLAGS + [
+                              "--topk_method", "approx", "--chunk", "5"])):
+        ref = ref_ms = ref_peak = None
+        if rank == 0:
+            ref, ref_ms, ref_peak = p11_vos(drv, net, dev, frames, mask,
+                                            flags, None, True)
+        dist.barrier()
+        ak.reset_launch_counts()
+        tap = KernelTap(ak) if method == "exact" and rank == 0 else None
+        try:
+            got, ms, peak = p11_vos(drv, net, dev, frames, mask, flags,
+                                    obj_mesh, rank == 0,
+                                    tap.frame if tap else lambda: None)
+        finally:
+            if tap:
+                tap.restore()
+        launches = dict(ak.LAUNCHES)
+        used = EXACT_PAIR if method == "exact" else ("segmax",
+                                                     "denom_readout")
+        assert all(launches[k] >= P11_FRAMES - 1 for k in used), launches
+        peaks = p11_gather_floats([peak, statistics.median(ms[10:])], dev)
+        if rank != 0:
+            continue
+        worst, flips = p11_hold(ref, got, f"11a {method}")
+        report[f"11a.{method}"] = {
+            "ms_per_frame": [p[1] for p in peaks],
+            "unsharded_ms_per_frame": statistics.median(ref_ms[10:]),
+            "peak_mib": [p[0] for p in peaks], "unsharded_peak_mib": ref_peak,
+            "max_abs_dprob": worst, "max_flip_share": flips,
+            "launches": launches}
+        print(f"{smi_line()} phase 11a eval_vos_torch.run_video "
+              f"--obj_shards {P11_WORLD} {' '.join(flags)} at "
+              f"{H480}x{W480}, {P11_OBJECTS} objects, {P11_FRAMES} frames: "
+              f"ms/frame (StepTimer, frames 10+, median) per rank "
+              + ", ".join(f"{p[1]:.3f}" for p in peaks)
+              + f" vs unsharded {statistics.median(ref_ms[10:]):.3f}; peak "
+              f"allocated MiB per rank " + ", ".join(f"{p[0]:.1f}"
+                                                     for p in peaks)
+              + f" vs unsharded {ref_peak:.1f}; against the unsharded core "
+              f"max |dprob| {worst:.3g}, argmax flips at most {flips:.3%}; "
+              f"launches {launches}", flush=True)
+        if method == "exact":
+            rows += det_kernel_rows(
+                ak, apx, dev, ".osh", tap.last_frame,
+                {k: launches[k] for k in EXACT_PAIR},
+                "11a's last exact frame, rank 0's object slots")
+        del ref, got
+    return rows
+
+
+class P11DetSaver(DetSaver):
+    """DetSaver that keeps each frame's output on the device (11b compares
+    them there) and the object table at each frame."""
+
+    def __init__(self, core, detection_frame):
+        super().__init__(core, detection_frame)
+        self.on_card, self.tables = {}, {}
+
+    def save_mask(self, prob, frame, **kw):
+        super().save_mask(prob, frame, **kw)
+        ti = int(frame[:5])
+        self.on_card[ti] = prob.clone()
+        om = self.core.object_manager
+        self.tables[ti] = ([(o.id, t) for o, t in om.obj_to_tmp_id.items()],
+                           self.core.o_cap)
+
+
+def p11_det_run(drv, args, net, dev, frames, masks, infos, obj_mesh):
+    """11b's video through eval_with_detections_torch.run_video, each
+    detection merged against a perfect forward prediction once objects
+    exist (detection_clips.perfect_forward: the detection's segment ids
+    are the object ids), so that the host decisions read no device output.
+    -> (the saver, the StepTimer's ms per frame)."""
+    from deva_tpu_torch.detection_clips import perfect_forward
+    core = drv.video_processor(net, drv.detection_config(args), len(frames),
+                               dev, obj_mesh)
+    real = core.incorporate_detection
+
+    def incorporate(image, mask, segments, **kw):
+        if core.object_manager.num_obj:
+            kw["forward_mask"] = perfect_forward(core, mask)
+        return real(image, mask, segments, **kw)
+
+    core.incorporate_detection = incorporate
+    timer = drv.StepTimer(dev)
+    saver = P11DetSaver(core, lambda ti: ti % args.detection_every == 0)
+    drv.run_video(DetReader(frames, masks, "det480"), core, saver, args,
+                  timer, "vipseg", lambda ti, mask, info: (infos[ti], False))
+    torch.cuda.synchronize()
+    return saver, dict(zip(saver.order, timer.steps_ms))
+
+
+def p11_det_phase(net, dev, rank, obj_mesh, report):
+    """11b: online detection fusion through eval_with_detections_torch.
+    run_video with --obj_shards 2 at 480p, against the unsharded run on the
+    same card: equal object tables at every frame, every frame by
+    p11_hold. The detections insert an object at frame 20, growing the
+    padded object count from 8 to 16, and one object is purged at frame
+    25."""
+    import torch.distributed as dist
+    from deva_tpu_torch.detection_clips import detections
+    frames = synthetic_video(np.random.default_rng(31), H480, W480,
+                             P11_DET_FRAMES)
+    masks, infos = detections(P11_DET_FRAMES, H480, W480)
+    keep = np.asarray(P11_DET_IDS)
+    masks = [np.where(np.isin(m, keep), m, 0) for m in masks]
+    infos = [[d for d in info if d["id"] in P11_DET_IDS] for info in infos]
+    drv, args = det_driver("online")
+    args.max_missed_detection_count = P11_MISSED
+    ref = None
+    if rank == 0:
+        ref, ref_ms = p11_det_run(drv, args, net, dev, frames, masks, infos,
+                                  None)
+    dist.barrier()
+    got, ms = p11_det_run(drv, args, net, dev, frames, masks, infos,
+                          obj_mesh)
+    if rank != 0:
+        return
+    assert got.tables == ref.tables, "11b: the object tables differ"
+    caps = [got.tables[t][1] for t in range(P11_DET_FRAMES)]
+    ids = [sorted(i for i, _ in got.tables[t][0])
+           for t in range(P11_DET_FRAMES)]
+    assert caps[0] == 8 and caps[-1] == 16 and 8 in ids[20] and \
+        8 not in ids[19] and 7 in ids[24] and 7 not in ids[25], (caps, ids)
+    worst, flips = p11_hold([ref.on_card[t] for t in range(P11_DET_FRAMES)],
+                            [got.on_card[t] for t in range(P11_DET_FRAMES)],
+                            "11b")
+    det = [t for t in range(P11_DET_FRAMES) if t % args.detection_every == 0]
+    prop = [t for t in range(10, P11_DET_FRAMES) if t not in det]
+    report["11b"] = {
+        "objects": [len(i) for i in ids], "o_cap": caps,
+        "max_abs_dprob": worst, "max_flip_share": flips,
+        "prop_ms": statistics.median(ms[t] for t in prop),
+        "unsharded_prop_ms": statistics.median(ref_ms[t] for t in prop),
+        "det_ms": statistics.median(ms[t] for t in det[1:]),
+        "unsharded_det_ms": statistics.median(ref_ms[t] for t in det[1:])}
+    print(f"{smi_line()} phase 11b eval_with_detections_torch.run_video "
+          f"online --obj_shards {P11_WORLD} at {H480}x{W480}, "
+          f"{P11_DET_FRAMES} frames, perfect forward predictions, "
+          f"max_missed_detection_count {P11_MISSED}: objects per frame "
+          f"{report['11b']['objects']}, o_cap {caps[0]} -> {caps[-1]} at "
+          f"frame 20, object 7 purged at 25; object tables equal to the "
+          f"unsharded run's at every frame, max |dprob| {worst:.3g}, argmax "
+          f"flips at most {flips:.3%} (at near-ties); rank 0 ms (StepTimer, "
+          f"median) per propagation frame {report['11b']['prop_ms']:.3f} "
+          f"(unsharded {report['11b']['unsharded_prop_ms']:.3f}), per "
+          f"detection frame {report['11b']['det_ms']:.3f} (unsharded "
+          f"{report['11b']['unsharded_det_ms']:.3f})", flush=True)
+
+
+class ShardedAttentionTap:
+    """The exact pair's calls inside parallel/sharded_attention.py (it
+    binds the wrappers at import), recorded as KernelTap records them."""
+
+    def __init__(self):
+        from deva_tpu_torch.parallel import sharded_attention as sa
+        self.sa, self.calls = sa, []
+        self.fns = {name: getattr(sa, name) for name in EXACT_PAIR}
+        for name, fn in self.fns.items():
+            setattr(sa, name, self._spy(name, fn))
+
+    def _spy(self, name, fn):
+        def spy(*args):
+            self.calls.append((name, args))
+            return fn(*args)
+        return spy
+
+    def restore(self):
+        for name, fn in self.fns.items():
+            setattr(self.sa, name, fn)
+
+
+def p11_attention_phase(ak, apx, dev, rank, report):
+    """11c: attend_mem_sharded at N=16712 (phase 1's [long-term ; working]
+    validity; padded by pad_tokens) over the 'data' axis of 2 ranks, against
+    the single-device attend_topk: on the rows whose k-th value is unique
+    (there the supports are equal) within 1e-5 of each row's largest
+    output. -> the .msh rows (rank 0, on its shard's arguments)."""
+    import torch.distributed as dist
+    from deva_tpu_torch.parallel.mesh import make_mesh
+    from deva_tpu_torch.parallel.sharded_attention import (attend_mem_sharded,
+                                                           pad_tokens)
+    g = torch.Generator(device="cpu").manual_seed(61)
+    n = pad_tokens(P11_N, P11_WORLD)
+    mk = torch.randn(n, P11_CK, generator=g).to(dev)
+    ms = (torch.rand(n, generator=g) * 3 + 1).to(dev)
+    values = torch.randn(n, P11_O, P11_CV, generator=g).to(dev)
+    qk = torch.randn(P11_Q, P11_CK, generator=g).to(dev)
+    qe = torch.rand(P11_Q, P11_CK, generator=g).to(dev)
+    valid = torch.zeros(n, dtype=torch.bool, device=dev)
+    valid[:P11_N] = ring_validity(P11_N, dev)
+    mesh = make_mesh(P11_WORLD, 1)
+    per = n // P11_WORLD
+    sl = slice(rank * per, (rank + 1) * per)
+    shard = (mk[sl].contiguous(), ms[sl].contiguous(),
+             values[sl].contiguous(), valid[sl].contiguous())
+    run = lambda: attend_mem_sharded(shard[0], shard[1], shard[2], qk, qe,
+                                     P11_K, shard[3], mesh, axis="data")
+    ak.reset_launch_counts()
+    tap = ShardedAttentionTap()
+    try:
+        out = run()
+        torch.cuda.synchronize()
+    finally:
+        tap.restore()
+    launches = dict(ak.LAUNCHES)
+    assert all(launches[k] == 1 for k in EXACT_PAIR), launches
+    sharded_ms = cuda_ms(run, iters=10)
+    dist.barrier()
+    if rank != 0:
+        return []
+    ref = ak.attend_topk(mk, ms, values, qk, qe, P11_K, valid)
+    single_ms = cuda_ms(lambda: ak.attend_topk(mk, ms, values, qk, qe,
+                                               P11_K, valid), iters=10)
+    vals, _ = ak.sim_topk(qk, qe, mk, ms, valid, P11_K + 1)
+    unique = vals[:, P11_K - 1] > vals[:, P11_K]  # [Q]
+    scale = ref.abs().amax(dim=(0, 2))  # each row's largest output
+    gap = ((out - ref).abs().amax(dim=(0, 2)) / scale)[unique]
+    assert bool((gap <= 1e-5).all()), \
+        f"11c: {int((gap > 1e-5).sum())} rows beyond 1e-5, worst {gap.max()}"
+    report["11c"] = {"ms": sharded_ms, "single_ms": single_ms,
+                     "unique_rows": int(unique.sum()),
+                     "max_rel_gap": gap.max().item()}
+    print(f"{smi_line()} phase 11c attend_mem_sharded N={P11_N} over "
+          f"{P11_WORLD} ranks ({per} tokens each), Q={P11_Q} Ck={P11_CK} "
+          f"k={P11_K} C={P11_O * P11_CV}: {sharded_ms:.4f} ms on rank 0 "
+          f"(CUDA events; the all_gather and two all_reduces included, "
+          f"carried by {dist.get_backend()}) vs single-device attend_topk "
+          f"{single_ms:.4f} ms; {int(unique.sum())} of {P11_Q} rows with a "
+          f"unique k-th value within {gap.max().item():.3g} of their "
+          f"largest output", flush=True)
+    return det_kernel_rows(ak, apx, dev, ".msh", tap.calls, launches,
+                           "11c, rank 0's token shard")
+
+
+def p11_batched_phase(net, dev, rank, report):
+    """11d: BatchedPropagator(mesh=) at B=4 480p over the 'data' axis of 2
+    ranks (2 videos each) against the unsharded B=4 group on the same card
+    (rank 0), 20 frames, long-term memory engaged: each video within
+    phase 5's budgets (compare_single), equal ring and long-term sizes."""
+    import torch.distributed as dist
+    from deva_tpu_torch.config import InferenceConfig
+    from deva_tpu_torch.inference.batched import BatchedPropagator
+    from deva_tpu_torch.parallel.mesh import make_mesh
+    frames, masks, objects = batched_main_setup(dev, P11_BATCH_FRAMES)
+    cfg = InferenceConfig(**P11_BATCH_CFG)
+
+    def run(bp, fr, mk, objs):
+        bp.initialize(fr[:, 0], mk, objs)
+        out, ms = [], []
+        for t in range(1, P11_BATCH_FRAMES):
+            t0 = time.perf_counter()
+            out.append(bp.step_all(fr[:, t]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1000)
+        assert bp._lt_engaged, "11d: long-term memory never engaged"
+        return out, ms
+
+    ref = None
+    if rank == 0:
+        ref_bp = BatchedPropagator(net, cfg)
+        ref, ref_ms = run(ref_bp, frames, masks, objects)
+    dist.barrier()
+    mesh = make_mesh(P11_WORLD, 1)
+    per = B4 // P11_WORLD
+    mine = slice(rank * per, (rank + 1) * per)
+    bp = BatchedPropagator(net, cfg, mesh=mesh)
+    got, ms = run(bp, frames[mine], masks[mine], objects[mine])
+    sizes = p11_gather_floats([*bp.sizes, *bp.lt_sizes], dev)
+    gathered = []
+    for p in got:
+        parts = [torch.empty_like(p) for _ in range(P11_WORLD)]
+        dist.all_gather(parts, p.contiguous())
+        gathered.append(torch.cat(parts) if rank == 0 else None)
+    if rank != 0:
+        return
+    assert [s for r in sizes for s in r[:per]] == ref_bp.sizes.tolist()
+    assert [s for r in sizes for s in r[per:]] == ref_bp.lt_sizes.tolist()
+    lines = [compare_single([gathered[t][b, :len(o) + 1].cpu()
+                             for t in range(len(got))],
+                            [ref[t][b, :len(o) + 1].cpu()
+                             for t in range(len(ref))], f"video {b}")
+             for b, o in enumerate(objects)]
+    report["11d"] = {"ms": statistics.median(ms[5:]),
+                     "unsharded_ms": statistics.median(ref_ms[5:])}
+    print(f"{smi_line()} phase 11d BatchedPropagator(mesh=) B={B4} at "
+          f"{H480}x{W480} over {P11_WORLD} ranks, {P11_BATCH_FRAMES} frames, "
+          f"{P11_BATCH_CFG}, long-term engaged: ms per lockstep step "
+          f"(wall, median of 5+) rank 0 {report['11d']['ms']:.3f} vs the "
+          f"unsharded group {report['11d']['unsharded_ms']:.3f}; ring and "
+          f"long-term sizes equal; " + "; ".join(lines), flush=True)
+
+
+def phase11_rank(out_path: str) -> None:
+    """One rank of phase 11 (started by phase11 with torchrun's
+    environment): joins the group, runs 11a-11d and writes its report
+    (rank 0: the numbers and the kernels line's rows) to out_path."""
+    sys.path.insert(0, ROOT)
+    from deva_tpu_torch.models.network import DEVANetwork, init_weights
+    from deva_tpu_torch.ops import approx_kernels as apx
+    from deva_tpu_torch.ops import attention_kernels as ak
+    from deva_tpu_torch.ops import cuda_build
+    from deva_tpu_torch.parallel.mesh import init_from_env, make_mesh
+    shared = torch.cuda.device_count() < P11_WORLD
+    dev, rank, world = init_from_env("cuda:0" if shared else "cuda",
+                                     backend="gloo" if shared else None)
+    assert world == P11_WORLD
+    SMI.append(os.environ.get("CHIP_SMOKE_SMI", ""))
+    cuda_build.load()
+    net = init_weights(DEVANetwork(), seed=0).to(dev).eval()
+    drv, _, _ = drivers()
+    report, laps, t0 = {}, {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        laps[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    rows = p11_vos_phase(ak, apx, drv, net, dev, rank, make_mesh(1, world),
+                         report)
+    lap("11a")
+    p11_det_phase(net, dev, rank, make_mesh(1, world), report)
+    lap("11b")
+    rows += p11_attention_phase(ak, apx, dev, rank, report)
+    lap("11c")
+    p11_batched_phase(net, dev, rank, report)
+    lap("11d")
+    report["laps_s"] = laps
+    with open(out_path, "w") as f:
+        json.dump({"rank": rank, "report": report, "rows": rows}, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def phase11() -> list:
+    """Phase 11: two ranks as subprocesses of this script with torchrun's
+    environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR/PORT on
+    localhost). One card: both share it over gloo (NCCL refuses two ranks
+    on one card); two or more: a card each over NCCL. A rank that fails or
+    passes RANK_TIMEOUT fails the phase. -> the .osh and .msh rows."""
+    import socket
+    shared = torch.cuda.device_count() < P11_WORLD
+    print(f"phase 11: {P11_WORLD} ranks "
+          + ("sharing card 0 over gloo (collectives are gloo's host copies, "
+             "no NCCL time)" if shared else "on cards 0-1 over NCCL"),
+          flush=True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(P11_WORLD)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase11-rank",
+             outs[r]], env=dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                                WORLD_SIZE=str(P11_WORLD),
+                                MASTER_ADDR="localhost",
+                                MASTER_PORT=str(port),
+                                CHIP_SMOKE_SMI=SMI[0] if SMI else ""))
+            for r in range(P11_WORLD)]
+        try:
+            deadline = time.time() + RANK_TIMEOUT
+            for r, p in enumerate(procs):
+                p.wait(timeout=max(1.0, deadline - time.time()))
+            codes = [p.returncode for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        assert codes == [0] * P11_WORLD, f"phase 11: rank exit codes {codes}"
+        with open(outs[0]) as f:
+            res = json.load(f)
+    print(f"phase 11 took {time.perf_counter() - t0:.1f} s: "
+          f"{res['report']['laps_s']}", flush=True)
+    print(f"phase 11 json {json.dumps(res['report'])}", flush=True)
+    return res["rows"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--phase11-rank"]:
+        phase11_rank(sys.argv[2])
+        return 0
     sys.path.insert(0, ROOT)
     from deva_tpu_torch.models.network import DEVANetwork, init_weights
     from deva_tpu_torch.ops import approx_kernels as apx
@@ -4909,6 +5452,10 @@ def main() -> int:
     det_rows += phase8(ak, apx, net_cpu, dev)
     det_rows += phase9(ak, apx, net_cpu, dev)
     phase10(ak, net_cpu, dev)
+    del net_cpu, net_cpu16
+    gc.collect()
+    torch.cuda.empty_cache()
+    det_rows += phase11()
 
     rows = []
     for ring, res_exact, res_approx, run_exact, run_approx, suffix in (

@@ -14,8 +14,9 @@ PNGs, Visualizations/ overlays and pred.json under --output).
 on --device (seeded random weights unless --MOBILE_SAM_CHECKPOINT_PATH /
 --LIGHT_HQ_SAM_CHECKPOINT_PATH exists); original/sam_hq run the HF SAM at
 --SAM_HF_PATH through `transformers`, which must be installed. The model,
-device and barrier flags are demo/demo_with_text_torch.py's. Not carried
-over from deva_tpu's demo: --obj_shards and --profile.
+device, barrier and --obj_shards flags are demo/demo_with_text_torch.py's
+(under torchrun, process 0 runs SAM and alone writes). Not carried over
+from deva_tpu's demo: --profile.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ from deva_tpu_torch.ext.detectors import build_auto_generator  # noqa: E402
 from deva_tpu_torch.ext.ext_eval_args import \
     add_auto_default_args  # noqa: E402
 from deva_tpu_torch.inference.demo_utils import flush_buffer  # noqa: E402
+from deva_tpu_torch.inference.eval_args import is_writer  # noqa: E402
 from eval_vos_torch import setup_device  # noqa: E402
 
 
@@ -55,7 +57,8 @@ def main(argv=None):
     np.random.seed(42)
     args = make_parser(add_auto_default_args).parse_args(argv)
     device = setup_device(args)
-    drive(args, build_auto_generator(args), run_demo, device)
+    drive(args, build_auto_generator(args) if is_writer(args) else None,
+          run_demo, device)
 
 
 if __name__ == "__main__":

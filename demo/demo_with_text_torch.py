@@ -20,8 +20,11 @@ the propagation weights are a seeded random init. --device defaults to cuda
 and fails when CUDA is absent (--device cpu runs on the CPU); TF32 stays
 off on the card. The video runs inside the fault barrier
 (deva_tpu_torch/inference/eval_args.py; --raise_on_error re-raises).
-Not carried over from deva_tpu's demo: --obj_shards (object-axis
-sharding) and --profile.
+--obj_shards N shards the objects over N processes under torchrun, one
+card each: process 0 runs the detector and broadcasts its detections
+(inference/demo_utils.py:SharedSource) and alone writes:
+  torchrun --nproc_per_node 2 demo/demo_with_text_torch.py ... --obj_shards 2
+Not carried over from deva_tpu's demo: --profile.
 """
 from __future__ import annotations
 
@@ -48,17 +51,17 @@ from deva_tpu_torch.ext.ext_eval_args import (  # noqa: E402
 from deva_tpu_torch.ext.with_text_processor import \
     process_frame_with_text  # noqa: E402
 from deva_tpu_torch.inference.core import InferenceCore  # noqa: E402
-from deva_tpu_torch.inference.demo_utils import flush_buffer  # noqa: E402
-from deva_tpu_torch.inference.eval_args import \
-    video_fault_barrier  # noqa: E402
+from deva_tpu_torch.inference.demo_utils import (  # noqa: E402
+    SharedSource, flush_buffer)
+from deva_tpu_torch.inference.eval_args import (  # noqa: E402
+    NullSaver, apply_obj_sharding, is_writer, video_fault_barrier)
 from deva_tpu_torch.inference.result_saver import ResultSaver  # noqa: E402
 from eval_vos_torch import (StepTimer, add_common_args,  # noqa: E402
                             base_config, count_usage, load_model,
                             setup_device)
 
 DESCRIPTION = ("deva_tpu_torch demo. Not carried over from deva_tpu's "
-               "demo: --obj_shards (object-axis sharding, not ported yet) "
-               "and --profile.")
+               "demo: --profile.")
 
 
 def make_parser(add_defaults=add_text_default_args) -> ArgumentParser:
@@ -105,23 +108,30 @@ def drive(args, source, run, device) -> None:
     """The demo on --img_path with `source` (a detector or a generator):
     one InferenceCore with long ids, a demo ResultSaver under --output,
     run(deva, source, reader, saver, vars(args), timer) inside the fault
-    barrier, then pred.json, FPS and the peak memory."""
+    barrier, then pred.json, FPS and the peak memory. With --obj_shards,
+    the core shards its objects, `source` (None but on process 0) is
+    shared from process 0, and process 0 alone writes."""
     if args.output is None:
         raise SystemExit("--output is required")
     model = load_model(args, device)
+    obj_mesh, model = apply_obj_sharding(args, model)
+    writer = is_writer(args)
+    if obj_mesh is not None:
+        source = SharedSource(source)
     reader = SimpleVideoReader(args.img_path)
     deva = InferenceCore(model, demo_config(args, len(reader)),
-                         device=device)
+                         device=device, obj_mesh=obj_mesh)
     deva.enabled_long_id()
     saver = ResultSaver(args.output, None, dataset="demo",
-                        object_manager=deva.object_manager)
+                        object_manager=deva.object_manager) if writer \
+        else NullSaver()
     timer = StepTimer(device)
     barrier = video_fault_barrier(path.basename(path.normpath(
         args.img_path)), args.raise_on_error)
     with barrier:
         run(deva, source, reader, saver, vars(args), timer)
     saver.end()
-    if not barrier.failed:
+    if writer and not barrier.failed:
         os.makedirs(args.output, exist_ok=True)
         with open(path.join(args.output, "pred.json"), "w") as f:
             json.dump(saver.video_json, f, indent=4)
@@ -141,7 +151,8 @@ def main(argv=None):
     if args.prompt is None:
         raise SystemExit("--prompt is required (classes separated by '.')")
     device = setup_device(args)
-    drive(args, build_text_detector(args), run_demo, device)
+    drive(args, build_text_detector(args) if is_writer(args) else None,
+          run_demo, device)
 
 
 if __name__ == "__main__":

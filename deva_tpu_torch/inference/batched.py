@@ -31,6 +31,16 @@ kernels launch, on the CPU their plain twins run.
 
 Videos shorter than the batch keep stepping harmlessly; callers discard
 their outputs past the end (see evaluation/eval_vos_batched_torch.py).
+
+Video sharding (`mesh=`, deva_tpu/inference/batched.py:41-71): a mesh from
+parallel.mesh.make_mesh with a 'data' axis of D processes; each process
+stacks and steps its own B/D videos (its share of the group, given to
+initialize and step_all by the caller) and returns their outputs. The
+per-video body has no cross-video term; the group-wide host decisions (the
+shared o_cap and ring capacity, ring growth, whether long-term memory is
+engaged, the long-term capacity) read integers that an all_reduce takes
+over the whole group, so each video's outputs and rings equal those of the
+unsharded group of all B videos.
 """
 from __future__ import annotations
 
@@ -48,6 +58,8 @@ from deva_tpu_torch.models.network import DEVANetwork
 from deva_tpu_torch.ops.approx_kernels import attend_approx_multi
 from deva_tpu_torch.ops.attention_kernels import attend_topk
 from deva_tpu_torch.ops.pad import pad_amounts
+from deva_tpu_torch.parallel.mesh import (axis_group, check_even_share,
+                                          group_max)
 
 
 def _tokens(x: torch.Tensor) -> torch.Tensor:
@@ -74,7 +86,10 @@ class BatchedPropagator:
     _WORK = ("key", "shr", "sel", "value", "use_cnt", "life_cnt")
     _LONG = ("lt_key", "lt_shr", "lt_value", "lt_use", "lt_life")
 
-    def __init__(self, model: DEVANetwork, config: InferenceConfig):
+    def __init__(self, model: DEVANetwork, config: InferenceConfig,
+                 mesh=None):
+        """mesh: a ('data', 'model') mesh; the videos shard over 'data'
+        (see the module note)."""
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.cfg = config
@@ -82,12 +97,16 @@ class BatchedPropagator:
         self.count_lt_usage = (config.enable_long_term and
                                config.enable_long_term_count_usage)
         self.approx = config.resolve_topk_method() == "approx"
+        self._group = axis_group(mesh, "data")[0] if mesh is not None \
+            else None
 
     @torch.no_grad()
     def initialize(self, images0: Sequence, masks0: Sequence,
                    objects: Sequence[List[int]]) -> None:
         """Consume each video's first frame and ground-truth mask through the
-        single-video InferenceCore.step, then stack the resulting states."""
+        single-video InferenceCore.step, then stack the resulting states.
+        With a mesh, this process's videos."""
+        check_even_share(self._group, len(images0))
         self.cores = []
         o_cap = 0
         for img, mask, objs in zip(images0, masks0, objects):
@@ -97,6 +116,7 @@ class BatchedPropagator:
             o_cap = max(o_cap, bucket.o_cap)
             self.cores.append(core)
         # _stack pads every video's rings and slots to the shared o_cap/cap
+        o_cap, = group_max(self._group, o_cap)
         self._stack(o_cap)
         self._token_hw = int(self.sizes[0])  # tokens written per frame
         self.frame_idx = 0  # frames consumed after the first
@@ -104,7 +124,7 @@ class BatchedPropagator:
     def _stack(self, o_cap: int) -> None:
         cfg = self.cfg
         buckets = [next(iter(c.memory.buckets.values())) for c in self.cores]
-        cap = max(b.cap for b in buckets)
+        cap, = group_max(self._group, max(b.cap for b in buckets))
         if self.use_lt:
             hw = buckets[0].size
             # consolidation triggers at size >= max_work AND size > min_work
@@ -161,7 +181,8 @@ class BatchedPropagator:
 
     @property
     def _lt_engaged(self) -> bool:
-        return self.use_lt and bool((self.lt_sizes > 0).any())
+        return self.use_lt and bool(
+            group_max(self._group, int((self.lt_sizes > 0).any()))[0])
 
     # -- the per-frame body ---------------------------------------------------
 
@@ -258,7 +279,8 @@ class BatchedPropagator:
         already capped (the rings were sized for the trigger in _stack)."""
         if self.use_lt:
             return
-        need = int(self.sizes.max()) + n_writes * self._token_hw
+        top, = group_max(self._group, int(self.sizes.max()))
+        need = top + n_writes * self._token_hw
         if need > self.key.shape[1]:
             self._grow_rings(need - self.key.shape[1])
 
@@ -289,7 +311,7 @@ class BatchedPropagator:
         # usage-based eviction of least-used long-term tokens for the videos
         # at the cap
         limit = cfg.max_long_term_elements - cfg.num_prototypes
-        if (self.lt_sizes >= limit).any():
+        if group_max(self._group, int((self.lt_sizes >= limit).any()))[0]:
             # without long-term usage counting every usage is 0, and the
             # strictly-greater threshold would silently evict the whole
             # long-term memory
@@ -323,11 +345,10 @@ class BatchedPropagator:
         # lazy capacity when the batch's largest cursor needs it
         p = proto_key.shape[1]  # == num_prototypes unless window-clamped
         lcap = self.lt_key.shape[1]
-        if int(self.lt_sizes.max()) + p > lcap:
+        top, = group_max(self._group, int(self.lt_sizes.max()))
+        if top + p > lcap:
             max_cap = _round_up(cfg.max_long_term_elements, p)
-            new_cap = min(_round_up(max(lcap * 2,
-                                        int(self.lt_sizes.max()) + p), p),
-                          max_cap)
+            new_cap = min(_round_up(max(lcap * 2, top + p), p), max_cap)
             for name in self._LONG + ("lt_valid",):
                 setattr(self, name, _grow_tokens(getattr(self, name),
                                                  new_cap))
@@ -411,7 +432,8 @@ class BatchedPropagator:
                       >= self.cfg.mem_every) and not end
         hw = self._frame_tokens(h, w)
         if write_last and not self.use_lt and \
-                int(self.sizes.max()) + hw > self.key.shape[1]:
+                group_max(self._group, int(self.sizes.max()))[0] + hw > \
+                self.key.shape[1]:
             self.reserve(4)
         lt_on = self._lt_engaged
         probs = [self._body(frames[:, i],
@@ -437,7 +459,8 @@ class BatchedPropagator:
         images = self._images(frames)
         hw = self._frame_tokens(*images.shape[1:3])
         if is_mem and not self.use_lt and \
-                int(self.sizes.max()) + hw > self.key.shape[1]:
+                group_max(self._group, int(self.sizes.max()))[0] + hw > \
+                self.key.shape[1]:
             self._grow_rings(hw * 4)
         probs = self._body(images, mem_write=is_mem, update_sensory=not end,
                            lt_on=self._lt_engaged)

@@ -44,10 +44,19 @@ fresh zero sensory) and is restored untouched but for its clocks.
 Ring sizes are host integers, as in deva_tpu. Not ported: deva_tpu's
 `_pack_call` / `_unpack_call` / `_fns` / `_donation` / `_jit_kwargs` (XLA
 dispatch-count, donation and compile-cache devices: here attach and detach
-are plain indexed copies into one preallocated tensor per stacked array)
-and `mesh=` sharding of the video axis. The propagator runs on its model's
-device: on a CUDA device the kernels launch, on the CPU their plain twins
-run.
+are plain indexed copies into one preallocated tensor per stacked array).
+The propagator runs on its model's device: on a CUDA device the kernels
+launch, on the CPU their plain twins run.
+
+Video sharding (`mesh=`, deva_tpu/inference/batched_detection.py:62-108):
+each process of the mesh's 'data' axis attaches and steps its own share of
+the group's cores (the caller runs their host code: consensus and
+incorporate_detection) and returns their outputs. The stacked shapes (the
+object pad, slot count and width, ring and long-term capacities, the
+alignment's object pad) and the group-wide write and growth decisions are
+taken from integers all-reduced over the group, so each (video, slot) pair
+steps as in the unsharded group of all the cores. A process whose cores
+are all empty lanes takes the shapes from the others.
 """
 from __future__ import annotations
 
@@ -68,6 +77,11 @@ from deva_tpu_torch.ops.aggregate import argmax_ids
 from deva_tpu_torch.ops.approx_kernels import attend_approx
 from deva_tpu_torch.ops.attention_kernels import attend_topk
 from deva_tpu_torch.ops.pad import pad_amounts
+from deva_tpu_torch.parallel.mesh import (axis_group, check_even_share,
+                                          group_max)
+
+# ring dtypes as the group agrees on them
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _slot_bucket(n: int) -> int:
@@ -99,7 +113,10 @@ class BatchedDetectionPropagator:
     _WORK = ("key", "shr", "sel", "value", "use_cnt", "life_cnt")
     _LONG = ("lt_key", "lt_shr", "lt_value", "lt_use", "lt_life")
 
-    def __init__(self, model: DEVANetwork, config: InferenceConfig):
+    def __init__(self, model: DEVANetwork, config: InferenceConfig,
+                 mesh=None):
+        """mesh: a ('data', 'model') mesh; the videos shard over 'data'
+        (see the module note)."""
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.cfg = config
@@ -107,6 +124,8 @@ class BatchedDetectionPropagator:
         self.count_lt_usage = (config.enable_long_term and
                                config.enable_long_term_count_usage)
         self.approx = config.resolve_topk_method() == "approx"
+        self._group = axis_group(mesh, "data")[0] if mesh is not None \
+            else None
 
     # -- stacking -------------------------------------------------------------
 
@@ -119,14 +138,13 @@ class BatchedDetectionPropagator:
         self.cores = list(cores)
         b = len(cores)
         assert b > 0
+        check_even_share(self._group, b)
         eng = [c.memory is not None and c.memory.engaged for c in cores]
         self._engaged = eng
-        assert any(eng), (
-            "attach needs at least one engaged video to define the stacked "
-            "shapes; step all-empty groups per-core instead")
-        ref = cores[eng.index(True)]
         engaged = [c for c, e in zip(cores, eng) if e]
-        ref_ring = next(iter(ref.memory.buckets.values())).key
+        ref = engaged[0] if engaged else None
+        ref_ring = next(iter(ref.memory.buckets.values())).key if ref \
+            else None
         for c in engaged:
             assert c.memory.use_long_term == self.use_lt
             # the stacked state advances in one hw quantum: a core with
@@ -138,17 +156,38 @@ class BatchedDetectionPropagator:
             assert next(iter(c.memory.buckets.values())).key.dtype == \
                 ref_ring.dtype, "all videos in a batch must share the ring " \
                 "dtype"
-        self.o_cap = max(max(c.o_cap for c in cores), 1)
-        s = _slot_bucket(max(len(c.memory.buckets) for c in engaged))
+        # the stacked shapes over the whole group (a process whose cores
+        # are all empty lanes contributes zeros)
+        buckets = [bk for c in engaged for bk in c.memory.buckets.values()]
+        lts = [lt for c in engaged for lt in c.memory.long_buckets.values()]
+        shape = [int(ref is not None), max(c.o_cap for c in cores),
+                 max((len(c.memory.buckets) for c in engaged), default=0),
+                 max((bk.o_cap for bk in buckets), default=0),
+                 max((bk.cap for bk in buckets), default=0),
+                 max((lt.cap for lt in lts), default=0)]
+        if ref is not None:
+            shape += [ref.memory.hw, ref.memory.ck, ref.memory.cv,
+                      _DTYPES.index(ref_ring.dtype),
+                      *ref.memory.sensory.shape[1:], *ref.last_mask.shape[1:]]
+        else:
+            shape += [0] * 9
+        (any_eng, o_cap, n_buckets, o_slot, cap, lt_cap, hw, ck, cv, dti,
+         *tails) = group_max(self._group, *shape)
+        assert any_eng, (
+            "attach needs at least one engaged video to define the stacked "
+            "shapes; step all-empty groups per-core instead")
+        if ref is not None:
+            assert [hw, ck, cv, dti] == shape[6:10], \
+                "all videos in a batch must share the padded resolution, " \
+                "dims and ring dtype"
+        self.o_cap = max(o_cap, 1)
+        s = _slot_bucket(n_buckets)
         self.n_slots = s
-        self.o_slot = max(bk.o_cap for c in engaged
-                          for bk in c.memory.buckets.values())
-        self.hw = ref.memory.hw
-        cap = _round_up(max(bk.cap for c in engaged
-                            for bk in c.memory.buckets.values()), self.hw)
-        ck, cv = ref.memory.ck, ref.memory.cv
+        self.o_slot = o_slot
+        self.hw = hw
+        cap = _round_up(cap, self.hw)
         self._ck, self._cv = ck, cv
-        dt = ref_ring.dtype
+        dt = _DTYPES[dti]
         self._ring_dtype = dt
         dev = self.device
 
@@ -168,23 +207,20 @@ class BatchedDetectionPropagator:
         self._slot_bids: List[List[int]] = []
         self.lt_sizes = np.zeros((b, s), np.int64)
         if self.use_lt:
-            lcap = self.cfg.num_prototypes
-            for c in engaged:
-                for lt in c.memory.long_buckets.values():
-                    lcap = max(lcap, lt.cap)
-            lcap = _round_up(lcap, self.cfg.num_prototypes)
+            lcap = _round_up(max(self.cfg.num_prototypes, lt_cap),
+                             self.cfg.num_prototypes)
             self.lt_key, self.lt_shr = z(b, s, lcap, ck), z(b, s, lcap)
             self.lt_value = z(b, s, lcap, self.o_slot, cv)
             self.lt_use = z(b, s, lcap, dtype=torch.float32)
             self.lt_life = z(b, s, lcap, dtype=torch.float32)
-        sen_tail = ref.memory.sensory.shape[1:]
-        lm_tail = ref.last_mask.shape[1:]
+        sen_tail, lm_tail = tails[:3], tails[3:]
         # an empty lane keeps fresh zero state at the batch's shapes (a
-        # purged core's stale sensory and last_mask must not leak in)
+        # purged core's stale sensory and last_mask must not leak in); both
+        # are f32 in every configuration
         self.sensory = torch.zeros((b, self.o_cap) + tuple(sen_tail),
-                                   dtype=ref.memory.sensory.dtype, device=dev)
+                                   device=dev)
         self.last_mask = torch.zeros((b, self.o_cap) + tuple(lm_tail),
-                                     dtype=ref.last_mask.dtype, device=dev)
+                                     device=dev)
         nobj = []
         for vi, c in enumerate(cores):
             bids = sorted(c.memory.buckets) if eng[vi] else []
@@ -435,7 +471,8 @@ class BatchedDetectionPropagator:
     def _reserve(self, extra: int) -> None:
         """Room for `extra` more tokens at every pair's cursor (deva_tpu's
         policy: the exact need, rounded to whole frames)."""
-        need = int(self.sizes.max()) + extra
+        top, = group_max(self._group, int(self.sizes.max()))
+        need = top + extra
         cap = self.key.shape[2]
         if need > cap:
             new_cap = _round_up(need, self.hw)
@@ -466,8 +503,6 @@ class BatchedDetectionPropagator:
         writers (diverged cadences). Returns prob [B, 1 + o_cap, H, W]."""
         images = self._images(frames)
         hw = BatchedPropagator._frame_tokens(*images.shape[1:3])
-        if mem_write:
-            self._reserve(hw)
         do_write = None if write_mask is None else \
             torch.as_tensor(np.asarray(write_mask), device=self.device)
         prob, self.sensory, last_mask = self._body(
@@ -489,14 +524,24 @@ class BatchedDetectionPropagator:
         self.curr_ti = self.curr_ti + 1
         is_mem = ((self.curr_ti - self.last_mem_ti >= self.cfg.mem_every)
                   & (not end))
+        any_write = self._any_write(is_mem, frames)
         if is_mem.all() or not is_mem.any():
             probs = self._launch(frames, bool(is_mem.all()), not end)
         else:
             probs = self._launch(frames, True, not end, write_mask=is_mem)
         self.last_mem_ti = np.where(is_mem, self.curr_ti, self.last_mem_ti)
-        if is_mem.any():
+        if any_write:
             self._maybe_consolidate()
         return probs
+
+    def _any_write(self, is_mem: np.ndarray, frames) -> bool:
+        """Whether any video of the group writes this frame; if so, room
+        for one more frame of tokens at every pair's cursor."""
+        any_write = bool(group_max(self._group, int(is_mem.any()))[0])
+        if any_write:
+            h, w = np.shape(frames[0])[-3:-1]
+            self._reserve(BatchedPropagator._frame_tokens(h, w))
+        return any_write
 
     def plan_block(self, max_k: int) -> int:
         """The largest K <= max_k such that no video's memory write falls
@@ -524,8 +569,7 @@ class BatchedDetectionPropagator:
         write_last = bool(is_mem.any())
         masked = write_last and not is_mem.all()
         hw = BatchedPropagator._frame_tokens(h, w)
-        if write_last:
-            self._reserve(hw)
+        any_write = self._any_write(is_mem, frames[:, 0])
         do_write = torch.as_tensor(is_mem, device=self.device) if masked \
             else None
         probs = []
@@ -539,6 +583,7 @@ class BatchedDetectionPropagator:
             self._advance(is_mem, hw)
             self.last_mem_ti = np.where(is_mem, self.curr_ti,
                                         self.last_mem_ti)
+        if any_write:
             self._maybe_consolidate()
         return torch.stack(probs, 1)
 
@@ -613,9 +658,12 @@ class BatchedDetectionPropagator:
                            ((lh, uh), (lw, uw)))
                 items.append((vi, i, pad_img(f.image), tar_idx, m,
                               [seg.id for seg in f.segments_info]))
+        # the object pad is the group's largest
+        most, = group_max(self._group,
+                          max((len(it[5]) for it in items), default=0))
         if not items:
             return per_video
-        o_pad = self.cfg.pad_objects(max(len(it[5]) for it in items))
+        o_pad = self.cfg.pad_objects(most)
         assert o_pad < 255
         n_obj = torch.as_tensor([len(it[5]) for it in items], device=dev)
         src = torch.stack([it[2] for it in items])
@@ -686,7 +734,16 @@ class BatchedDetectionPropagator:
                 if self.rowcnt[vi, si] > 0
                 and self.sizes[vi, si] >= max_work
                 and self.sizes[vi, si] > min_work + hw]
+        # the long-term capacity the group's largest cursor needs after
+        # this consolidation (0 where no pair triggers)
+        p = min(cfg.num_prototypes,
+                max(max_work, (cfg.min_mid_term_frames + 2) * hw) -
+                min_work)
+        top, = group_max(self._group, 
+            max((int(self.lt_sizes[vi, si]) for vi, si in trig), default=-p)
+            + p)
         if not trig:
+            self._grow_long(top, p)
             return
         # every pair triggers at the same smallest qualifying size: the
         # min-size guard can delay the trigger past max_work when max_work
@@ -736,15 +793,8 @@ class BatchedDetectionPropagator:
 
         # append the prototypes at each pair's long-term cursor, growing the
         # lazy capacity when the largest cursor needs it
-        p = proto_key.shape[1]  # == num_prototypes unless window-clamped
-        lcap = self.lt_key.shape[2]
-        top = max(int(self.lt_sizes[vi, si]) for vi, si in trig) + p
-        if top > lcap:
-            max_cap = _round_up(cfg.max_long_term_elements, p)
-            new_cap = min(_round_up(max(lcap * 2, top), p), max_cap)
-            for name in self._LONG:
-                setattr(self, name, _grow_axis2(getattr(self, name),
-                                                new_cap))
+        assert p == proto_key.shape[1]  # num_prototypes unless clamped
+        self._grow_long(top, p)
         for i, (vi, si) in enumerate(trig):
             at = slice(int(self.lt_sizes[vi, si]),
                        int(self.lt_sizes[vi, si]) + p)
@@ -756,6 +806,18 @@ class BatchedDetectionPropagator:
             self.lt_life[vi, si, at] = 1e-7
             self.lt_sizes[vi, si] += p
         self._masks = None
+
+    def _grow_long(self, top: int, p: int) -> None:
+        """Grow the lazy long-term capacity, in quanta of p prototypes, to
+        hold `top` tokens."""
+        cfg = self.cfg
+        lcap = self.lt_key.shape[2]
+        if top > lcap:
+            max_cap = _round_up(cfg.max_long_term_elements, p)
+            new_cap = min(_round_up(max(lcap * 2, top), p), max_cap)
+            for name in self._LONG:
+                setattr(self, name, _grow_axis2(getattr(self, name),
+                                                new_cap))
 
     def _evict_obsolete(self, pairs, max_size: int) -> None:
         """Per-(video, slot) usage eviction with upstream's strictly-greater

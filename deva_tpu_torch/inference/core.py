@@ -27,8 +27,21 @@ cores advance in lockstep through inference/batched_detection.py, which
 stacks their buckets (attach), steps them together and writes the state
 back (detach); its forward predictions enter incorporate_detection as
 `forward_mask`, its alignments vote_in_temporary_buffer as
-`precomputed_proj`. Not ported yet: object-axis sharding (deva_tpu's
-obj_mesh).
+`precomputed_proj`.
+
+Object-axis sharding (`obj_mesh=`, deva_tpu/inference/core.py:41-57): every
+process of the mesh's object axis runs the same video with the same host
+state, and holds its contiguous share of the padded object slots (o_cap is
+rounded up to a multiple of the axis size): sensory, last_mask and the value
+columns (inference/memory.py). The image encoder, keys and attention
+weights are computed by every process; the decoder and mask encoder run on
+the process's own objects, and `segment` aggregates over all of them
+(parallel/object_sharding.py). What reaches host code (the probabilities
+returned, the forward prediction of a detection, an alignment) is gathered
+whole, the same bytes on every process, so the object manager's votes,
+merges and purges agree everywhere. A change of the slot layout (capacity
+growth, a purge) moves the slots between the processes, with deva_tpu's
+clamp of an out-of-range kept row (C-2) taken over the whole axis.
 
 Frames enter as f32 in every configuration (the model's first conv casts
 them to its compute dtype, as deva_tpu's does); the probabilities and
@@ -55,6 +68,7 @@ from deva_tpu_torch.inference.segment_merging import match_and_merge
 from deva_tpu_torch.models.network import DEVANetwork
 from deva_tpu_torch.ops.aggregate import aggregate_logits, argmax_ids
 from deva_tpu_torch.ops.pad import pad_divide_by, unpad
+from deva_tpu_torch.parallel.object_sharding import ObjectShards
 
 
 def _tokens(x: torch.Tensor) -> torch.Tensor:
@@ -65,11 +79,14 @@ def _tokens(x: torch.Tensor) -> torch.Tensor:
 class InferenceCore:
     def __init__(self, model: DEVANetwork, config: InferenceConfig, *,
                  device: Optional[torch.device] = None,
-                 image_feature_store: Optional[ImageFeatureStore] = None):
+                 image_feature_store: Optional[ImageFeatureStore] = None,
+                 obj_mesh=None, obj_axis: str = "model"):
         """image_feature_store: a store shared with other cores of the same
         video (the bidirectional drivers give the consensus core's to both
         propagation passes, deva_tpu/inference/core.py:40); by default the
-        core makes its own."""
+        core makes its own. obj_mesh: a parallel.mesh.make_mesh mesh whose
+        `obj_axis` shards the object slots (every process of the axis
+        constructs its core with it and steps the same frames)."""
         self.model = model.eval()
         self.device = torch.device(device) if device is not None else \
             next(model.parameters()).device
@@ -90,9 +107,14 @@ class InferenceCore:
         self.pad: Tuple[int, int, int, int] = (0, 0, 0, 0)
         self.frame_buffer: List = []  # online/semi-online buffering
         self.next_voting_frame = config.num_voting_frames - 1
+        self.obj_mesh, self.obj_axis = obj_mesh, obj_axis
+        self._shards = ObjectShards(obj_mesh, obj_axis) \
+            if obj_mesh is not None else None
+        self._group = self._shards.group if self._shards else None
         self._fused = FusedStepper(self.model, config.top_k,
                                    topk_method=config.topk_method,
-                                   preencode_blocks=config.preencode_blocks)
+                                   preencode_blocks=config.preencode_blocks,
+                                   shards=self._shards)
 
     # -- object-slot management -------------------------------------------
 
@@ -106,25 +128,51 @@ class InferenceCore:
     def _ensure_capacity(self) -> None:
         """(Re)size the padded object axis to hold num_obj slots."""
         need = self.cfg.pad_objects(max(1, self.object_manager.num_obj))
+        if self._shards is not None:
+            # whole slots per process (deva_tpu/inference/core.py:146-150)
+            need = -(-need // self._shards.size) * self._shards.size
         if self.memory is None:
             self.memory = MemoryEngine(self.cfg, self._mc.value_dim,
                                        self._mc.key_dim, self._mc.value_dim,
-                                       o_cap=need, device=self.device)
+                                       o_cap=need, device=self.device,
+                                       shards=self._shards)
             self.o_cap = need
             return
         if need > self.o_cap:
             grow = need - self.o_cap
+            if self._shards is not None:
+                # the slot ranges move: slot i stays slot i
+                src = list(range(self.o_cap)) + [-1] * grow
+                grow_slots = lambda x: self._shards.regather(x, src)
+            else:
+                grow_slots = lambda x: F.pad(
+                    x, (0, 0) * (x.dim() - 1) + (0, grow))
             self.memory.o_cap = need
             if self.memory.sensory is not None:
-                self.memory.sensory = F.pad(self.memory.sensory,
-                                            (0, 0, 0, 0, 0, 0, 0, grow))
+                self.memory.sensory = grow_slots(self.memory.sensory)
             if self.last_mask is not None:
-                self.last_mask = F.pad(self.last_mask, (0, 0, 0, 0, 0, grow))
+                self.last_mask = grow_slots(self.last_mask)
             self.o_cap = need
 
     def _selector(self) -> torch.Tensor:
         n = self.object_manager.num_obj
-        return (torch.arange(self.o_cap, device=self.device) < n).float()[None]
+        return self._mine(
+            (torch.arange(self.o_cap, device=self.device) < n).float(),
+            clone=False)[None]
+
+    def _mine(self, x: torch.Tensor, clone: bool = True) -> torch.Tensor:
+        """This process's object slots of a whole [O_cap, ...] tensor (a
+        copy, so the whole one is freed), or x itself without sharding."""
+        if self._shards is None:
+            return x
+        x = self._shards.take(x)
+        return x.clone() if clone else x
+
+    def _whole_prob(self, prob: torch.Tensor) -> torch.Tensor:
+        """[1 + slots, H, W] of this process -> the whole [1 + O_cap, H,
+        W], the same on every process."""
+        return prob if self._shards is None else \
+            self._shards.gather_prob(prob)
 
     def _image_nchw(self, image):
         """[H, W, 3] frame (numpy or tensor) -> padded [1, 3, H', W'] on the
@@ -142,7 +190,8 @@ class InferenceCore:
 
     def _segment(self, key, shrinkage, selection, ms_features,
                  update_sensory: bool = True) -> torch.Tensor:
-        """-> probabilities [1 + O_cap, H, W] (padded channels ~ 0)."""
+        """-> probabilities [1 + O_cap, H, W] (padded channels ~ 0), whole
+        under sharding."""
         if self.memory is None or not self.memory.engaged:
             warnings.warn("Trying to segment without any memory!",
                           RuntimeWarning)
@@ -154,21 +203,24 @@ class InferenceCore:
                     for o, t in self.object_manager.obj_to_tmp_id.items()}
         readout = self.memory.match_memory(_tokens(key), _tokens(selection),
                                            obj_rows)  # [O_cap, HW, Cv]
-        readout = readout.transpose(1, 2).reshape(1, self.o_cap, -1, hq, wq)
+        slots = readout.shape[0]
+        readout = readout.transpose(1, 2).reshape(1, slots, -1, hq, wq)
 
         sensory = self.memory.get_sensory()[None]
         last_mask = self.last_mask[None] if self.last_mask is not None else \
-            torch.zeros((1, self.o_cap, hq * 16, wq * 16), device=self.device)
+            torch.zeros((1, slots, hq * 16, wq * 16), device=self.device)
         new_sensory, _, prob = self.model.segment(
             ms_features, readout, sensory, last_mask,
-            selector=self._selector(), update_sensory=update_sensory)
+            selector=self._selector(), update_sensory=update_sensory,
+            group=self._group)
         if update_sensory:
             self.memory.update_sensory(new_sensory[0])
-        return prob[0]
+        return self._whole_prob(prob[0])
 
     def _add_memory(self, image, ms_features, prob_no_bg, key, shrinkage,
                     selection, *, is_deep_update: bool = True) -> None:
-        """prob_no_bg: [O_cap, H, W]."""
+        """prob_no_bg: [O_cap, H, W] (this process's slots under
+        sharding)."""
         if self.object_manager.num_obj == 0:
             warnings.warn("Empty object mask!", RuntimeWarning)
             return
@@ -245,7 +297,7 @@ class InferenceCore:
 
         # keep all padded slots in last_mask (fixed shape)
         n = self.object_manager.num_obj
-        self.last_mask = self._pad_objects(pred_prob_with_bg[1:])
+        self.last_mask = self._mine(self._pad_objects(pred_prob_with_bg[1:]))
 
         if is_mem_frame:
             self._add_memory(image, ms_features, self.last_mask, key,
@@ -411,10 +463,14 @@ class InferenceCore:
         (numpy, f32)."""
         o = src_mask.shape[0]
         o_pad = self.cfg.pad_objects(o)
+        if self._shards is not None:  # the alignment shards its objects too
+            o_pad = -(-o_pad // self._shards.size) * self._shards.size
         src_mask = torch.as_tensor(np.asarray(src_mask, np.float32),
                                    device=self.device)
-        src_mask = F.pad(src_mask, (0, 0, 0, 0, 0, o_pad - o))
-        selector = (torch.arange(o_pad, device=self.device) < o).float()[None]
+        src_mask = self._mine(F.pad(src_mask, (0, 0, 0, 0, 0, o_pad - o)))
+        selector = self._mine(
+            (torch.arange(o_pad, device=self.device) < o).float())[None]
+        o_pad = src_mask.shape[0]
         src_image, _ = self._image_nchw(src_image)
         tar_image, _ = self._image_nchw(tar_image)
         src_ms, src_key, src_shr, _ = self.image_feature_store.get_features(
@@ -437,8 +493,9 @@ class InferenceCore:
         readout = readout.transpose(1, 2).reshape(1, o_pad, -1, hq, wq)
         _, _, prob = self.model.segment(tar_ms, readout, sensory,
                                         src_mask[None], selector=selector,
-                                        update_sensory=False)
-        return prob[0, :o + 1].cpu().numpy()
+                                        update_sensory=False,
+                                        group=self._group)
+        return self._whole_prob(prob[0])[:o + 1].cpu().numpy()
 
     def vote_in_temporary_buffer(self, keyframe_selection: str = "first",
                                  precomputed_proj=None):
@@ -495,7 +552,14 @@ class InferenceCore:
             self.memory.purge_except(obj_keep)
             rows = [t - 1 for t in tmp_keep]
             merged = merged[rows]
-            if self.memory.sensory is not None:
+            if self.memory.sensory is not None and self._shards is not None:
+                # the same gather over the whole slot axis: the clamp reads
+                # the last process's last slot
+                last = self.o_cap - 1
+                self.memory.sensory = self._shards.regather(
+                    self.memory.sensory, [min(r, last) for r in rows] +
+                    [-1] * (self.o_cap - len(rows)))
+            elif self.memory.sensory is not None:
                 # the kept rows first, in order; zeros after. An object that
                 # match_and_merge added in this frame may have a row beyond
                 # the sensory's: it reads the last row, as deva_tpu's gather
@@ -510,7 +574,7 @@ class InferenceCore:
 
         self._ensure_capacity()
         merged = torch.from_numpy(merged).to(self.device)
-        self.last_mask = self._pad_objects(merged)
+        self.last_mask = self._mine(self._pad_objects(merged))
         self._add_memory(image, ms_features, self.last_mask, key, shrinkage,
                          selection)
         self.image_feature_store.delete(image_ti)

@@ -1,5 +1,5 @@
-"""Demo helpers: raw RGB frame -> normalized resized array, and end-of-video
-buffer flushing.
+"""Demo helpers: raw RGB frame -> normalized resized array, end-of-video
+buffer flushing, and the detector of an object-sharded demo.
 
 Port of deva_tpu/inference/demo_utils.py. The min-side resize is
 ops/resize.py's resize_image_uint8 (PIL's BILINEAR passes in torch, within
@@ -29,6 +29,28 @@ def get_input_frame_for_deva(image_np: np.ndarray,
             image_np = resize_image_uint8(torch.from_numpy(
                 np.array(image_np, np.uint8)), (new_h, new_w)).numpy()
     return normalize_image(image_np)
+
+
+class SharedSource:
+    """A detector or mask generator of an object-sharded demo
+    (--obj_shards): process 0 runs it (`inner`; None on the other
+    processes) and broadcasts each result, so that every process fuses the
+    same detections. Detections feed host decisions (matching, new
+    objects), which must agree bit for bit, and the same network on two
+    cards need not give the same bits."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def __getattr__(self, name):  # detect, masks_for_boxes, generate
+        import torch.distributed as dist
+
+        def call(*args, **kwargs):
+            out = [getattr(self.inner, name)(*args, **kwargs)
+                   if dist.get_rank() == 0 else None]
+            dist.broadcast_object_list(out, src=0)
+            return out[0]
+        return call
 
 
 def flush_buffer(deva, result_saver, prompts=None) -> None:

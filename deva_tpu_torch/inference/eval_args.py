@@ -14,9 +14,20 @@ device raises before an error is swallowed on a CUDA run (a fault that an
 earlier asynchronous launch left behind).
 
 Behavioral anchor: reference:evaluation/eval_vos.py:213-216.
+
+Object sharding for the drivers (deva_tpu/inference/eval_args.py:160-188):
+`--obj_shards N` runs a single-stream driver as N processes under torchrun,
+one card each, every process on every video with its share of the objects
+(InferenceCore(obj_mesh=...), parallel/object_sharding.py); process 0 alone
+writes. `add_obj_shards_arg` adds the flag, `obj_mesh_from_args` checks it
+against torchrun's WORLD_SIZE (a mismatch raises SystemExit: the run never
+falls back to one process) and joins the group, `apply_obj_sharding` builds
+the mesh and broadcasts process 0's weights, and `reject_obj_sharding`
+refuses the flag in the batched drivers, whose propagators shard videos.
 """
 from __future__ import annotations
 
+import os
 import traceback
 
 import torch
@@ -77,3 +88,79 @@ class video_fault_barrier:
         self.failed = True
         print(f"Skipping {self.vid_name} and continuing.")
         return True
+
+
+def add_obj_shards_arg(parser) -> None:
+    parser.add_argument(
+        "--obj_shards", type=int, default=1,
+        help="shard the object axis over N processes (run under torchrun "
+        "with --nproc_per_node N; each takes its own card); 1 = unsharded")
+
+
+def obj_shards(args) -> int:
+    return getattr(args, "obj_shards", 1) or 1
+
+
+def join_obj_group(args, device=None):
+    """For --obj_shards N > 1: check that torchrun started N processes
+    (WORLD_SIZE; anything else raises SystemExit) and join their group
+    (parallel.mesh.init_from_env; each takes the card of its LOCAL_RANK).
+    Returns the process's device, or `device` itself without sharding."""
+    n = obj_shards(args)
+    if n <= 1:
+        return device
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != n:
+        raise SystemExit(f"--obj_shards {n} needs {n} processes (run under "
+                         f"torchrun --nproc_per_node {n}); WORLD_SIZE is "
+                         f"{world}")
+    from deva_tpu_torch.parallel.mesh import init_from_env
+    device, _, _ = init_from_env(args.device if device is None else device)
+    return device
+
+
+def obj_mesh_from_args(args):
+    """-> a 1 x obj_shards ('data', 'model') mesh for object-axis sharding,
+    or None for --obj_shards 1. The group must be joined
+    (join_obj_group)."""
+    n = obj_shards(args)
+    if n <= 1:
+        return None
+    from deva_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(1, n)
+
+
+def apply_obj_sharding(args, model):
+    """-> (obj_mesh or None, model). Builds the object-sharding mesh and
+    gives every process process 0's weights (parallel.mesh.replicate), so
+    that the processes of a randomly initialised or converted model agree
+    bit for bit."""
+    mesh = obj_mesh_from_args(args)
+    if mesh is not None:
+        from deva_tpu_torch.parallel.mesh import replicate
+        model = replicate(mesh, model)
+    return mesh, model
+
+
+def is_writer(args) -> bool:
+    """Whether this process writes the outputs: process 0 of an
+    object-sharded run, the only process otherwise."""
+    return obj_shards(args) <= 1 or int(os.environ.get("RANK", "0")) == 0
+
+
+class NullSaver:
+    """A saver for the processes that do not write: every method a no-op,
+    no video_json."""
+    video_json = None
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
+def reject_obj_sharding(args, driver: str) -> None:
+    """Drivers whose hot path is a batched propagator (video-axis mesh)
+    don't take --obj_shards; fail loudly instead of silently ignoring."""
+    if obj_shards(args) > 1:
+        raise SystemExit(f"{driver} does not support --obj_shards (its "
+                         "batched propagator shards the video axis); use "
+                         "the sequential driver for object-axis sharding")

@@ -23,6 +23,12 @@ f32 in every configuration. The per-frame body makes no host
 synchronisation (ring sizes and capacities are host integers), so a later
 change can capture it as a CUDA graph. deva_tpu's lax.scan over a block's
 read-only frames is a Python loop here.
+
+Under object sharding (`shards=`, parallel/object_sharding.py) the sensory,
+last_mask and the bucket's value columns are this process's object slots:
+the attention reads the local value columns, `segment` aggregates over
+every process's objects, and the probabilities returned to the caller are
+gathered whole (the background from rank 0).
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from deva_tpu_torch.ops.approx_kernels import (attend_approx,
                                                attend_approx_multi)
 from deva_tpu_torch.ops.attention_kernels import attend_topk
 from deva_tpu_torch.ops.pad import pad_amounts
+from deva_tpu_torch.parallel.object_sharding import ObjectShards
 
 
 def _tokens(x: torch.Tensor) -> torch.Tensor:
@@ -50,13 +57,20 @@ def _tokens(x: torch.Tensor) -> torch.Tensor:
 
 class FusedStepper:
     def __init__(self, model: DEVANetwork, top_k: int,
-                 topk_method: str = "auto", preencode_blocks: bool = False):
+                 topk_method: str = "auto", preencode_blocks: bool = False,
+                 shards: Optional[ObjectShards] = None):
         self.model = model
+        self.shards = shards
         self.top_k = top_k
         self.approx = resolve_topk_method(topk_method) == "approx"
         # True: run_block encodes a block's frames as one batch and attends
         # with all their query rows at once (_run_preenc)
         self.preencode_blocks = preencode_blocks
+
+    def _whole(self, prob):
+        """A frame's probabilities [1 + O, H, W] as the caller takes them:
+        gathered from every process's slots under sharding."""
+        return prob if self.shards is None else self.shards.gather_prob(prob)
 
     # -- attention ------------------------------------------------------------
 
@@ -119,13 +133,15 @@ class FusedStepper:
                 update_sensory: bool):
         """segment() on one frame's readout rd [O, Q, Cv] -> (prob [1+O, H,
         W], sensory [O, Cs, h, w])."""
-        o_cap = sensory.shape[0]
+        o_cap = sensory.shape[0]  # this process's slots under sharding
         readout = rd.transpose(1, 2).reshape(1, o_cap, -1, hq, wq)
-        selector = (torch.arange(o_cap, device=rd.device) <
+        lo = self.shards.rank * o_cap if self.shards is not None else 0
+        selector = (torch.arange(lo, lo + o_cap, device=rd.device) <
                     num_obj).float()[None]
         new_sensory, _, prob = self.model.segment(
             ms, readout, sensory[None], last_mask[None], selector=selector,
-            update_sensory=update_sensory)
+            update_sensory=update_sensory,
+            group=self.shards.group if self.shards is not None else None)
         return prob[0], (new_sensory[0] if update_sensory else sensory)
 
     def _write(self, bucket, padded, f16, key, shrinkage, selection, sensory,
@@ -178,7 +194,7 @@ class FusedStepper:
             mem_write=mem_write, update_sensory=update_sensory,
             use_lt=use_lt, work_usage=work_usage,
             count_lt_usage=count_lt_usage and use_lt)
-        return prob[:num_obj + 1], sensory, last_mask
+        return self._whole(prob)[:num_obj + 1], sensory, last_mask
 
     # -- multi-frame blocks ---------------------------------------------------
 
@@ -208,7 +224,7 @@ class FusedStepper:
                                          wq, num_obj, sensory, last_mask,
                                          True)
             last_mask = prob[1:]
-            probs.append(prob)
+            probs.append(self._whole(prob))
         if write_last:
             i = n_read
             sensory = self._write(bucket, padded[i:i + 1], ms[0][i:i + 1],
@@ -239,7 +255,7 @@ class FusedStepper:
                 frames[i], num_obj, bucket, lt, sensory, last_mask,
                 mem_write=write_last and i == k - 1, update_sensory=True,
                 use_lt=use_lt, work_usage=work_usage, count_lt_usage=count_lt)
-            probs.append(prob[:num_obj + 1])
+            probs.append(self._whole(prob)[:num_obj + 1])
         return torch.stack(probs), sensory, last_mask
 
     def run_chunk(self, frames, writes: Sequence[bool], num_obj: int,

@@ -30,6 +30,17 @@ approx method it takes the dense threshold form of
 memory_attention.topk_softmax over the concatenated rings, as deva_tpu does
 (XLA code there, not a kernel). The fused step (inference/fused_step.py)
 reads and writes the same rings in place.
+
+Object sharding (parallel/object_sharding.py, `shards=`): sensory holds this
+process's object slots, and so does every bucket's value ring whose padded
+object count divides over the processes ([cap, o_b/D, Cv]; a bucket that
+does not divide keeps all its columns, deva_tpu's placement rule). The
+token-axis rings and counts are whole on every process and the host
+decisions are the unsharded engine's: purges, growth, consolidation and
+eviction act on each process's slice, and the decisions that read usage
+counts read rank 0's. A readout whose bucket columns are not laid out as
+the object slots (another bucket order, other padding) is gathered and
+scattered to the slots' owners.
 """
 from __future__ import annotations
 
@@ -41,6 +52,7 @@ import torch
 from deva_tpu_torch.config import InferenceConfig
 from deva_tpu_torch.ops import memory_attention as ma
 from deva_tpu_torch.ops.attention_kernels import attend_topk
+from deva_tpu_torch.parallel.object_sharding import ObjectShards
 
 
 def _round_up(x: int, q: int) -> int:
@@ -109,16 +121,22 @@ class Bucket:
 
     def __init__(self, obj_ids: List[int], o_cap: int, cap: int, ck: int,
                  cv: int, save_selection: bool, save_usage: bool,
-                 dtype: torch.dtype, device: torch.device):
+                 dtype: torch.dtype, device: torch.device,
+                 shards: Optional[ObjectShards] = None):
+        """shards: the object axis's processes; the value ring then holds
+        this process's o_cap/D columns, when o_cap divides over them."""
         self.obj_ids = list(obj_ids)
         self.o_cap = o_cap
+        self.shards = shards if shards is not None and \
+            shards.divides(o_cap) else None
+        o_here = o_cap // self.shards.size if self.shards else o_cap
         self.size = 0
         z = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt,
                                                  device=device)
         self.key = z(cap, ck)
         self.shrinkage = z(cap)
         self.selection = z(cap, ck) if save_selection else None
-        self.value = z(cap, o_cap, cv)
+        self.value = z(cap, o_here, cv)
         self.use_cnt = z(cap, dt=torch.float32) if save_usage else None
         self.life_cnt = z(cap, dt=torch.float32) if save_usage else None
 
@@ -179,18 +197,24 @@ class Bucket:
         if new_ids == self.obj_ids:
             return
         rows = [self.obj_ids.index(o) for o in new_ids]
-        value = torch.zeros_like(self.value)
-        value[:, :len(rows)] = self.value[:, rows]
-        self.value = value
+        if self.shards is not None:
+            self.value = self.shards.regather(
+                self.value, rows + [-1] * (self.o_cap - len(rows)), dim=1)
+        else:
+            value = torch.zeros_like(self.value)
+            value[:, :len(rows)] = self.value[:, rows]
+            self.value = value
         self.obj_ids = new_ids
 
 
 class LongTermBucket(Bucket):
     def __init__(self, obj_ids: List[int], o_cap: int, cap: int, ck: int,
                  cv: int, save_usage: bool, dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device,
+                 shards: Optional[ObjectShards] = None):
         super().__init__(obj_ids, o_cap, cap, ck, cv, save_selection=False,
-                         save_usage=save_usage, dtype=dtype, device=device)
+                         save_usage=save_usage, dtype=dtype, device=device,
+                         shards=shards)
 
 
 def attend(approx: bool, mk, ms, values, qk, qe, top_k: int, valid=None,
@@ -224,12 +248,16 @@ def count_usage(b: Bucket, usage: torch.Tensor, valid: torch.Tensor,
 
 class MemoryEngine:
     """Sensory, working and long-term memory of one video. Object rows follow
-    host tmp ids (0-based); the object axis is padded to `o_cap`."""
+    host tmp ids (0-based); the object axis is padded to `o_cap`. shards:
+    the object axis's processes (InferenceCore(obj_mesh=...)); o_cap then
+    divides over them and sensory holds this process's slots."""
 
     def __init__(self, config: InferenceConfig, sensory_dim: int,
                  key_dim: int, value_dim: int, o_cap: int,
-                 device: torch.device):
+                 device: torch.device,
+                 shards: Optional[ObjectShards] = None):
         self.cfg = config
+        self.shards = shards
         self.approx = config.resolve_topk_method() == "approx"
         self.sensory_dim = sensory_dim
         self.ck = key_dim
@@ -252,9 +280,17 @@ class MemoryEngine:
 
     def initialize_sensory(self, h: int, w: int) -> None:
         if self.sensory is None:
-            self.sensory = torch.zeros((self.o_cap, self.sensory_dim, h, w),
+            self.sensory = torch.zeros((self._slots(), self.sensory_dim, h, w),
                                        dtype=torch.float32,
                                        device=self.device)
+
+    def _slots(self) -> int:
+        """The object slots this process holds."""
+        return self.o_cap // self.shards.size if self.shards else self.o_cap
+
+    def _decision(self, x: torch.Tensor) -> torch.Tensor:
+        """A tensor that a host decision reads: rank 0's under sharding."""
+        return self.shards.broadcast0(x.contiguous()) if self.shards else x
 
     def update_sensory(self, sensory: torch.Tensor) -> None:
         """sensory [O_cap, Cs, h, w] (already in tmp-row order)."""
@@ -278,9 +314,10 @@ class MemoryEngine:
                    selection: Optional[torch.Tensor] = None,
                    new_obj_ids: Optional[List[int]] = None) -> None:
         """Append one frame of tokens: key [HW, Ck], shrinkage [HW], value
-        [O_cap, HW, Cv] (rows = tmp rows), selection [HW, Ck]. Objects in
-        `new_obj_ids` (first-time) form a new bucket; every existing bucket
-        receives the same tokens."""
+        [O_cap, HW, Cv] (rows = tmp rows; this process's slots under
+        sharding), selection [HW, Ck]. Objects in `new_obj_ids`
+        (first-time) form a new bucket; every existing bucket receives the
+        same tokens."""
         self.engaged = True
         hw = key.shape[0]
         if self.hw is None:
@@ -296,16 +333,27 @@ class MemoryEngine:
                 new_obj_ids, self.cfg.pad_objects(len(new_obj_ids)), hw,
                 self.ck, self.cv, save_selection=self.use_long_term,
                 save_usage=self.use_long_term, dtype=self.ring_dtype,
-                device=self.device)
+                device=self.device, shards=self.shards)
 
         row_of = {o: i for i, o in enumerate(obj_ids)}
         limit = self.max_work_tokens if self.use_long_term else None
+        whole = None  # every process's slots, gathered once if needed
         for b in self.buckets.values():
             b.ensure_capacity(hw, hw, limit=limit)
             rows = [row_of[o] for o in b.obj_ids]
             rows += [0] * (b.o_cap - len(rows))  # padded columns: harmless
-            vals = value[rows].transpose(0, 1)   # [HW, o_cap_b, Cv]
-            b.append(key, shrinkage, vals, selection)
+            if self.shards is None:
+                vals = value[rows]
+            elif b.shards is not None and rows == list(range(self.o_cap)):
+                vals = value  # the bucket's columns are the object slots
+            else:
+                if whole is None:
+                    whole = self.shards.gather(value)
+                vals = whole[rows]
+                if b.shards is not None:
+                    vals = b.shards.take(vals)
+            b.append(key, shrinkage, vals.transpose(0, 1),  # [HW, o_b, Cv]
+                     selection)
 
         self.maybe_consolidate()
 
@@ -333,7 +381,7 @@ class MemoryEngine:
         if b.size <= self.min_work_tokens + hw:
             return  # min_size guard
 
-        usage = b.use_cnt / b.life_cnt
+        usage = self._decision(b.use_cnt / b.life_cnt)
         proto_key, proto_shr, proto_value = _consolidate_prototypes(
             b.key[start:end], b.shrinkage[start:end],
             b.selection[start:end], b.value[start:end], usage[start:end],
@@ -359,7 +407,8 @@ class MemoryEngine:
             lt = LongTermBucket(b.obj_ids, b.o_cap, _round_up(4 * p, p),
                                 self.ck, self.cv,
                                 save_usage=self.count_long_term_usage,
-                                dtype=self.ring_dtype, device=self.device)
+                                dtype=self.ring_dtype, device=self.device,
+                                shards=self.shards)
             self.long_buckets[bid] = lt
         if lt.size + p > lt.cap:
             max_cap = _round_up(self.cfg.max_long_term_elements, p)
@@ -379,7 +428,8 @@ class MemoryEngine:
                 "long-term memory saturated but usage counting is off "
                 "(enable_long_term_count_usage=False): eviction needs usage "
                 "statistics")
-        usage = (lt.use_cnt / lt.life_cnt).cpu().numpy()[:lt.size]
+        usage = self._decision(lt.use_cnt / lt.life_cnt).cpu().numpy()[
+            :lt.size]
         k = lt.size - max_size
         if k <= 0:
             return
@@ -395,8 +445,9 @@ class MemoryEngine:
     def match_memory(self, qk: torch.Tensor, qe: torch.Tensor,
                      obj_rows: Dict[int, int]) -> torch.Tensor:
         """qk/qe: [HW, Ck]. obj_rows: obj id -> global tmp row.
-        Returns the readout [O_cap, HW, Cv] (f32), rows in tmp order."""
-        out = torch.zeros((self.o_cap, qk.shape[0], self.cv),
+        Returns the readout [O_cap, HW, Cv] (f32), rows in tmp order (this
+        process's slots under sharding)."""
+        out = torch.zeros((self._slots(), qk.shape[0], self.cv),
                           dtype=torch.float32, device=self.device)
         for bid, b in self.buckets.items():
             valid = valid_mask(b.cap, b.size, self.device)
@@ -420,8 +471,27 @@ class MemoryEngine:
                 rd = attend(self.approx, b.key, b.shrinkage, b.value, qk, qe,
                             self.top_k, valid=valid)
             rows = [obj_rows[o] for o in b.obj_ids]
-            out[rows] = rd[:len(rows)]
+            if self.shards is None:
+                out[rows] = rd[:len(rows)]
+            else:
+                self._scatter_sharded(out, b, rows, rd)
         return out
+
+    def _scatter_sharded(self, out, b: Bucket, rows: List[int], rd) -> None:
+        """out[rows] = the bucket's readout rd [o_b(/D), Q, Cv], where out
+        holds this process's object slots. Where the bucket's columns are
+        the slots themselves no process needs another's columns; else the
+        bucket's columns are gathered and each process keeps its rows."""
+        lo, hi = self.shards.span(self.o_cap)
+        if b.shards is not None and b.o_cap == self.o_cap and \
+                rows == list(range(len(rows))):
+            n = min(max(len(rows) - lo, 0), hi - lo)
+            out[:n] = rd[:n]
+            return
+        whole = b.shards.gather(rd) if b.shards is not None else rd
+        mine = [(r - lo, j) for j, r in enumerate(rows) if lo <= r < hi]
+        if mine:
+            out[[i for i, _ in mine]] = whole[[j for _, j in mine]]
 
     def purge_except(self, keep_obj_ids: List[int]) -> None:
         keep = set(keep_obj_ids)

@@ -34,6 +34,7 @@ from deva_tpu_torch.ops.aggregate import aggregate_logits
 from deva_tpu_torch.ops.memory_attention import (full_softmax, get_similarity,
                                                  readout)
 from deva_tpu_torch.ops.resize import downsample_area, upsample_bilinear
+from deva_tpu_torch.parallel.object_sharding import object_softmax
 
 
 class DEVANetwork(nn.Module):
@@ -87,31 +88,40 @@ class DEVANetwork(nn.Module):
     def segment(self, multi_scale_features, memory_readout: torch.Tensor,
                 sensory: torch.Tensor, last_mask: torch.Tensor,
                 selector: Optional[torch.Tensor] = None,
-                need_aux: bool = False, update_sensory: bool = True):
+                need_aux: bool = False, update_sensory: bool = True,
+                group=None):
         """memory_readout/sensory [B, O, C, h, w]; last_mask [B, O, H, W]
         -> (new_sensory, logits [B, O+1, H, W], prob [B, O+1, H, W]) and,
         with need_aux, the aux head's (logits, prob) [B, O+1, H, W]: the
         stride-16 aux logits through the same sigmoid, selector and
-        aggregation, x16 bilinear (deva_tpu/models/network.py:110-121)."""
+        aggregation, x16 bilinear (deva_tpu/models/network.py:110-121).
+        group: the object axis's process group when the O slots are this
+        process's share of them (parallel/object_sharding.py): the
+        background product and the softmax then run over every process's
+        objects, and the result holds the background and this process's
+        objects."""
         lm = downsample_area(last_mask, 16)[:, :, None]  # [B, O, 1, h, w]
         out = self.mask_decoder(multi_scale_features, memory_readout,
                                 sensory, lm, need_aux=need_aux,
                                 update_sensory=update_sensory)
-        lg, prob = _aggregate(out[1], selector, 4)
+        lg, prob = _aggregate(out[1], selector, 4, group)
         if need_aux:
-            return (out[0], lg, prob) + _aggregate(out[2], selector, 16)
+            return (out[0], lg, prob) + _aggregate(out[2], selector, 16,
+                                                   group)
         return out[0], lg, prob
 
 
 def _aggregate(logits: torch.Tensor, selector: Optional[torch.Tensor],
-               factor: int):
+               factor: int, group=None):
     """Per-object logits [B, O, h, w] -> (joint logits [B, O+1, h*factor,
-    w*factor], their softmax), in f32."""
+    w*factor], their softmax), in f32; over every process's objects of
+    `group` when given."""
     prob = torch.sigmoid(logits.float())
     if selector is not None:
         prob = prob * selector[:, :, None, None]
-    lg = upsample_bilinear(aggregate_logits(prob, axis=1), factor)
-    return lg, torch.softmax(lg, dim=1)
+    lg = upsample_bilinear(aggregate_logits(prob, axis=1, group=group),
+                           factor)
+    return lg, object_softmax(lg, 1, group)
 
 
 @torch.no_grad()

@@ -16,16 +16,15 @@ on N cards:        torchrun --nproc_per_node N -m deva_tpu_torch.training.train
 from __future__ import annotations
 
 import datetime
-import os
 import random
 from os import path
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from deva_tpu_torch.config import ModelConfig, TrainConfig
 from deva_tpu_torch.models.network import DEVANetwork, init_weights
+from deva_tpu_torch.parallel.mesh import init_from_env
 from deva_tpu_torch.training import checkpoint as ckpt
 from deva_tpu_torch.training.configuration import Configuration
 from deva_tpu_torch.training.data import StaticTransformDataset, VOSDataset
@@ -64,23 +63,9 @@ def setup_device(name: str):
     """-> (device, rank, world_size). A run under torchrun (WORLD_SIZE > 1)
     joins the process group torchrun's environment describes; each process
     takes the card of its LOCAL_RANK. cuda without CUDA raises. TF32 is
-    off on the card, as in every entry point of the port."""
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    rank = int(os.environ.get("RANK", "0"))
-    device = torch.device(name)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit("--device cuda but CUDA is not available "
-                             "(pass --device cpu to run on the CPU)")
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
-        torch.cuda.set_device(device)
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-    if world > 1 and not dist.is_initialized():
-        dist.init_process_group(
-            "nccl" if device.type == "cuda" else "gloo", rank=rank,
-            world_size=world)
-    return device, rank, world
+    off on the card, as in every entry point of the port
+    (parallel.mesh.init_from_env: NCCL on the card, gloo on the CPU)."""
+    return init_from_env(name)
 
 
 def main(argv=None):

@@ -45,8 +45,8 @@ from deva_tpu_torch.data.transforms import resize_prob_to  # noqa: E402
 from deva_tpu_torch.inference.consensus import \
     find_consensus_with_established_association  # noqa: E402
 from deva_tpu_torch.inference.core import InferenceCore  # noqa: E402
-from deva_tpu_torch.inference.eval_args import \
-    video_fault_barrier  # noqa: E402
+from deva_tpu_torch.inference.eval_args import (  # noqa: E402
+    NullSaver, apply_obj_sharding, is_writer, video_fault_barrier)
 from deva_tpu_torch.inference.result_saver import ResultSaver  # noqa: E402
 from deva_tpu_torch.utils.palette import davis_palette  # noqa: E402
 from deva_tpu_torch.utils.prefetch import Prefetcher  # noqa: E402
@@ -92,7 +92,8 @@ def run_bidirectional(store_core: InferenceCore, meta_dataset, vid_name: str,
     config (long-term usage counted by the pass's length) and image feature
     store, seeded by the soft projected_mask at the keyframe
     (eval_ref_davis.py:36-73). Each frame steps with hard_mask=False and
-    image_ti_override (its time index), through the composed path.
+    image_ti_override (its time index), through the composed path; the
+    passes shard their objects as store_core does.
     meta_dataset: get_partial_video_loader(vid_name, *reader_args, start=,
     end=, reverse=) -> a reader as VideoReader (items with "rgb" and an
     "info" with "time_index"); save_fn(processor, prob, info) gets each
@@ -111,7 +112,8 @@ def run_bidirectional(store_core: InferenceCore, meta_dataset, vid_name: str,
                                                      vid_length))
         processor = InferenceCore(
             store_core.model, cfg, device=store_core.device,
-            image_feature_store=store_core.image_feature_store)
+            image_feature_store=store_core.image_feature_store,
+            obj_mesh=store_core.obj_mesh, obj_axis=store_core.obj_axis)
         with Prefetcher(reader) as prefetch:
             for ti, data in enumerate(prefetch):
                 info = data["info"]
@@ -172,6 +174,8 @@ def main(argv=None):
     args = make_parser().parse_args(argv)
     device = setup_device(args)
     model = load_model(args, device)
+    obj_mesh, model = apply_obj_sharding(args, model)
+    writer = is_writer(args)
     base_cfg = base_config(args)
     out_path = args.output
     meta_dataset = ReferringDAVISTestDataset(args.img_path, args.mask_path,
@@ -180,7 +184,8 @@ def main(argv=None):
 
     for vid_name in meta_dataset.get_videos():
         with video_fault_barrier(vid_name, args.raise_on_error):
-            store_core = InferenceCore(model, base_cfg, device=device)
+            store_core = InferenceCore(model, base_cfg, device=device,
+                                       obj_mesh=obj_mesh)
             time_indices, keyframe_ti, projected_mask = consensus(
                 store_core, meta_dataset, vid_name, args.num_voting_frames,
                 meta_dataset.get_scores(vid_name), timer)
@@ -193,7 +198,8 @@ def main(argv=None):
                     result_savers.append((processor, ResultSaver(
                         out_path, vid_name, dataset="ref_davis",
                         palette=davis_palette(),
-                        object_manager=processor.object_manager)))
+                        object_manager=processor.object_manager)
+                        if writer else NullSaver()))
                 result_savers[-1][1].save_mask(
                     prob, info["frame"], need_resize=info["need_resize"],
                     shape=info["shape"])
@@ -202,8 +208,9 @@ def main(argv=None):
                               keyframe_ti, projected_mask, save_fn, timer)
             for _, rs in result_savers:
                 rs.end()
-            write_key(path.join(out_path, vid_name), time_indices,
-                      keyframe_ti)
+            if writer:
+                write_key(path.join(out_path, vid_name), time_indices,
+                          keyframe_ti)
             print(f"{vid_name}: keyframe {keyframe_ti}")
 
     report(timer, device)

@@ -34,8 +34,8 @@ sys.path.insert(0, path.dirname(path.abspath(__file__)))
 from deva_tpu_torch.data.referring_test_datasets import \
     ReferringYouTubeVOSTestDataset  # noqa: E402
 from deva_tpu_torch.inference.core import InferenceCore  # noqa: E402
-from deva_tpu_torch.inference.eval_args import \
-    video_fault_barrier  # noqa: E402
+from deva_tpu_torch.inference.eval_args import (  # noqa: E402
+    apply_obj_sharding, is_writer, video_fault_barrier)
 from deva_tpu_torch.utils.load_subset import \
     load_referring_yv_val  # noqa: E402
 from eval_ref_davis_torch import (binary_mask, consensus,  # noqa: E402
@@ -63,6 +63,8 @@ def main(argv=None):
     args = make_parser().parse_args(argv)
     device = setup_device(args)
     model = load_model(args, device)
+    obj_mesh, model = apply_obj_sharding(args, model)
+    writer = is_writer(args)
     base_cfg = base_config(args)
     out_path = args.output
     meta_dataset = ReferringYouTubeVOSTestDataset(args.img_path,
@@ -76,7 +78,8 @@ def main(argv=None):
     for vid_name in sorted(video_subset):
         with video_fault_barrier(vid_name, args.raise_on_error):
             video_scores = meta_dataset.get_scores(vid_name)
-            store_core = InferenceCore(model, base_cfg, device=device)
+            store_core = InferenceCore(model, base_cfg, device=device,
+                                       obj_mesh=obj_mesh)
             for object_name in meta_dataset.get_objects(vid_name):
                 out_dir = path.join(out_path, "Annotations", vid_name,
                                     object_name)
@@ -86,16 +89,19 @@ def main(argv=None):
                     timer, reader_args=(object_name,))
 
                 def save_fn(processor, prob, info):
-                    if args.save_all or info["save"]:
+                    if writer and (args.save_all or info["save"]):
                         save_png(binary_mask(prob, info), out_dir,
                                  info["frame"])
 
                 run_bidirectional(store_core, meta_dataset, vid_name,
                                   keyframe_ti, projected_mask, save_fn,
                                   timer, reader_args=(object_name,))
-                write_key(out_dir, time_indices, keyframe_ti)
+                if writer:
+                    write_key(out_dir, time_indices, keyframe_ti)
 
     report(timer, device)
+    if not writer:
+        return
     print("Making zip for YouTubeVOS...")
     shutil.make_archive(path.join(args.output, path.basename(args.output)),
                         "zip", args.output, "Annotations")

@@ -31,8 +31,8 @@ sys.path.insert(0, path.dirname(path.abspath(__file__)))
 from deva_tpu_torch.data.saliency_test_datasets import \
     DAVISSaliencyTestDataset  # noqa: E402
 from deva_tpu_torch.inference.core import InferenceCore  # noqa: E402
-from deva_tpu_torch.inference.eval_args import \
-    video_fault_barrier  # noqa: E402
+from deva_tpu_torch.inference.eval_args import (  # noqa: E402
+    apply_obj_sharding, is_writer, video_fault_barrier)
 from eval_ref_davis_torch import (binary_mask, consensus,  # noqa: E402
                                   report, run_bidirectional, save_png,
                                   write_key)
@@ -66,6 +66,8 @@ def main(argv=None):
     args = make_parser().parse_args(argv)
     device = setup_device(args)
     model = load_model(args, device)
+    obj_mesh, model = apply_obj_sharding(args, model)
+    writer = is_writer(args)
     base_cfg = base_config(args)
     out_path = args.output
     meta_dataset = DAVISSaliencyTestDataset(args.img_path, args.mask_path,
@@ -74,16 +76,20 @@ def main(argv=None):
 
     for vid_name in meta_dataset.get_videos():
         with video_fault_barrier(vid_name, args.raise_on_error):
-            store_core = InferenceCore(model, base_cfg, device=device)
+            store_core = InferenceCore(model, base_cfg, device=device,
+                                       obj_mesh=obj_mesh)
             out_dir = path.join(out_path, vid_name)
 
             def save_fn(processor, prob, info):
-                save_png(binary_mask(prob, info), out_dir, info["frame"])
+                if writer:
+                    save_png(binary_mask(prob, info), out_dir,
+                             info["frame"])
 
             time_indices, keyframe_ti = run_video(
                 store_core, meta_dataset, vid_name, args.num_voting_frames,
                 save_fn, timer)
-            write_key(out_dir, time_indices, keyframe_ti)
+            if writer:
+                write_key(out_dir, time_indices, keyframe_ti)
             print(f"{vid_name}: keyframe {keyframe_ti}")
 
     report(timer, device)

@@ -51,8 +51,8 @@ from deva_tpu_torch.inference.batched import BatchedPropagator  # noqa: E402
 from deva_tpu_torch.inference.batched_detection import \
     BatchedDetectionPropagator  # noqa: E402
 from deva_tpu_torch.inference.core import InferenceCore  # noqa: E402
-from deva_tpu_torch.inference.eval_args import \
-    video_fault_barrier  # noqa: E402
+from deva_tpu_torch.inference.eval_args import (  # noqa: E402
+    reject_obj_sharding, video_fault_barrier)
 from deva_tpu_torch.utils.prefetch import Prefetcher  # noqa: E402
 from eval_vos_torch import (StepTimer, base_config, count_usage,  # noqa
                             load_model, make_dataset, make_parser, save_mask,
@@ -235,6 +235,7 @@ def main(argv=None):
     parser.add_argument("--batch", type=int, default=4,
                         help="videos per lockstep group")
     args = parser.parse_args(argv)
+    reject_obj_sharding(args, "eval_vos_batched_torch.py")
     args.dataset = args.dataset.upper()
     device = setup_device(args)
     model = load_model(args, device)

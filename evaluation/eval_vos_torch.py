@@ -34,6 +34,12 @@ scripts/merge_multi_scale_torch.py. Each video runs inside a fault barrier
 (deva_tpu_torch/inference/eval_args.py): a video that fails on its data is
 logged and skipped, unless --raise_on_error; kernel and device errors
 always end the run.
+
+--obj_shards N shards each video's objects over N processes, one card
+each (InferenceCore(obj_mesh=...)); run it under torchrun, and process 0
+alone writes:
+  torchrun --nproc_per_node 2 evaluation/eval_vos_torch.py --dataset G \
+      --generic_path ./example/vos --output ./out_torch --obj_shards 2
 """
 from __future__ import annotations
 
@@ -56,6 +62,10 @@ from deva_tpu_torch.data.vos_test_datasets import (DAVISTestDataset,
                                                    GeneralVOSTestDataset,
                                                    YouTubeVOSTestDataset)
 from deva_tpu_torch.inference.core import InferenceCore
+from deva_tpu_torch.inference.eval_args import (NullSaver,
+                                                add_obj_shards_arg,
+                                                apply_obj_sharding,
+                                                is_writer, join_obj_group)
 from deva_tpu_torch.inference.eval_args import video_fault_barrier
 from deva_tpu_torch.models.convert import variables_to_state_dict
 from deva_tpu_torch.models.network import DEVANetwork, init_weights
@@ -83,9 +93,9 @@ def make_parser() -> ArgumentParser:
 
 def add_common_args(parser: ArgumentParser) -> None:
     """The flags every port driver takes (deva_tpu's add_common_eval_args,
-    deva_tpu/inference/eval_args.py, without its object sharding and
-    profiler): weights, output, device and dtypes, model dims, memory and
-    attention, and the per-video fault barrier."""
+    deva_tpu/inference/eval_args.py, without its profiler): weights,
+    output, device and dtypes, model dims, memory and attention, object
+    sharding, and the per-video fault barrier."""
     parser.add_argument("--model", default="./saves/DEVA-propagation.pth")
     parser.add_argument("--output", default=None)
     parser.add_argument("--save_all", action="store_true",
@@ -129,6 +139,7 @@ def add_common_args(parser: ArgumentParser) -> None:
                         help="re-raise per-video errors instead of logging "
                         "and continuing with the next video (kernel and "
                         "device errors always re-raise)")
+    add_obj_shards_arg(parser)
 
 
 def get_args(argv=None):
@@ -143,8 +154,9 @@ def get_args(argv=None):
 def setup_device(args) -> torch.device:
     """--device as a torch.device; refuses cuda without CUDA, and turns TF32
     off on the card (parity with deva_tpu's f32 needs true f32 convs and
-    matmuls)."""
-    device = torch.device(args.device)
+    matmuls). With --obj_shards N, joins torchrun's N processes first
+    (each then takes the card of its LOCAL_RANK; inference/eval_args.py)."""
+    device = join_obj_group(args, torch.device(args.device))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but CUDA is not available "
                          "(pass --device cpu to run on the CPU)")
@@ -369,6 +381,8 @@ def main(argv=None):
     args.dataset = args.dataset.upper()
     device = setup_device(args)
     model = load_model(args, device)
+    obj_mesh, model = apply_obj_sharding(args, model)
+    writer = is_writer(args)
     if args.output is None:
         args.output = f"../output/{args.dataset}_{args.split}"
         print(f"Output path not provided. Defaulting to {args.output}")
@@ -390,9 +404,11 @@ def main(argv=None):
         cfg = dataclasses.replace(
             base_cfg,
             enable_long_term_count_usage=count_usage(base_cfg, vid_length))
-        processor = InferenceCore(model, cfg, device=device)
+        processor = InferenceCore(model, cfg, device=device,
+                                  obj_mesh=obj_mesh)
         saver = VideoSaver(out_path, path.join(args.output, "Scores"),
-                           vid_name, vid_reader.get_palette())
+                           vid_name, vid_reader.get_palette()) if writer \
+            else NullSaver()
         print(f"{vid_name} ({vid_length} frames)")
         with video_fault_barrier(vid_name, args.raise_on_error):
             run_video(processor, vid_reader, args, saver, timer)
@@ -405,7 +421,7 @@ def main(argv=None):
         print("Max allocated memory (MB): "
               f"{torch.cuda.max_memory_allocated(device) / 2 ** 20:.1f}")
 
-    if not args.save_scores:
+    if writer and not args.save_scores:
         if is_youtube:
             print("Making zip for YouTubeVOS...")
             shutil.make_archive(path.join(args.output,

@@ -50,8 +50,8 @@ from deva_tpu_torch.data.vps_test_datasets import \
 from deva_tpu_torch.inference.batched_detection import \
     BatchedDetectionPropagator  # noqa: E402
 from deva_tpu_torch.inference.core import InferenceCore  # noqa: E402
-from deva_tpu_torch.inference.eval_args import \
-    video_fault_barrier  # noqa: E402
+from deva_tpu_torch.inference.eval_args import (  # noqa: E402
+    reject_obj_sharding, video_fault_barrier)
 from deva_tpu_torch.inference.frame_utils import FrameInfo  # noqa: E402
 from deva_tpu_torch.inference.object_utils import \
     convert_json_dict_to_objects_info  # noqa: E402
@@ -371,6 +371,7 @@ def main(argv=None):
     parser.add_argument("--batch", type=int, default=4,
                         help="videos per lockstep group")
     args = parser.parse_args(argv)
+    reject_obj_sharding(args, "eval_with_detections_batched_torch.py")
     device = setup_device(args)
     model = load_model(args, device)
     dataset_name = args.dataset.lower()

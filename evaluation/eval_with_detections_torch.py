@@ -21,8 +21,10 @@ Usage (the example clip, on the card; --device cpu for the CPU):
 The model, memory, attention and dtype flags are eval_vos_torch.py's
 (--model takes an upstream .pth or a deva_tpu .npz; without one the weights
 are a seeded random init). --device defaults to cuda and fails when CUDA is
-absent; TF32 stays off on the card. Not carried over from deva_tpu's
-driver: --obj_shards and --profile (object sharding and the JAX profiler).
+absent; TF32 stays off on the card. --obj_shards N shards each video's
+objects over N processes under torchrun (process 0 writes; see
+eval_vos_torch.py). Not carried over from deva_tpu's driver: --profile (the
+JAX profiler).
 Each video runs inside the per-video fault barrier
 (deva_tpu_torch/inference/eval_args.py): a video that fails on its data is
 logged, left out of pred.json and skipped, unless --raise_on_error; kernel
@@ -49,8 +51,8 @@ from deva_tpu_torch.config import InferenceConfig  # noqa: E402
 from deva_tpu_torch.data.vps_test_datasets import (  # noqa: E402
     BURSTDetectionTestDataset, VIPSegDetectionTestDataset)
 from deva_tpu_torch.inference.core import InferenceCore  # noqa: E402
-from deva_tpu_torch.inference.eval_args import \
-    video_fault_barrier  # noqa: E402
+from deva_tpu_torch.inference.eval_args import (  # noqa: E402
+    NullSaver, apply_obj_sharding, is_writer, video_fault_barrier)
 from deva_tpu_torch.inference.frame_utils import FrameInfo  # noqa: E402
 from deva_tpu_torch.inference.object_utils import \
     convert_json_dict_to_objects_info  # noqa: E402
@@ -99,11 +101,12 @@ def detection_config(args) -> InferenceConfig:
 
 
 def video_processor(model, cfg: InferenceConfig, vid_length: int,
-                    device) -> InferenceCore:
-    """A fresh InferenceCore for one video of vid_length frames."""
+                    device, obj_mesh=None) -> InferenceCore:
+    """A fresh InferenceCore for one video of vid_length frames (its
+    objects sharded over obj_mesh, when given)."""
     return InferenceCore(model, dataclasses.replace(
         cfg, enable_long_term_count_usage=count_usage(cfg, vid_length)),
-        device=device)
+        device=device, obj_mesh=obj_mesh)
 
 
 def run_video(vid_reader, processor, result_saver, args, timer,
@@ -193,6 +196,8 @@ def main(argv=None):
     args = make_parser().parse_args(argv)
     device = setup_device(args)
     model = load_model(args, device)
+    obj_mesh, model = apply_obj_sharding(args, model)
+    writer = is_writer(args)
 
     temporal_setting = args.temporal_setting.lower()
     assert temporal_setting in ("semionline", "online")
@@ -234,10 +239,12 @@ def main(argv=None):
     for vid_reader in meta_dataset.get_datasets():
         vid_name = vid_reader.vid_name
         vid_length = len(vid_reader)
-        processor = video_processor(model, base_cfg, vid_length, device)
+        processor = video_processor(model, base_cfg, vid_length, device,
+                                    obj_mesh)
         result_saver = ResultSaver(out_path, vid_name, dataset=dataset_name,
                                    palette=vid_reader.palette,
-                                   object_manager=processor.object_manager)
+                                   object_manager=processor.object_manager) \
+            if writer else NullSaver()
         print(f"{vid_name} ({vid_length} frames)")
 
         def segments_of(ti, mask, info):
@@ -261,7 +268,7 @@ def main(argv=None):
             run_video(vid_reader, processor, result_saver, args, timer,
                       dataset_name, segments_of)
         result_saver.end()
-        if barrier.failed:
+        if barrier.failed or not writer:
             continue
         if is_vipseg:
             output_json_annotations.append(result_saver.video_json)
@@ -275,7 +282,7 @@ def main(argv=None):
                                 f"{vid_name}.json"), "w") as f:
                 json.dump(result_saver.video_json, f, indent=4)
 
-    if is_vipseg:
+    if is_vipseg and writer:
         with open(path.join(out_path, "pred.json"), "w") as f:
             json.dump({"annotations": output_json_annotations}, f)
 
@@ -287,6 +294,8 @@ def main(argv=None):
         print("Max allocated memory (MB): "
               f"{torch.cuda.max_memory_allocated(device) / 2 ** 20:.1f}")
 
+    if not writer:
+        return
     if is_vipseg:
         from deva_tpu_torch.metrics.stuff_merging import merge_stuff
         print("Starting evaluation...")

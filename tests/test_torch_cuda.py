@@ -1135,3 +1135,41 @@ def test_train_step_card_matches_cpu(dev):
     from deva_tpu_torch.models.network import DEVANetwork, init_weights
     chip_smoke.phase_train_parity(init_weights(DEVANetwork(), seed=0).eval(),
                                   dev)
+
+
+def test_sharded_attention_on_the_card_matches_unsharded(dev, tmp_path):
+    """parallel/sharded_attention.py on two ranks sharing the card (gloo):
+    each launches sim_topk and topk_readout once on its token shard; the
+    output within 1e-5 of the single-device attend_topk (and the same on
+    both ranks), the usage shards within 1e-5 of its usage (sums in
+    another order)."""
+    import torch_parallel_common as C
+    ranks = C.spawn(2, "cuda_attention", tmp_path)
+    ref = ranks[0]
+    for r in ranks:
+        assert r["launches"]["sim_topk"] == 1, r["launches"]
+        assert r["launches"]["topk_readout"] == 1, r["launches"]
+        torch.testing.assert_close(r["out"], ref["ref"], rtol=1e-5,
+                                   atol=1e-5)
+    usage = torch.cat([r["usage"] for r in ranks])[:ref["ref_usage"].shape[0]]
+    torch.testing.assert_close(usage, ref["ref_usage"], rtol=1e-5, atol=1e-5)
+
+
+def test_object_sharded_step_on_the_card_matches_unsharded(dev, tmp_path):
+    """InferenceCore(obj_mesh=) on two ranks sharing the card (gloo), the
+    four objects two a rank, through step with long-term memory
+    (tests/torch_parallel_common.py:core_video): both exact kernels launch
+    on every propagated frame, both ranks return the same probabilities,
+    within 1e-4 of the unsharded core's on the card (the background product
+    and the softmax sum in another order)."""
+    import torch_parallel_common as C
+    ranks = C.spawn(2, "cuda_core", tmp_path)
+    n = len(ranks[0]["probs"])
+    for r in ranks:
+        assert r["slots"] == 2
+        assert all(r["launches"][k] >= n - 1 for k in ("sim_topk",
+                                                       "topk_readout"))
+        for a, b in zip(r["probs"], ranks[0]["probs"]):
+            np.testing.assert_array_equal(a, b)
+    for ti, (a, b) in enumerate(zip(ranks[0]["ref"], ranks[0]["probs"])):
+        np.testing.assert_allclose(b, a, atol=1e-4, err_msg=f"frame {ti}")

@@ -150,8 +150,9 @@ def test_port_imports_without_jax_or_pil():
     (demo/demo_with_text_torch.py, demo/demo_automatic_torch.py), and the
     training stack (training/: the trainer, losses, checkpoints, the stage
     driver, the toy, the datasets and their transforms; utils/logger.py,
-    utils/image_saver.py), with both blocked, and transformers, cv2 and
-    tensorboardX blocked too, must work."""
+    utils/image_saver.py), and the multi-GPU layer (parallel/: the mesh,
+    the memory-sharded attention, object sharding), with both blocked, and
+    transformers, cv2 and tensorboardX blocked too, must work."""
     code = """
 import sys
 sys.modules['jax'] = None
@@ -233,8 +234,18 @@ for name in ('deva_tpu_torch.inference.batched_detection',
              'deva_tpu_torch.training.data.static_dataset',
              'deva_tpu_torch.training.data.vos_dataset',
              'deva_tpu_torch.utils.logger',
-             'deva_tpu_torch.utils.image_saver'):
+             'deva_tpu_torch.utils.image_saver',
+             'deva_tpu_torch.parallel',
+             'deva_tpu_torch.parallel.mesh',
+             'deva_tpu_torch.parallel.sharded_attention',
+             'deva_tpu_torch.parallel.object_sharding'):
     assert name in names, name
+from deva_tpu_torch.parallel import (ObjectShards, attend_mem_sharded,
+                                     init_from_env, make_mesh, pad_tokens,
+                                     replicate, shard_batch)
+assert all(callable(f) for f in (ObjectShards, attend_mem_sharded,
+                                 init_from_env, make_mesh, pad_tokens,
+                                 replicate, shard_batch))
 assert not any(m == 'deva_tpu' or m.startswith(('deva_tpu.', 'jax', 'flax'))
                for m in sys.modules if sys.modules[m] is not None), \\
     sorted(m for m in sys.modules if m.startswith(('deva_tpu.', 'jax')))
