@@ -13,7 +13,9 @@ drivers' soft-mask bidirectional propagation); and the detector layer
 the training stack (the train step card against CPU, the stage-3 step at
 full width, learn-to-track served by InferenceCore, the stage driver); and
 multi-GPU serving over two ranks (object-sharded VOS and detection
-drivers, memory-sharded attention, video-sharded batched propagation).
+drivers, memory-sharded attention, video-sharded batched propagation);
+and the native host library (the consensus integer program, the RLE codec)
+and the video demo's core.
 
     python3 chip_smoke.py
 
@@ -256,6 +258,27 @@ tests/test_amp.py's whole-clip budget against the f32 run, frame by frame.
    phase 5's budgets of the unsharded B=4 group, ring and long-term sizes
    equal. Alone: a script under a git-ignored profiles*/ directory that
    builds the kernels and calls phase11() (README).
+12. The native host library and the video demo's core. 12a: the library
+   (deva_tpu_torch/utils/native.py: csrc/host/devac.cpp built with this
+   machine's g++; its path and a fresh build's time printed) against its
+   Python twins: the consensus integer program on NATIVE_GRAPHS seeded
+   consensus-style graphs of at most 150 segments
+   (detection_clips.consensus_graphs), selections equal where no equal
+   weights meet in a component of three or more, objectives equal where
+   they do, brute force for n <= 12; RLE strings and decodes on 854x480
+   masks (noise, three rectangles, all zero, all one, starting with 1);
+   joint_hist against np.add.at. Host ms of both, the integer program at
+   n = 30, 70, 150, RLE encode and decode at 854x480; and phase 6c's host
+   votes split into the IoU tables (consensus.pairwise_support) and the
+   integer program, every solve of which ran through the library. 12b:
+   demo/demo_gradio_torch.track_frames on phase 9's 30 synthetic 854x480
+   frames, run_auto's path (mobile, 9b's settings) and run_text's
+   (RectDetector's boxes, Light-HQ-SAM, 9c's settings): one BGR uint8
+   854x480 frame to the writer per input frame, the objects after each
+   saved frame equal to the demo's run_demo on the same clip (9b's run;
+   for the text path a run of demo_with_text_torch.run_demo at 854x480,
+   since 9c runs 1280x720), both exact kernels on every frame propagated
+   outside a voting window while objects are held; ms per frame.
 
 The second-to-last line of output is a JSON object with each kernel's
 launches (phase 3 for the exact pair, phase 4 for the approx pair), largest
@@ -2258,6 +2281,14 @@ def phase_detection_semionline(ak, net_cpu, dev, n_frames: int = 20,
     align_ms, align_runs, vote_ms, vote_segs, vote_ti = [], [], [], [], []
     real_align, real_vote = core.spatial_alignment, \
         core.vote_in_temporary_buffer
+    from deva_tpu_torch.inference import consensus
+    from deva_tpu_torch.utils import native
+    # the host vote's two parts (printed in phase 12a), and the native
+    # solver under the integer program
+    tables = HostTimer(consensus, "pairwise_support")
+    program = HostTimer(consensus, "solve_consensus_ilp")
+    solver = HostTimer(native, "mwis_solve")
+    vote_split = []
 
     def timed_align(*a):
         before = dict(ak.LAUNCHES)
@@ -2282,6 +2313,7 @@ def phase_detection_semionline(ak, net_cpu, dev, n_frames: int = 20,
         vote_segs.append((sum(len(f.segments_info)
                               for f in core.frame_buffer), len(out[2])))
         vote_ti.append(core.frame_buffer[0].ti)
+        vote_split.append((tables.take(), program.take()))
         return out
 
     core.spatial_alignment = timed_align
@@ -2292,7 +2324,12 @@ def phase_detection_semionline(ak, net_cpu, dev, n_frames: int = 20,
         run()
     finally:
         tap.restore()
+        for part in (tables, program, solver):
+            part.restore()
     torch.cuda.synchronize()
+    assert solver.calls == program.calls, (solver.calls, program.calls)
+    HOST_VOTE.update(votes=vote_ms, split=vote_split, segs=vote_segs,
+                     programs=program.calls, native=solver.calls)
     launches = dict(ak.LAUNCHES)
     assert sorted(saver.order) == list(range(n_frames)), saver.order
     assert align_runs and all(r == dict.fromkeys(EXACT_PAIR, 1)
@@ -2315,6 +2352,11 @@ def phase_detection_semionline(ak, net_cpu, dev, n_frames: int = 20,
     aligned = {k: sum(r.get(k, 0) for r in align_runs) for k in EXACT_PAIR}
     return launches, aligned, tap.calls["align"]
 
+
+# phase 6c's host votes: their ms, each vote's (IoU tables, integer program)
+# ms, segments in and selected, and the integer programs and native solves
+# (printed by phase 12a)
+HOST_VOTE = {}
 
 # the unit roundoff of f32
 F32_U = 2.0 ** -24
@@ -4266,7 +4308,13 @@ def demo_schedule(args, n_frames):
     return votes, window
 
 
-def demo_run(ak, dev, net_cpu, mode, n_frames, h, w, keep_calls=True):
+# the objects after each saved frame of each demo run, by (mode, h, w)
+# (phase 12b holds the video demo's runs to them)
+DEMO_HISTORY = {}
+
+
+def demo_run(ak, dev, net_cpu, mode, n_frames, h, w, keep_calls=True,
+             name=None):
     """Phase 9b (mode "auto") or 9c ("text"): the demo's run_demo on
     n_frames of demo_clip at h x w, as the demo's main drives it (its
     flags, demo_config, one InferenceCore with long ids, its StepTimer), an
@@ -4285,7 +4333,8 @@ def demo_run(ak, dev, net_cpu, mode, n_frames, h, w, keep_calls=True):
     timed with the device drained around it), the objects over time, the
     launches and the peak memory above what was allocated before the run.
     Returns (the last frame's calls, the launches outside the alignments,
-    the last alignment's calls, the alignments' launches)."""
+    the last alignment's calls, the alignments' launches); the objects over
+    time go to DEMO_HISTORY. name: the phase in the printed line."""
     from deva_tpu_torch.ext import automatic_processor as ap
     from deva_tpu_torch.ext import detectors as dets
     from deva_tpu_torch.ext import with_text_processor as wp
@@ -4383,6 +4432,7 @@ def demo_run(ak, dev, net_cpu, mode, n_frames, h, w, keep_calls=True):
     peak = torch.cuda.max_memory_allocated(dev) / 2**20
     assert sorted(saver.order) == list(range(n_frames)), saver.order
     assert history[-1][1] > 0, f"{mode}: no object admitted"
+    DEMO_HISTORY[mode, h, w] = history
     votes, window = demo_schedule(args, n_frames)
     step_ms = timer.steps_ms
     assert len(step_ms) == n_frames, len(step_ms)
@@ -4393,7 +4443,7 @@ def demo_run(ak, dev, net_cpu, mode, n_frames, h, w, keep_calls=True):
     n_det = len(window)
     per_det = {k: t.ms / n_det for k, t in parts.items()}
     calls = {k: t.calls for k, t in parts.items()}
-    name = "9b automatic" if mode == "auto" else "9c text"
+    name = name or ("9b automatic" if mode == "auto" else "9c text")
     script = "demo_automatic_torch" if mode == "auto" else \
         "demo_with_text_torch"
     size = dets._target_shape(h, w, args.size)
@@ -5372,6 +5422,288 @@ def phase11() -> list:
     return res["rows"]
 
 
+# --------------------------------------------------------------------------
+# phase 12: the native host library and the video demo's core
+# --------------------------------------------------------------------------
+
+# 12a: seeded consensus-style graphs (detection_clips.consensus_graphs, at
+# most 150 segments), and the sizes of the timed integer programs
+NATIVE_GRAPHS, NATIVE_SEED = 200, 12
+NATIVE_TIMED_N = (30, 70, 150)
+NATIVE_CALLS = 20
+
+
+def host_ms(fn, calls: int = NATIVE_CALLS) -> float:
+    """Median host ms of fn() over `calls` calls (host code alone)."""
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1000)
+    return statistics.median(times)
+
+
+def ilp_objective(iou, sel) -> float:
+    x = np.asarray(sel, np.float64)
+    return float(2 * (iou @ x).sum() - x.sum())
+
+
+def brute_force_objective(iou, conflict) -> float:
+    """The integer program's optimum over every feasible subset."""
+    n = len(iou)
+    best = -np.inf
+    for m in range(2 ** n):
+        sel = np.array([(m >> i) & 1 for i in range(n)], bool)
+        if not (conflict & np.outer(sel, sel) & ~np.eye(n, dtype=bool)).any():
+            best = max(best, ilp_objective(iou, sel))
+    return best
+
+
+def rle_masks(h, w):
+    """Phase 12a's masks at h x w: seeded pixel noise (a run every few
+    pixels), demo_clip's three rectangles on a frame, all zero, all one,
+    and noise that starts with 1 (the first run of zeros is empty)."""
+    rng = np.random.default_rng(13)
+    frame = demo_clip(h, w, 1)[0][0]
+    start1 = rng.uniform(size=(h, w)) > 0.5
+    start1[0, 0] = True
+    return {"noise": rng.uniform(size=(h, w)) > 0.7,
+            "rectangles": (frame[:, :, None] == np.array(RECT_COLORS))
+            .all(-1).any(-1),
+            "zeros": np.zeros((h, w), bool), "ones": np.ones((h, w), bool),
+            "starts with 1": start1}
+
+
+def phase_native() -> None:
+    """Phase 12a, the native host library (utils/native.py, built with this
+    machine's g++ from csrc/host/devac.cpp) against its Python twins: the
+    integer program on NATIVE_GRAPHS seeded consensus-style graphs (n <=
+    150, built as the vote builds them): selections equal where no equal
+    weights meet in a component of three or more segments
+    (detection_clips.has_ties), the objective equal where they do, the
+    brute-force optimum for n <= 12, every selection feasible; RLE strings
+    and decodes equal on 854x480 masks (rle_masks); joint_hist equal to
+    np.add.at. Times both on this host: the integer program at
+    NATIVE_TIMED_N segments, RLE encode and decode at 854x480. Prints
+    phase 6c's host votes split into the IoU tables and the integer
+    program, all of whose solves ran through the library."""
+    from deva_tpu_torch import detection_clips as dc
+    from deva_tpu_torch.inference import ilp
+    from deva_tpu_torch.utils import native, rle
+    lib = native.get_lib()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        native.build(tmp)
+        build_s = time.perf_counter() - t0
+    counts = dict(graphs=0, tie_free=0, tied=0, tied_differ=0, brute=0)
+    largest = 0
+    for iou, conflict in dc.consensus_graphs(NATIVE_SEED, NATIVE_GRAPHS):
+        sel = ilp.solve_consensus_ilp(iou, conflict)
+        twin = ilp.solve_consensus_ilp_python(iou, conflict)
+        chosen = np.nonzero(sel)[0]
+        assert not conflict[np.ix_(chosen, chosen)].any()
+        counts["graphs"] += 1
+        largest = max(largest, len(iou))
+        if dc.has_ties(iou, conflict):
+            counts["tied"] += 1
+            counts["tied_differ"] += sel != twin
+            assert abs(ilp_objective(iou, sel) -
+                       ilp_objective(iou, twin)) < 1e-6
+        else:
+            counts["tie_free"] += 1
+            assert sel == twin, len(iou)
+        if len(iou) <= 12:
+            counts["brute"] += 1
+            assert abs(ilp_objective(iou, sel) -
+                       brute_force_objective(iou, conflict)) < 1e-6
+    assert largest <= 150 and counts["tie_free"] and counts["tied"], counts
+    h, w = H480, W480
+    masks = rle_masks(h, w)
+    for name, m in masks.items():
+        enc = rle.encode(m)
+        assert enc == rle.encode_python(m), name
+        for out in (rle.decode(enc), rle.decode_python(enc),
+                    native.rle_decode(enc["counts"], h, w)):
+            assert np.array_equal(out, m.astype(np.uint8)), name
+    ids = np.random.default_rng(14).integers(0, 13, (2, h * w))
+    ref = np.zeros((13, 13), np.int64)
+    np.add.at(ref, (ids[0], ids[1]), 1)
+    assert np.array_equal(native.joint_hist(ids[0], ids[1], 13), ref)
+    timed = {}
+    for n in NATIVE_TIMED_N:
+        iou, conflict = dc.consensus_graph_of_size(n, n)
+        assert ilp.solve_consensus_ilp(iou, conflict) == \
+            ilp.solve_consensus_ilp_python(iou, conflict) or \
+            dc.has_ties(iou, conflict)
+        timed[f"integer program n={n}"] = (
+            host_ms(lambda: ilp.solve_consensus_ilp_python(iou, conflict)),
+            host_ms(lambda: ilp.solve_consensus_ilp(iou, conflict)))
+    for name in ("rectangles", "noise"):
+        m = masks[name]
+        enc = rle.encode(m)
+        timed[f"RLE encode {name}"] = (host_ms(lambda: rle.encode_python(m)),
+                                       host_ms(lambda: rle.encode(m)))
+        timed[f"RLE decode {name}"] = (
+            host_ms(lambda: rle.decode_python(enc)),
+            host_ms(lambda: rle.decode(enc)))
+    votes = HOST_VOTE.get("split", [])
+    print(f"phase 12a native host library {os.path.relpath(lib._name, ROOT)} "
+          f"(g++ -O3 -shared -fPIC; a fresh build on this host took "
+          f"{build_s:.2f} s): {counts['graphs']} consensus-style graphs "
+          f"(n <= {largest}): {counts['tie_free']} tie-free, selections equal "
+          f"to the Python solver's; {counts['tied']} with equal weights in a "
+          f"component of 3 or more, objectives equal ({counts['tied_differ']} "
+          f"of them another optimum); {counts['brute']} with n <= 12 at the "
+          f"brute-force optimum; RLE strings and decodes equal to the Python "
+          f"codec's on {h}x{w} masks {list(masks)}; joint_hist equal to "
+          f"np.add.at. Host ms, median of {NATIVE_CALLS} calls, Python -> "
+          f"native: " + ", ".join(f"{k} {a:.4f} -> {b:.4f}"
+                                  for k, (a, b) in timed.items())
+          + f". Phase 6c's host votes ran through the library "
+          f"({HOST_VOTE.get('programs', 0)} integer programs, "
+          f"{HOST_VOTE.get('native', 0)} native solves): per vote, host ms "
+          + ", ".join(f"{v:.3f}" for v in HOST_VOTE.get("votes", []))
+          + " of which IoU tables "
+          + ", ".join(f"{t:.3f}" for t, _ in votes)
+          + " and the integer program "
+          + ", ".join(f"{p:.4f}" for _, p in votes)
+          + f"; segments in / selected {HOST_VOTE.get('segs', [])} "
+          + smi_line(), flush=True)
+
+
+class FrameRecorder:
+    """The video demo's writer for phase 12b (the card's machine encodes no
+    video): keeps each frame's shape and dtype."""
+
+    def __init__(self):
+        self.frames = []
+
+    def write(self, frame):
+        self.frames.append((frame.shape, frame.dtype))
+
+
+def gradio_run(ak, dev, net_cpu, mode, n_frames, h, w) -> None:
+    """Phase 12b: demo_gradio_torch.track_frames on n_frames of demo_clip at
+    h x w, with the setup of one of the demo's tabs (its module-level
+    auto_setup / text_setup; the propagation model phase 3's, object ids
+    seeded as in phase 9): "auto" as run_auto with --sam_variant mobile
+    at 9b's settings (SAM_NUM_POINTS_PER_SIDE DEMO_POINTS, the IoU filter
+    off, --size DEMO_SIZE, a detection every 5, max missed 5,
+    semi-online); "text" as run_text with RectDetector's boxes and
+    Light-HQ-SAM at 9c's (prompt red.green.blue, threshold 0.35, max
+    missed 10). The writer (FrameRecorder) must get exactly one BGR uint8
+    frame of h x w per input frame; the objects after each saved frame must
+    equal those of the demo's run_demo on the same clip (DEMO_HISTORY:
+    9b's run, or for "text" a run_demo of demo_with_text_torch at h x w);
+    the exact pair must launch on every frame propagated outside a voting
+    window (with objects held: a core without objects has no memory to
+    attend). Prints ms per propagation frame and per frame in all."""
+    from deva_tpu_torch.ext import automatic_processor as ap
+    from deva_tpu_torch.ext import detectors as dets
+    from deva_tpu_torch.ext import with_text_processor as wp
+    gc.collect()
+    gd = demo_driver("demo_gradio_torch")
+    text = demo_driver("demo_with_text_torch")
+    args = text.make_parser().parse_args([
+        "--device", dev.type, "--MOBILE_SAM_CHECKPOINT_PATH", "",
+        "--LIGHT_HQ_SAM_CHECKPOINT_PATH", ""])
+    net = copy.deepcopy(net_cpu).to(dev)
+    demo = gd.Demo(net, text.demo_config(args, 0), vars(args), args, dev)
+    if mode == "auto":
+        cfg, ext_cfg, source = gd.auto_setup(
+            demo, float("-inf"), DEMO_POINTS, DEMO_SIZE, 5, 5, "semionline",
+            "mobile", False)
+        process = ap.process_frame_automatic
+    else:
+        cfg, ext_cfg = gd.text_setup(demo, "red.green.blue", 0.35, DEMO_SIZE,
+                                     5, 10, "semionline")
+        source = RectDetector(dets._mobile_sam_from_args(args,
+                                                         "sam_hq_light"))
+        process = wp.process_frame_with_text
+    frames, _ = demo_clip(h, w, n_frames)
+    history, frame_ms, frame_launches, held = [], {}, {}, {}
+    real_saver, real_core = gd.ResultSaver, gd.InferenceCore
+
+    class HistorySaver(real_saver):
+        def save_mask(self, prob, frame_name, *a, **kw):
+            super().save_mask(prob, frame_name, *a, **kw)
+            history.append((int(frame_name[:7]),
+                            self.object_manager.num_obj))
+
+    def seeded_core(*a, **kw):
+        core = real_core(*a, **kw)
+        core.object_manager._rng = np.random.default_rng(5)
+        return core
+
+    def timed(deva, src, ext, frame_path, saver, ti, **kw):
+        held[ti] = deva.object_manager.num_obj
+        before = dict(ak.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        process(deva, src, ext, frame_path, saver, ti, **kw)
+        torch.cuda.synchronize()
+        frame_ms[ti] = (time.perf_counter() - t0) * 1000
+        frame_launches[ti] = {k: ak.LAUNCHES[k] - before[k]
+                              for k in EXACT_PAIR}
+
+    writer = FrameRecorder()
+    gd.ResultSaver, gd.InferenceCore = HistorySaver, seeded_core
+    ak.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        core = gd.track_frames(demo, cfg, ext_cfg, source, frames, n_frames,
+                               writer, timed)
+        torch.cuda.synchronize()
+    finally:
+        gd.ResultSaver, gd.InferenceCore = real_saver, real_core
+    wall = time.perf_counter() - t0
+    launches = dict(ak.LAUNCHES)
+    label = "phase 12b video demo core (" + (
+        "run_auto, mobile)" if mode == "auto" else "run_text, Light-HQ-SAM)")
+    assert writer.frames == [((h, w, 3), np.dtype(np.uint8))] * n_frames, \
+        (label, len(writer.frames), writer.frames[:2])
+    key = (mode, h, w)
+    if key not in DEMO_HISTORY:
+        demo_run(ak, dev, net_cpu, mode, n_frames, h, w, keep_calls=False,
+                 name=f"12b reference, demo_with_text_torch.run_demo at "
+                      f"{h}x{w}")
+    assert history == DEMO_HISTORY[key], (label, history, DEMO_HISTORY[key])
+    votes, window = demo_schedule(cfg, n_frames)
+    prop = [ti for ti in range(n_frames) if ti not in window]
+    tracked = [ti for ti in prop if held[ti]]  # a core with memory attends
+    missing = [ti for ti in tracked if min(frame_launches[ti].values()) < 1]
+    assert tracked and not missing, (label, missing, frame_launches)
+    print(f"{label}: demo_gradio_torch.track_frames on {n_frames} frames of "
+          f"{h}x{w} (--size {cfg.size}, a detection every "
+          f"{cfg.detection_every}, {cfg.num_voting_frames} voting frames, "
+          f"semi-online): {len(writer.frames)} BGR uint8 {h}x{w} frames to "
+          f"the writer; objects after each saved frame equal to the demo's "
+          f"run_demo on this clip (last {history[-1][1]}); both exact "
+          f"kernels on each of the {len(tracked)} frames propagated outside "
+          f"a voting window with objects held ({len(prop)} outside a "
+          f"window); ms per propagation frame median "
+          f"{statistics.median(frame_ms[ti] for ti in prop):.3f}, per frame "
+          f"in all (the buffer's flush and the saver's blends included) "
+          f"{wall * 1000 / n_frames:.3f}; launches {launches}; objects "
+          f"{core.object_manager.num_obj} " + smi_line(), flush=True)
+    del core, net, demo, source
+
+
+def phase12(ak, net_cpu, dev) -> None:
+    """Phases 12a (the native host library) and 12b (the video demo's
+    core, run_auto's and run_text's paths), each timed on the host
+    clock."""
+    t0 = time.perf_counter()
+    phase_native()
+    t1 = time.perf_counter()
+    gradio_run(ak, dev, net_cpu, "auto", DEMO_FRAMES, H480, W480)
+    gradio_run(ak, dev, net_cpu, "text", DEMO_FRAMES, H480, W480)
+    t2 = time.perf_counter()
+    print(f"phase 12 took {t2 - t0:.1f} s: 12a {t1 - t0:.1f}, 12b "
+          f"{t2 - t1:.1f}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5452,10 +5784,12 @@ def main() -> int:
     det_rows += phase8(ak, apx, net_cpu, dev)
     det_rows += phase9(ak, apx, net_cpu, dev)
     phase10(ak, net_cpu, dev)
-    del net_cpu, net_cpu16
+    del net_cpu16
     gc.collect()
     torch.cuda.empty_cache()
     det_rows += phase11()
+    phase12(ak, net_cpu, dev)
+    del net_cpu
 
     rows = []
     for ring, res_exact, res_approx, run_exact, run_approx, suffix in (

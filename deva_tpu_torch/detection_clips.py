@@ -1,8 +1,9 @@
 """Synthetic clips with detections, the online detection loops over them
 (per video, and in lockstep through a BatchedDetectionPropagator), and the
 helpers that hold one run of detection fusion against another, and the
-frame processors' loop with its spies: written once for chip_smoke.py's
-phases 6, 7 and 9a, profile_step.py --detections,
+frame processors' loop with its spies, and seeded inputs of the consensus
+integer program: written once for chip_smoke.py's phases 6, 7, 9a and 12a,
+profile_step.py --detections,
 tests/test_torch_cuda.py and the tests/test_torch_detection*.py and
 tests/test_torch_batched_detection*.py and tests/test_torch_ext_*.py files.
 
@@ -102,6 +103,117 @@ def detections(t: int, h: int = 480, w: int = 854, segments: int = 12):
         masks.append(m)
         infos.append(info)
     return masks, infos
+
+
+def consensus_graph(rng: np.random.Generator, n_frames: int,
+                    n_objects: int, copies: int = 0, h: int = 24,
+                    w: int = 32):
+    """A seeded input of the consensus integer program, built as the vote
+    builds it (inference/consensus.py:pairwise_support over the projected id
+    masks): n_frames projected frames of h x w, n_objects boxes that drift
+    and change size by up to 2 px a frame, each in a frame with probability
+    0.8, isthing drawn per object from (None, False, True), painted in a
+    random order so that later boxes cover earlier ones, and a spurious box
+    in a frame with probability 0.5. The first `copies` objects are one
+    fixed box in every frame, painted last: their segments have IoU 1 to
+    each other, a clique of n_frames equal weights (ties).
+    -> (pairwise_iou [n, n] f32, conflict [n, n] bool)."""
+    from deva_tpu_torch.inference.consensus import pairwise_support
+    assert copies <= n_objects, (copies, n_objects)
+    kinds = (None, False, True)
+    boxes = []
+    for _ in range(n_objects):
+        bh, bw = int(rng.integers(4, h // 2)), int(rng.integers(4, w // 2))
+        boxes.append([int(rng.integers(0, h - bh)),
+                      int(rng.integers(0, w - bw)), bh, bw])
+    isthing = [kinds[int(rng.integers(0, 3))] for _ in range(n_objects)]
+    masks, infos, areas, total = [], {}, {}, 0
+    for fi in range(n_frames):
+        drawn = []
+        for k in rng.permutation(np.arange(copies, n_objects)):
+            y, x, bh, bw = boxes[k]
+            if fi:
+                bh = int(np.clip(bh + rng.integers(-2, 3), 3, h // 2))
+                bw = int(np.clip(bw + rng.integers(-2, 3), 3, w // 2))
+                y = int(np.clip(y + rng.integers(-2, 3), 0, h - bh))
+                x = int(np.clip(x + rng.integers(-2, 3), 0, w - bw))
+                boxes[k] = [y, x, bh, bw]
+            if rng.uniform() < 0.8:
+                drawn.append((boxes[k], isthing[k]))
+        if rng.uniform() < 0.5:
+            bh, bw = int(rng.integers(3, h // 2)), int(rng.integers(3, w // 2))
+            drawn.append(([int(rng.integers(0, h - bh)),
+                           int(rng.integers(0, w - bw)), bh, bw],
+                          kinds[int(rng.integers(0, 3))]))
+        drawn += [(boxes[k], isthing[k]) for k in range(copies)]
+        mask = np.zeros((h, w), np.int64)
+        infos[fi] = []
+        for (y, x, bh, bw), thing in drawn:
+            total += 1
+            mask[y:y + bh, x:x + bw] = total
+            infos[fi].append(ObjectInfo(total, isthing=thing))
+        for info in infos[fi]:
+            areas[info.id] = int((mask == info.id).sum())
+        masks.append(mask if infos[fi] else None)
+    pairwise_iou, conflict, _ = pairwise_support(masks, infos, areas, total)
+    return pairwise_iou, conflict
+
+
+def components(conflict: np.ndarray) -> List[List[int]]:
+    """The conflict graph's connected components, as the solvers find
+    them (inference/ilp.py)."""
+    from deva_tpu_torch.inference.ilp import _components
+    n = len(conflict)
+    return _components(n, [set(np.nonzero(conflict[i])[0].tolist()) - {i}
+                           for i in range(n)])
+
+
+def has_ties(pairwise_iou: np.ndarray, conflict: np.ndarray) -> bool:
+    """Whether two equal positive weights of the program (2 * support - 1,
+    in the solvers' f32) lie in one connected component of three or more
+    segments, where the two solvers may return different optima of equal
+    weight: the native solver orders a component's equal weights by index
+    (std::sort, which may reorder them in a component of more than 16), the
+    Python solver by its depth-first visit (a stable sort). A conflicting
+    pair's two weights are equal by construction, and both solvers take its
+    lower index; segments without support weigh -1 and are never
+    selected."""
+    weights = 2.0 * pairwise_iou.sum(axis=0) - 1.0
+    for comp in components(conflict):
+        w = weights[comp][weights[comp] > 0]
+        if len(comp) > 2 and len(np.unique(w)) < len(w):
+            return True
+    return False
+
+
+def consensus_graphs(seed: int, count: int, max_n: int = 150):
+    """`count` seeded consensus_graph inputs of at most max_n segments:
+    every fourth with one or two fixed boxes over 17-23 frames (a clique of
+    equal weights that std::sort may reorder), the others 2-10 frames of 1-13
+    objects. -> [(pairwise_iou, conflict)]."""
+    rng = np.random.default_rng(seed)
+    graphs = []
+    while len(graphs) < count:
+        if len(graphs) % 4 == 0:
+            copies = int(rng.integers(1, 3))
+            g = consensus_graph(rng, int(rng.integers(17, 24)),
+                                int(rng.integers(copies, 6)), copies)
+        else:
+            g = consensus_graph(rng, int(rng.integers(2, 11)),
+                                int(rng.integers(1, 14)))
+        if len(g[0]) <= max_n:
+            graphs.append(g)
+    return graphs
+
+
+def consensus_graph_of_size(seed: int, n: int):
+    """A seeded input of exactly n segments: the first n of a consensus_graph
+    over 8 frames with n / 6 + 2 objects (drawn again until it has n)."""
+    rng = np.random.default_rng(seed)
+    while True:
+        iou, conflict = consensus_graph(rng, 8, -(-n // 6) + 2)
+        if len(iou) >= n:
+            return iou[:n, :n], conflict[:n, :n]
 
 
 def segment_infos(dicts, cls=ObjectInfo) -> List:

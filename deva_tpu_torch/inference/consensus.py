@@ -137,14 +137,49 @@ def find_consensus_auto_association(
             seg_mask[object_id] = m
         projected_masks.append(remapped.astype(np.int64))
 
-    # pairwise IoU via joint histograms, greedy >0.5 matching per isthing
+    pairwise_iou, conflict, matching_table = pairwise_support(
+        projected_masks, frame_index_to_seg_info, seg_areas, total_segments)
+    results = solve_consensus_ilp(pairwise_iou, conflict)
+
+    output_mask = np.zeros_like(np.asarray(frames[0].mask))
+    output_info: List[ObjectInfo] = []
+    selected_areas = {}
+    for channel_id, selected in enumerate(results):
+        if selected:
+            object_id = channel_id + 1
+            selected_areas[object_id] = seg_areas[object_id]
+            info = all_new_segments_info[object_id]
+            for other in matching_table[object_id]:
+                info.merge(all_new_segments_info[other])
+            output_info.append(info)
+
+    # paint largest first (small objects on top), then unpad
+    painted = np.zeros_like(projected_masks[keyframe_i]
+                            if projected_masks[keyframe_i] is not None
+                            else padded_mask(0))
+    for object_id, _ in sorted(selected_areas.items(), key=lambda x: x[1],
+                               reverse=True):
+        painted[seg_mask[object_id]] = object_id
+    output_mask = _unpad_hw(painted, pad)
+    return keyframe_ti, output_mask, output_info
+
+
+def pairwise_support(projected_masks: List[Optional[np.ndarray]],
+                     frame_index_to_seg_info: Dict[int, List[ObjectInfo]],
+                     seg_areas: Dict[int, int], total_segments: int):
+    """The vote's IoU tables: one joint histogram per pair of projected
+    frames (internal ids 1..total_segments, None for a frame without
+    segments), greedy IoU > 0.5 matching within each isthing group. ->
+    (pairwise_iou [N, N] f32, symmetric, zero outside conflicts; conflict
+    bool [N, N]; matching_table {id: matched ids}), the integer program's
+    input."""
     pairwise_iou = np.zeros((total_segments, total_segments), np.float32)
     matching_table = defaultdict(list)
     n_ids = total_segments + 1
-    for i in range(len(time_indices)):
+    for i in range(len(projected_masks)):
         if projected_masks[i] is None:
             continue
-        for j in range(i + 1, len(time_indices)):
+        for j in range(i + 1, len(projected_masks)):
             if projected_masks[j] is None:
                 continue
             joint = projected_masks[i] * n_ids + projected_masks[j]
@@ -177,29 +212,7 @@ def find_consensus_auto_association(
     conflict = pairwise_iou > 0.49
     pairwise_iou = pairwise_iou * conflict
 
-    results = solve_consensus_ilp(pairwise_iou, conflict)
-
-    output_mask = np.zeros_like(np.asarray(frames[0].mask))
-    output_info: List[ObjectInfo] = []
-    selected_areas = {}
-    for channel_id, selected in enumerate(results):
-        if selected:
-            object_id = channel_id + 1
-            selected_areas[object_id] = seg_areas[object_id]
-            info = all_new_segments_info[object_id]
-            for other in matching_table[object_id]:
-                info.merge(all_new_segments_info[other])
-            output_info.append(info)
-
-    # paint largest first (small objects on top), then unpad
-    painted = np.zeros_like(projected_masks[keyframe_i]
-                            if projected_masks[keyframe_i] is not None
-                            else padded_mask(0))
-    for object_id, _ in sorted(selected_areas.items(), key=lambda x: x[1],
-                               reverse=True):
-        painted[seg_mask[object_id]] = object_id
-    output_mask = _unpad_hw(painted, pad)
-    return keyframe_ti, output_mask, output_info
+    return pairwise_iou, conflict, matching_table
 
 
 def find_consensus_with_established_association(

@@ -1,10 +1,12 @@
 """Exact solver for the in-clip consensus integer program.
 
-A copy of deva_tpu/inference/ilp.py, its pure-Python branch-and-bound path
-only: deva_tpu's native hook (deva_tpu/utils/native.py, mwis_solve of
-native/devac.cpp) is not ported, so the port builds no host library. Both
-solve the program exactly, so the selections agree wherever the optimum is
-unique.
+Port of deva_tpu/inference/ilp.py. solve_consensus_ilp answers through the
+port's native host library (utils/native.py: mwis_solve of
+csrc/host/devac.cpp, a copy of native/devac.cpp), as deva_tpu's does
+wherever g++ can build its library, so the selections are bitwise
+deva_tpu's, ties included (std::sort's order of equal weights). The pure
+Python branch-and-bound stays as solve_consensus_ilp_python, the native
+solver's twin in the tests; no run's path calls it.
 
 The reference maximizes  2 * sum_i (sum_j iou[j,i]) x_i  -  sum_i x_i  over
 binary x with the constraint that no two selected segments overlap (IoU>0.5)
@@ -21,6 +23,8 @@ from __future__ import annotations
 from typing import List, Sequence, Set, Tuple
 
 import numpy as np
+
+from deva_tpu_torch.utils import native
 
 
 def _components(n: int, adj: List[Set[int]]) -> List[List[int]]:
@@ -92,7 +96,22 @@ def solve_consensus_ilp(pairwise_iou: np.ndarray,
     (IoU>0.5 pairs that cannot both be selected). Returns selection flags.
 
     Maximizes 2*sum_i support_i*x_i - sum_i x_i s.t. x_i + x_j <= 1 on
-    conflict edges — identical to the reference's program."""
+    conflict edges — identical to the reference's program. Solved by the
+    native library (utils/native.py)."""
+    n = pairwise_iou.shape[0]
+    if n == 0:
+        return []
+    w = 2.0 * pairwise_iou.sum(axis=0) - 1.0
+    conflict_clean = np.asarray(conflict, bool).copy()
+    np.fill_diagonal(conflict_clean, False)
+    return native.mwis_solve(w, conflict_clean).tolist()
+
+
+def solve_consensus_ilp_python(pairwise_iou: np.ndarray,
+                               conflict: np.ndarray) -> List[bool]:
+    """solve_consensus_ilp in pure Python (deva_tpu's fallback branch): the
+    same program, components found and each ordered by a stable sort, so on
+    tied weights it may return another optimum than the native solver."""
     n = pairwise_iou.shape[0]
     if n == 0:
         return []

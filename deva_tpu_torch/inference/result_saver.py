@@ -7,7 +7,8 @@ A copy of deva_tpu/inference/result_saver.py (host-only code: the port
 imports nothing of deva_tpu, whose package import loads jax). deva_tpu's
 jitted `device_argmax_ids` becomes ops/aggregate.argmax_ids (torch.argmax on
 the tensor's device, with the same dtype and tie rules), and PIL is imported
-inside the worker only.
+inside the worker, where it reads or writes an image file (the gradio
+writer's blend needs none; its text labels do, in utils/viz.py).
 
 Behavioral anchor: reference:deva/inference/result_utils.py:22-285. The
 supervision-based box/label overlay is replaced by a small numpy/PIL renderer
@@ -187,7 +188,6 @@ def _worker(queue: Queue, errors: List[BaseException]) -> None:
 
 
 def _save_one(args: _SaveArgs) -> None:
-    from PIL import Image
     saver = args.saver
     mask = args.mask
     segments_info = args.segments_info
@@ -237,13 +237,15 @@ def _save_one(args: _SaveArgs) -> None:
         rgb_mask = np.zeros((*out_mask.shape, 3), dtype=np.uint8)
         for oid in all_obj_ids:
             rgb_mask[out_mask == oid] = id_to_rgb(oid)
-        out_img = Image.fromarray(rgb_mask)
-    else:
-        out_img = Image.fromarray(mask.astype(np.uint8))
-        if saver.palette is not None:
-            out_img.putpalette(saver.palette)
 
-    if saver.dataset != "gradio":
+    if saver.dataset != "gradio":  # the gradio writer takes no mask file
+        from PIL import Image
+        if rgb_mask is not None:
+            out_img = Image.fromarray(rgb_mask)
+        else:
+            out_img = Image.fromarray(mask.astype(np.uint8))
+            if saver.palette is not None:
+                out_img.putpalette(saver.palette)
         out_dir = saver.output_root
         if saver.output_postfix is not None:
             out_dir = path.join(out_dir, saver.output_postfix)
@@ -257,6 +259,7 @@ def _save_one(args: _SaveArgs) -> None:
         if image_np is None:
             if args.path_to_image is None:
                 raise ValueError("Cannot visualize without an image")
+            from PIL import Image
             image_np = np.array(Image.open(args.path_to_image))
         blend = overlay_segmentation(image_np, mask, rgb_mask, segments_info,
                                      prompts=args.prompts)
@@ -267,6 +270,7 @@ def _save_one(args: _SaveArgs) -> None:
             if saver.video_name is not None:
                 out_dir = path.join(out_dir, saver.video_name)
             os.makedirs(out_dir, exist_ok=True)
+            from PIL import Image
             Image.fromarray(blend).save(
                 path.join(out_dir, args.frame_name[:-4] + ".jpg"))
         elif saver.writer is not None:

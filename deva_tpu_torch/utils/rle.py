@@ -1,8 +1,12 @@
-"""COCO-compatible run-length encoding in pure numpy.
+"""COCO-compatible run-length encoding.
 
-A copy of deva_tpu/utils/rle.py, its Python codec only: deva_tpu's native
-codec (native/devac.cpp through deva_tpu/utils/native.py) is not ported.
-Both write the same strings.
+Port of deva_tpu/utils/rle.py. encode and decode answer through the port's
+native host library (utils/native.py: rle_encode/rle_decode of
+csrc/host/devac.cpp, a copy of native/devac.cpp), as deva_tpu's do wherever
+g++ can build its library, with deva_tpu's one data rule: a string whose
+runs do not cover h * w pixels (malformed) is decoded by the Python decoder.
+The numpy codec stays as encode_python and decode_python, the native
+codec's twins in the tests; no run's path calls them but for that rule.
 
 Replaces the pycocotools C codec the reference uses for BURST json output
 (reference:deva/inference/result_utils.py:182-184); this image has no
@@ -16,6 +20,8 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+
+from deva_tpu_torch.utils import native
 
 
 def _runs_from_mask(mask: np.ndarray) -> np.ndarray:
@@ -68,14 +74,32 @@ def _leb_decode(s: str) -> np.ndarray:
 
 
 def encode(mask: np.ndarray) -> Dict:
-    """binary mask [H, W] -> {'size': [H, W], 'counts': str} (COCO RLE)."""
+    """binary mask [H, W] -> {'size': [H, W], 'counts': str} (COCO RLE),
+    by the native codec."""
+    h, w = mask.shape
+    return {"size": [int(h), int(w)], "counts": native.rle_encode(mask)}
+
+
+def decode(rle: Dict) -> np.ndarray:
+    """{'size': [H, W], 'counts': str|list} -> binary mask [H, W] uint8; a
+    string by the native codec unless it is malformed."""
+    counts = rle["counts"]
+    if isinstance(counts, str):
+        out = native.rle_decode(counts, *rle["size"])
+        if out is not None:
+            return out
+    return decode_python(rle)
+
+
+def encode_python(mask: np.ndarray) -> Dict:
+    """encode in numpy (deva_tpu's fallback codec)."""
     h, w = mask.shape
     return {"size": [int(h), int(w)],
             "counts": _leb_encode(_runs_from_mask(mask))}
 
 
-def decode(rle: Dict) -> np.ndarray:
-    """{'size': [H, W], 'counts': str|list} -> binary mask [H, W] uint8."""
+def decode_python(rle: Dict) -> np.ndarray:
+    """decode in numpy (deva_tpu's fallback codec)."""
     h, w = rle["size"]
     counts = rle["counts"]
     if isinstance(counts, str):

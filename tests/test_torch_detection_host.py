@@ -32,7 +32,8 @@ from deva_tpu.utils import rle as jax_rle
 
 from deva_tpu_torch.data.detection_video_reader import DetectionVideoReader
 from deva_tpu_torch.inference import segment_merging
-from deva_tpu_torch.inference.ilp import solve_consensus_ilp
+from deva_tpu_torch.inference.ilp import (solve_consensus_ilp,
+                                          solve_consensus_ilp_python)
 from deva_tpu_torch.inference.object_info import ObjectInfo
 from deva_tpu_torch.inference.object_manager import ObjectManager
 from deva_tpu_torch.inference.object_utils import \
@@ -105,11 +106,12 @@ def _objective(iou, sel):
 
 def test_consensus_ilp_parity(monkeypatch):
     """Seeded random conflict graphs, built as consensus.py builds them (n
-    up to 30): the port's selection equals that of deva_tpu's Python
-    solver, which it copies; its objective equals that of deva_tpu's
-    default solver (native/devac.cpp's mwis_solve where built, which
-    breaks weight ties in std::sort's order, so another optimum may come
-    out), and brute force over every feasible subset for n <= 12."""
+    up to 30): the port's selection (its native library, a copy of
+    native/devac.cpp) equals that of deva_tpu's default solver (its native
+    library where g++ builds it, as here); the port's Python twin,
+    solve_consensus_ilp_python, equals deva_tpu's Python solver, which it
+    copies; and both equal brute force over every feasible subset in
+    objective for n <= 12."""
     from deva_tpu.utils import native
     rng = np.random.default_rng(0)
     for trial in range(60):
@@ -123,20 +125,23 @@ def test_consensus_ilp_parity(monkeypatch):
         conflict = iou > 0.49
         iou = iou * conflict
         sel = solve_consensus_ilp(iou, conflict)
-        assert abs(_objective(iou, sel) -
-                   _objective(iou, jax_ilp(iou, conflict))) < 1e-6
+        assert list(map(bool, sel)) == \
+            list(map(bool, jax_ilp(iou, conflict)))
+        sel_python = solve_consensus_ilp_python(iou, conflict)
         with monkeypatch.context() as m:
             m.setattr(native, "mwis_solve", lambda *a: None)
-            assert list(map(bool, sel)) == \
+            assert list(map(bool, sel_python)) == \
                 list(map(bool, jax_ilp(iou, conflict)))
-        chosen = [i for i, s in enumerate(sel) if s]
-        assert not any(conflict[i, j] for i in chosen for j in chosen)
+        for chosen in (sel, sel_python):
+            chosen = [i for i, s in enumerate(chosen) if s]
+            assert not any(conflict[i, j] for i in chosen for j in chosen)
         if n <= 12:
             best = max(_objective(iou, [(m >> i) & 1 for i in range(n)])
                        for m in range(2 ** n)
                        if not any(conflict[i, j] and (m >> i) & (m >> j) & 1
                                   for i in range(n) for j in range(n)))
             assert abs(_objective(iou, sel) - best) < 1e-6, (trial, n)
+            assert abs(_objective(iou, sel_python) - best) < 1e-6, (trial, n)
 
 
 def test_convert_json_dict_to_objects_info_parity():

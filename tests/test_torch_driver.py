@@ -151,8 +151,12 @@ def test_port_imports_without_jax_or_pil():
     training stack (training/: the trainer, losses, checkpoints, the stage
     driver, the toy, the datasets and their transforms; utils/logger.py,
     utils/image_saver.py), and the multi-GPU layer (parallel/: the mesh,
-    the memory-sharded attention, object sharding), with both blocked, and
-    transformers, cv2 and tensorboardX blocked too, must work."""
+    the memory-sharded attention, object sharding), and the native host
+    library's bindings (utils/native.py, nothing built at import), the
+    video demo (demo/demo_gradio_torch.py) and the two toy-training
+    scripts (scripts/train_toy_torch.py,
+    scripts/train_fullwidth_proof_torch.py), with both blocked, and
+    transformers, cv2, gradio and tensorboardX blocked too, must work."""
     code = """
 import sys
 sys.modules['jax'] = None
@@ -160,6 +164,7 @@ sys.modules['PIL'] = None
 sys.modules['transformers'] = None
 sys.modules['cv2'] = None
 sys.modules['tensorboardX'] = None
+sys.modules['gradio'] = None
 import importlib, importlib.util, pkgutil
 import deva_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(deva_tpu_torch.__path__,
@@ -196,10 +201,16 @@ for script, fns in (('evaluation/eval_ref_davis_torch.py',
                      ('process_vid', 'main')),
                     ('demo/demo_with_text_torch.py',
                      ('run_demo', 'drive', 'main')),
-                    ('demo/demo_automatic_torch.py', ('run_demo', 'main'))):
+                    ('demo/demo_automatic_torch.py', ('run_demo', 'main')),
+                    ('demo/demo_gradio_torch.py',
+                     ('track_frames', 'track_video', 'run_text', 'run_auto',
+                      'serve', 'main')),
+                    ('scripts/train_toy_torch.py', ('main',)),
+                    ('scripts/train_fullwidth_proof_torch.py', ('main',))):
     spec = importlib.util.spec_from_file_location(
         script.split('/')[-1][:-3], script)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
     assert all(callable(getattr(mod, fn)) for fn in fns), script
 for name in ('deva_tpu_torch.inference.batched_detection',
@@ -238,8 +249,11 @@ for name in ('deva_tpu_torch.inference.batched_detection',
              'deva_tpu_torch.parallel',
              'deva_tpu_torch.parallel.mesh',
              'deva_tpu_torch.parallel.sharded_attention',
-             'deva_tpu_torch.parallel.object_sharding'):
+             'deva_tpu_torch.parallel.object_sharding',
+             'deva_tpu_torch.utils.native'):
     assert name in names, name
+from deva_tpu_torch.utils import native
+assert native._lib is None  # nothing is built at import
 from deva_tpu_torch.parallel import (ObjectShards, attend_mem_sharded,
                                      init_from_env, make_mesh, pad_tokens,
                                      replicate, shard_batch)
