@@ -2268,8 +2268,11 @@ def phase_detection_semionline(ak, net_cpu, dev, n_frames: int = 20,
     launches (one of each exact kernel), the ms of the host vote (IoU table
     and integer program: the vote's time less its alignments), the ms of
     the timed vote-and-incorporate step, and the segments in and selected.
-    Returns the launch counts, those of the alignments, and the exact
-    pair's calls in the last alignment."""
+    A second line splits each host vote into the IoU tables
+    (consensus.pairwise_support) and the integer program, and counts the
+    integer programs that ran through the native library. Returns the
+    launch counts, those of the alignments, and the exact pair's calls in
+    the last alignment."""
     gc.collect()
     frames = synthetic_video(np.random.default_rng(32), h, w, n_frames)
     from deva_tpu_torch.detection_clips import detections
@@ -2283,8 +2286,8 @@ def phase_detection_semionline(ak, net_cpu, dev, n_frames: int = 20,
         core.vote_in_temporary_buffer
     from deva_tpu_torch.inference import consensus
     from deva_tpu_torch.utils import native
-    # the host vote's two parts (printed in phase 12a), and the native
-    # solver under the integer program
+    # the host vote's two parts, and the native solver under the integer
+    # program
     tables = HostTimer(consensus, "pairwise_support")
     program = HostTimer(consensus, "solve_consensus_ilp")
     solver = HostTimer(native, "mwis_solve")
@@ -2328,8 +2331,6 @@ def phase_detection_semionline(ak, net_cpu, dev, n_frames: int = 20,
             part.restore()
     torch.cuda.synchronize()
     assert solver.calls == program.calls, (solver.calls, program.calls)
-    HOST_VOTE.update(votes=vote_ms, split=vote_split, segs=vote_segs,
-                     programs=program.calls, native=solver.calls)
     launches = dict(ak.LAUNCHES)
     assert sorted(saver.order) == list(range(n_frames)), saver.order
     assert align_runs and all(r == dict.fromkeys(EXACT_PAIR, 1)
@@ -2349,14 +2350,17 @@ def phase_detection_semionline(ak, net_cpu, dev, n_frames: int = 20,
           + f" ms; segments in / selected per vote {vote_segs} (random "
           f"weights align noise, so few or no segments find support: a zero "
           f"selection is expected); launches {launches}", flush=True)
+    print(f"phase 6c host vote split ({program.calls} integer programs, "
+          f"{solver.calls} of them solved by the native library "
+          f"utils/native.py): per vote, host ms "
+          + ", ".join(f"{v:.3f}" for v in vote_ms)
+          + " of which IoU tables (consensus.pairwise_support) "
+          + ", ".join(f"{t:.3f}" for t, _ in vote_split)
+          + " and the integer program "
+          + ", ".join(f"{p:.4f}" for _, p in vote_split), flush=True)
     aligned = {k: sum(r.get(k, 0) for r in align_runs) for k in EXACT_PAIR}
     return launches, aligned, tap.calls["align"]
 
-
-# phase 6c's host votes: their ms, each vote's (IoU tables, integer program)
-# ms, segments in and selected, and the integer programs and native solves
-# (printed by phase 12a)
-HOST_VOTE = {}
 
 # the unit roundoff of f32
 F32_U = 2.0 ** -24
@@ -4308,11 +4312,6 @@ def demo_schedule(args, n_frames):
     return votes, window
 
 
-# the objects after each saved frame of each demo run, by (mode, h, w)
-# (phase 12b holds the video demo's runs to them)
-DEMO_HISTORY = {}
-
-
 def demo_run(ak, dev, net_cpu, mode, n_frames, h, w, keep_calls=True,
              name=None):
     """Phase 9b (mode "auto") or 9c ("text"): the demo's run_demo on
@@ -4333,8 +4332,8 @@ def demo_run(ak, dev, net_cpu, mode, n_frames, h, w, keep_calls=True,
     timed with the device drained around it), the objects over time, the
     launches and the peak memory above what was allocated before the run.
     Returns (the last frame's calls, the launches outside the alignments,
-    the last alignment's calls, the alignments' launches); the objects over
-    time go to DEMO_HISTORY. name: the phase in the printed line."""
+    the last alignment's calls, the alignments' launches, the objects after
+    each saved frame). name: the phase in the printed line."""
     from deva_tpu_torch.ext import automatic_processor as ap
     from deva_tpu_torch.ext import detectors as dets
     from deva_tpu_torch.ext import with_text_processor as wp
@@ -4432,7 +4431,6 @@ def demo_run(ak, dev, net_cpu, mode, n_frames, h, w, keep_calls=True,
     peak = torch.cuda.max_memory_allocated(dev) / 2**20
     assert sorted(saver.order) == list(range(n_frames)), saver.order
     assert history[-1][1] > 0, f"{mode}: no object admitted"
-    DEMO_HISTORY[mode, h, w] = history
     votes, window = demo_schedule(args, n_frames)
     step_ms = timer.steps_ms
     assert len(step_ms) == n_frames, len(step_ms)
@@ -4477,21 +4475,23 @@ def demo_run(ak, dev, net_cpu, mode, n_frames, h, w, keep_calls=True,
           f"{wall:.1f} s", flush=True)
     memory = {k: launches[k] - align_launches[k] for k in EXACT_PAIR}
     if not keep_calls:
-        return [], memory, [], align_launches
+        return [], memory, [], align_launches, history
     return tap.last_frame, memory, tap.calls.get("align", []), \
-        align_launches
+        align_launches, history
 
 
-def phase9(ak, apx, net_cpu, dev) -> list:
-    """Phases 9a-9c; -> the kernels line's .demo and .demo.align rows, on
+def phase9(ak, apx, net_cpu, dev):
+    """Phases 9a-9c; -> (the kernels line's .demo and .demo.align rows, on
     the arguments of 9b's last frame and of its last spatial alignment,
-    with the launches of both demos (9b and 9c run the same pair)."""
+    with the launches of both demos (9b and 9c run the same pair); 9b's
+    objects after each saved frame, which phase 12b's run_auto path must
+    repeat)."""
     phase_sam_parity(dev)
     phase_processors_parity(net_cpu, dev)
-    last, mem_b, align_calls, align_b = demo_run(ak, dev, net_cpu, "auto",
-                                                 DEMO_FRAMES, H480, W480)
-    _, mem_c, _, align_c = demo_run(ak, dev, net_cpu, "text", DEMO_FRAMES,
-                                    H720, W720, keep_calls=False)
+    last, mem_b, align_calls, align_b, history_b = demo_run(
+        ak, dev, net_cpu, "auto", DEMO_FRAMES, H480, W480)
+    _, mem_c, _, align_c, _ = demo_run(ak, dev, net_cpu, "text", DEMO_FRAMES,
+                                       H720, W720, keep_calls=False)
     total = lambda a, b: {k: a[k] + b[k] for k in EXACT_PAIR}
     rows = det_kernel_rows(ak, apx, dev, ".demo", last, total(mem_b, mem_c),
                            "9b's last frame")
@@ -4499,7 +4499,7 @@ def phase9(ak, apx, net_cpu, dev) -> list:
     rows += det_kernel_rows(ak, apx, dev, ".demo.align", align_calls,
                             total(align_b, align_c),
                             "9b's last spatial alignment")
-    return rows
+    return rows, history_b
 
 
 # --------------------------------------------------------------------------
@@ -5484,9 +5484,9 @@ def phase_native() -> None:
     brute-force optimum for n <= 12, every selection feasible; RLE strings
     and decodes equal on 854x480 masks (rle_masks); joint_hist equal to
     np.add.at. Times both on this host: the integer program at
-    NATIVE_TIMED_N segments, RLE encode and decode at 854x480. Prints
-    phase 6c's host votes split into the IoU tables and the integer
-    program, all of whose solves ran through the library."""
+    NATIVE_TIMED_N segments, RLE encode and decode at 854x480. (Phase 6c
+    prints its host votes split into the IoU tables and the integer
+    program, whose solves run through the library.)"""
     from deva_tpu_torch import detection_clips as dc
     from deva_tpu_torch.inference import ilp
     from deva_tpu_torch.utils import native, rle
@@ -5546,7 +5546,6 @@ def phase_native() -> None:
         timed[f"RLE decode {name}"] = (
             host_ms(lambda: rle.decode_python(enc)),
             host_ms(lambda: rle.decode(enc)))
-    votes = HOST_VOTE.get("split", [])
     print(f"phase 12a native host library {os.path.relpath(lib._name, ROOT)} "
           f"(g++ -O3 -shared -fPIC; a fresh build on this host took "
           f"{build_s:.2f} s): {counts['graphs']} consensus-style graphs "
@@ -5559,16 +5558,7 @@ def phase_native() -> None:
           f"np.add.at. Host ms, median of {NATIVE_CALLS} calls, Python -> "
           f"native: " + ", ".join(f"{k} {a:.4f} -> {b:.4f}"
                                   for k, (a, b) in timed.items())
-          + f". Phase 6c's host votes ran through the library "
-          f"({HOST_VOTE.get('programs', 0)} integer programs, "
-          f"{HOST_VOTE.get('native', 0)} native solves): per vote, host ms "
-          + ", ".join(f"{v:.3f}" for v in HOST_VOTE.get("votes", []))
-          + " of which IoU tables "
-          + ", ".join(f"{t:.3f}" for t, _ in votes)
-          + " and the integer program "
-          + ", ".join(f"{p:.4f}" for _, p in votes)
-          + f"; segments in / selected {HOST_VOTE.get('segs', [])} "
-          + smi_line(), flush=True)
+          + " " + smi_line(), flush=True)
 
 
 class FrameRecorder:
@@ -5582,7 +5572,7 @@ class FrameRecorder:
         self.frames.append((frame.shape, frame.dtype))
 
 
-def gradio_run(ak, dev, net_cpu, mode, n_frames, h, w) -> None:
+def gradio_run(ak, dev, net_cpu, mode, n_frames, h, w, reference) -> None:
     """Phase 12b: demo_gradio_torch.track_frames on n_frames of demo_clip at
     h x w, with the setup of one of the demo's tabs (its module-level
     auto_setup / text_setup; the propagation model phase 3's, object ids
@@ -5593,8 +5583,8 @@ def gradio_run(ak, dev, net_cpu, mode, n_frames, h, w) -> None:
     Light-HQ-SAM at 9c's (prompt red.green.blue, threshold 0.35, max
     missed 10). The writer (FrameRecorder) must get exactly one BGR uint8
     frame of h x w per input frame; the objects after each saved frame must
-    equal those of the demo's run_demo on the same clip (DEMO_HISTORY:
-    9b's run, or for "text" a run_demo of demo_with_text_torch at h x w);
+    equal reference, those of the demo's run_demo on the same clip (9b's
+    run, or for "text" a run_demo of demo_with_text_torch at h x w);
     the exact pair must launch on every frame propagated outside a voting
     window (with objects held: a core without objects has no memory to
     attend). Prints ms per propagation frame and per frame in all."""
@@ -5663,12 +5653,7 @@ def gradio_run(ak, dev, net_cpu, mode, n_frames, h, w) -> None:
         "run_auto, mobile)" if mode == "auto" else "run_text, Light-HQ-SAM)")
     assert writer.frames == [((h, w, 3), np.dtype(np.uint8))] * n_frames, \
         (label, len(writer.frames), writer.frames[:2])
-    key = (mode, h, w)
-    if key not in DEMO_HISTORY:
-        demo_run(ak, dev, net_cpu, mode, n_frames, h, w, keep_calls=False,
-                 name=f"12b reference, demo_with_text_torch.run_demo at "
-                      f"{h}x{w}")
-    assert history == DEMO_HISTORY[key], (label, history, DEMO_HISTORY[key])
+    assert history == reference, (label, history, reference)
     votes, window = demo_schedule(cfg, n_frames)
     prop = [ti for ti in range(n_frames) if ti not in window]
     tracked = [ti for ti in prop if held[ti]]  # a core with memory attends
@@ -5690,15 +5675,21 @@ def gradio_run(ak, dev, net_cpu, mode, n_frames, h, w) -> None:
     del core, net, demo, source
 
 
-def phase12(ak, net_cpu, dev) -> None:
+def phase12(ak, net_cpu, dev, history_b) -> None:
     """Phases 12a (the native host library) and 12b (the video demo's
-    core, run_auto's and run_text's paths), each timed on the host
-    clock."""
+    core, run_auto's path held to 9b's objects over time, history_b, and
+    run_text's to a run_demo of demo_with_text_torch on the same 480p clip
+    (9c runs at 720p)), each timed on the host clock."""
     t0 = time.perf_counter()
     phase_native()
     t1 = time.perf_counter()
-    gradio_run(ak, dev, net_cpu, "auto", DEMO_FRAMES, H480, W480)
-    gradio_run(ak, dev, net_cpu, "text", DEMO_FRAMES, H480, W480)
+    gradio_run(ak, dev, net_cpu, "auto", DEMO_FRAMES, H480, W480, history_b)
+    history_text = demo_run(
+        ak, dev, net_cpu, "text", DEMO_FRAMES, H480, W480, keep_calls=False,
+        name=f"12b reference, demo_with_text_torch.run_demo at "
+             f"{H480}x{W480}")[4]
+    gradio_run(ak, dev, net_cpu, "text", DEMO_FRAMES, H480, W480,
+               history_text)
     t2 = time.perf_counter()
     print(f"phase 12 took {t2 - t0:.1f} s: 12a {t1 - t0:.1f}, 12b "
           f"{t2 - t1:.1f}", flush=True)
@@ -5782,13 +5773,14 @@ def main() -> int:
                                 aligned, "6c's last spatial alignment")
     det_rows += phase7(ak, apx, net_cpu, dev)
     det_rows += phase8(ak, apx, net_cpu, dev)
-    det_rows += phase9(ak, apx, net_cpu, dev)
+    demo_rows, history_b = phase9(ak, apx, net_cpu, dev)
+    det_rows += demo_rows
     phase10(ak, net_cpu, dev)
     del net_cpu16
     gc.collect()
     torch.cuda.empty_cache()
     det_rows += phase11()
-    phase12(ak, net_cpu, dev)
+    phase12(ak, net_cpu, dev, history_b)
     del net_cpu
 
     rows = []

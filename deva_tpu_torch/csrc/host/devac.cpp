@@ -4,7 +4,13 @@
 // A copy of native/devac.cpp, the code kept as it is: the same comparator,
 // the same branch order (take, then skip), the same node budget and greedy
 // fallback, so that its selections, strings and tables are bitwise those of
-// deva_tpu's library built with the same flags.
+// deva_tpu's library built with the same flags. One departure, in
+// rle_decode alone: a string is checked before a byte is written (a run
+// that is negative or ends past h * w, or a count longer than 11 digits,
+// returns -1), where deva_tpu's copy writes every run and reports the
+// length afterwards, out of its buffer on such a string. A well-formed
+// string decodes as it does there; a malformed one goes to the caller's
+// Python decoder either way (utils/rle.py).
 //
 // The reference leans on native libraries for these host paths:
 // pycocotools' C RLE codec (reference:deva/inference/result_utils.py:182-184)
@@ -73,9 +79,13 @@ int64_t rle_encode(const uint8_t* mask, int64_t h, int64_t w,
     return p;
 }
 
-// s: encoded string of length slen. out: row-major [h, w] uint8.
+// s: encoded string of length slen. out: row-major [h, w] uint8. Returns
+// the pixels the runs cover (h * w for a well-formed string), or -1 where a
+// run is negative or ends past h * w; out is written only within its
+// h * w bytes.
 int64_t rle_decode(const char* s, int64_t slen, int64_t h, int64_t w,
                    uint8_t* out) {
+    const int64_t total = h * w;
     std::vector<int64_t> counts;
     counts.reserve(1024);
     int64_t i = 0;
@@ -85,7 +95,9 @@ int64_t rle_decode(const char* s, int64_t slen, int64_t h, int64_t w,
         bool more = true;
         int64_t c = 0;
         while (more) {
-            if (i >= slen) return -1;
+            // 11 digits hold 55 bits: no count of a valid string needs
+            // more, and shifting by 5 * k stays defined
+            if (i >= slen || k >= 11) return -1;
             c = s[i] - 48;
             x |= (c & 0x1f) << (5 * k);
             more = (c & 0x20) != 0;
@@ -94,10 +106,16 @@ int64_t rle_decode(const char* s, int64_t slen, int64_t h, int64_t w,
             if (!more && (c & 0x10)) x |= -1LL << (5 * k);
         }
         if (counts.size() > 2) x += counts[counts.size() - 2];
+        if (x < 0 || x > total) return -1;
         counts.push_back(x);
     }
-    std::memset(out, 0, static_cast<size_t>(h * w));
     int64_t pos = 0;
+    for (int64_t cnt : counts) {
+        if (cnt > total - pos) return -1;
+        pos += cnt;
+    }
+    std::memset(out, 0, static_cast<size_t>(total));
+    pos = 0;
     uint8_t val = 0;
     for (int64_t cnt : counts) {
         if (val) {

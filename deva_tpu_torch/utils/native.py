@@ -18,7 +18,11 @@ ops.cuda_build.KernelError, as a CUDA kernel does, which the drivers'
 per-video fault barrier never swallows: a run never quietly loses its
 solver. rle_decode still returns None for a malformed string (a decoded
 length other than h * w), a rule about the data that utils/rle.py answers
-with its Python decoder, as deva_tpu does.
+with its Python decoder, as deva_tpu does. Unlike deva_tpu's, the
+library checks such a string before it writes (csrc/host/devac.cpp), a
+string that is not ASCII is malformed here (deva_tpu raises
+UnicodeEncodeError), and joint_hist and mwis_solve check their arguments'
+ranges and shapes before the library indexes with them.
 """
 from __future__ import annotations
 
@@ -128,7 +132,10 @@ def rle_decode(counts: str, h: int, w: int) -> Optional[np.ndarray]:
     string is malformed (its runs do not cover exactly h * w pixels)."""
     lib = get_lib()
     out = np.zeros((h, w), np.uint8)
-    s = counts.encode("ascii")
+    try:
+        s = counts.encode("ascii")
+    except UnicodeEncodeError:
+        return None
     total = lib.rle_decode(s, len(s), h, w, _u8p(out))
     if total != h * w:
         return None
@@ -136,10 +143,17 @@ def rle_decode(counts: str, h: int, w: int) -> Optional[np.ndarray]:
 
 
 def joint_hist(a: np.ndarray, b: np.ndarray, k: int) -> np.ndarray:
-    """Intersection table out[i, j] = |{a==i and b==j}|; a values < rows."""
+    """Intersection table out[i, j] = |{a==i and b==j}|, with a row for
+    each of 0..max(a); ids are non-negative and b's below k (ValueError
+    otherwise)."""
     lib = get_lib()
     a = np.ascontiguousarray(a.ravel(), np.int64)
     b = np.ascontiguousarray(b.ravel(), np.int64)
+    if a.size != b.size:
+        raise ValueError(f"joint_hist: {a.size} ids against {b.size}")
+    if a.size and (a.min() < 0 or b.min() < 0 or b.max() >= k):
+        raise ValueError(f"joint_hist: ids out of range (a in [{a.min()}, "
+                         f"{a.max()}], b in [{b.min()}, {b.max()}], k {k})")
     rows = int(a.max()) + 1 if a.size else 1
     out = np.zeros((rows, k), np.int64)
     lib.joint_hist(_i64p(a), _i64p(b), a.size, k, _i64p(out))
@@ -155,6 +169,9 @@ def mwis_solve(weights: np.ndarray, conflict: np.ndarray,
     weights = np.ascontiguousarray(weights, np.float64)
     conflict = np.ascontiguousarray(conflict, np.uint8)
     n = weights.shape[0]
+    if weights.shape != (n,) or conflict.shape != (n, n):
+        raise ValueError(f"mwis_solve: weights {weights.shape} and conflict "
+                         f"{conflict.shape}, not [n] and [n, n]")
     out = np.zeros(n, np.uint8)
     lib.mwis_solve(weights.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
                    _u8p(conflict), n, budget, _u8p(out))

@@ -5,6 +5,8 @@ native host library (utils/native.py: rle_encode/rle_decode of
 csrc/host/devac.cpp, a copy of native/devac.cpp), as deva_tpu's do wherever
 g++ can build its library, with deva_tpu's one data rule: a string whose
 runs do not cover h * w pixels (malformed) is decoded by the Python decoder.
+The library rejects such a string before it writes; a string that is not
+ASCII is malformed too (deva_tpu's native path raises on it).
 The numpy codec stays as encode_python and decode_python, the native
 codec's twins in the tests; no run's path calls them but for that rule.
 

@@ -131,10 +131,14 @@ def test_rle_bitwise_deva_tpu(name):
     assert rle.area(enc) == int(m.astype(bool).sum())
 
 
-def test_rle_malformed_decode():
+def test_rle_malformed_decode(monkeypatch):
     """A string whose runs do not cover h * w pixels: the native decoder
     reports it (None), and decode takes the Python decoder's answer, as
-    deva_tpu's does."""
+    deva_tpu's does. deva_tpu's answer is its decode's Python branch, taken
+    with its native decoder turned off: on a string whose runs pass h * w
+    (the [3, 5] case) deva_tpu's native decoder writes past its buffer
+    before it reports the length, so the test does not call it."""
+    monkeypatch.setattr(jax_native, "rle_decode", lambda *a: None)
     m = (np.random.default_rng(6).uniform(size=(4, 5)) > 0.5).astype(np.uint8)
     counts = rle.encode(m)["counts"]
     for size in ([4, 6], [3, 5]):
@@ -144,6 +148,58 @@ def test_rle_malformed_decode():
         np.testing.assert_array_equal(out, rle.decode_python(bad))
         np.testing.assert_array_equal(out, jax_rle.decode(bad))
         assert out.shape == tuple(size)
+
+
+def _leb(counts):
+    return rle._leb_encode(np.asarray(counts, np.int64))
+
+
+# malformed strings for a 4x5 mask (20 pixels)
+_BAD_STRINGS = {
+    # a 4x5 mask's runs decoded at 3x5: a run of ones ends at pixel 20
+    "ones_past_end": _leb([0, 20]),
+    "zeros_past_end": _leb([25]),
+    # a negative delta: the runs 2, -5, 3, 20 sum to 20, and the ones run
+    # after the negative one would start before the buffer
+    "negative_run": _leb([2, -5, 3, 20]),
+    # a count of 12 digits (continuation bit on 11 of them)
+    "twelve_digits": chr(48 + 0x20) * 11 + "0",
+    "unterminated": chr(48 + 0x20),
+    "not_ascii": "\u00e9" + _leb([0, 20]),
+}
+
+
+@pytest.mark.parametrize("name", list(_BAD_STRINGS))
+def test_rle_decode_writes_within_buffer(name):
+    """The library rejects a malformed string (-1, or a length other than
+    h * w) before it writes outside its h * w bytes: the guard bytes on
+    both sides of the buffer keep their value. decode then answers with the
+    Python decoder, as for any malformed string."""
+    counts = _BAD_STRINGS[name]
+    h, w = (3, 5) if name == "ones_past_end" else (4, 5)
+    guard = 64
+    buf = np.full(guard + h * w + guard, 0xAB, np.uint8)
+    raw = counts.encode("utf-8")
+    total = native.get_lib().rle_decode(raw, len(raw), h, w,
+                                        native._u8p(buf[guard:]))
+    assert total != h * w
+    assert (buf[:guard] == 0xAB).all() and (buf[guard + h * w:] == 0xAB).all()
+    if name == "unterminated":
+        return  # the Python decoder raises IndexError on it, as deva_tpu's
+    assert native.rle_decode(counts, h, w) is None
+    bad = {"size": [h, w], "counts": counts}
+    np.testing.assert_array_equal(rle.decode(bad), rle.decode_python(bad))
+
+
+def test_rle_unterminated_string_raises():
+    """A string that ends inside a count: the native decoder reports it, and
+    decode raises as the Python decoder (and deva_tpu's) does."""
+    counts = _BAD_STRINGS["unterminated"]
+    assert native.rle_decode(counts, 4, 5) is None
+    with pytest.raises(IndexError):
+        rle.decode({"size": [4, 5], "counts": counts})
+    with pytest.raises(IndexError):
+        jax_rle.decode({"size": [4, 5], "counts": counts})
 
 
 def test_joint_hist():
@@ -158,6 +214,24 @@ def test_joint_hist():
     ids = rng.integers(0, 5, (24, 32))
     np.testing.assert_array_equal(native.joint_hist(ids, ids.T.ravel(), 5),
                                   jax_native.joint_hist(ids, ids.T.ravel(), 5))
+
+
+@pytest.mark.parametrize("a,b,k", [([0, -1], [0, 1], 3), ([0, 1], [0, 3], 3),
+                                   ([0, 1], [-1, 0], 3), ([0, 1], [0], 3)])
+def test_joint_hist_rejects_out_of_range(a, b, k):
+    """Ids the table has no cell for raise ValueError before the library
+    indexes with them."""
+    with pytest.raises(ValueError):
+        native.joint_hist(np.int64(a), np.int64(b), k)
+
+
+def test_mwis_rejects_mismatched_shapes():
+    """A conflict matrix that is not [n, n] raises ValueError before the
+    library reads it."""
+    with pytest.raises(ValueError):
+        native.mwis_solve(np.ones(4), np.zeros((3, 3), bool))
+    with pytest.raises(ValueError):
+        native.mwis_solve(np.ones(4), np.zeros((4, 3), bool))
 
 
 def _tree(top):
