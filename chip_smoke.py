@@ -15,7 +15,9 @@ full width, learn-to-track served by InferenceCore, the stage driver); and
 multi-GPU serving over two ranks (object-sharded VOS and detection
 drivers, memory-sharded attention, video-sharded batched propagation);
 and the native host library (the consensus integer program, the RLE codec)
-and the video demo's core.
+and the video demo's core; and the command lines (each driver and demo
+from argv on the repo's clips, with files, against the same command on
+the CPU).
 
     python3 chip_smoke.py
 
@@ -155,9 +157,11 @@ tests/test_amp.py's whole-clip budget against the f32 run, frame by frame.
    pair on 7c's, held to the twins on those arguments (the batched launch
    bitwise each pair's own launch) and timed: rows `.bdet` and `.bmid`.
 8. The evaluation drivers, through their own per-video functions with
-   in-memory readers and savers that write nothing (the card's machine has
-   no Pillow). 8a: card against CPU at 64x96 (detection_clips.small_clip's
-   frames, phase 6a's configuration given as the drivers' flags):
+   in-memory readers and savers that write nothing, so that each step's
+   probabilities can be held to the CPU's (phase 13 runs the same drivers
+   from argv with files). 8a: card against CPU at 64x96
+   (detection_clips.small_clip's frames, phase 6a's configuration given as
+   the drivers' flags):
    eval_vos_torch.run_video with --flip --save_scores (exact, and approx
    by chunks of 2; the frames read as if resized) and on a YouTube-VOS-style
    reader whose second object appears at frame 3; eval_ref_davis_torch
@@ -279,6 +283,59 @@ tests/test_amp.py's whole-clip budget against the f32 run, frame by frame.
    for the text path a run of demo_with_text_torch.run_demo at 854x480,
    since 9c runs 1280x720), both exact kernels on every frame propagated
    outside a voting window while objects are held; ms per frame.
+13. The command lines: each evaluation driver and demo as a user runs it
+   (`python <script> ...` from the repo root, a subprocess; --device left
+   at its default, cuda; --raise_on_error wherever the driver has it), on
+   the repo's clips and layouts built from them, reading and writing real
+   files, with one set of full-width weights written once as an upstream
+   .pth (init_weights seed 42, the drivers' own seed) and passed with
+   --model. Each command's CPU twin, the same command with --device cpu on
+   the same files, runs meanwhile (CLI_CPU_WORKERS at a time); the two
+   output trees are then compared. 13a: eval_vos_torch.py on example/vos
+   (854x480, 4 frames, 2 objects): exact per frame; --chunk 5
+   --topk_method approx --amp --save_scores; --flip --save_scores, then
+   scripts/merge_multi_scale_torch.py over each side's Scores/; and on a
+   YouTube-VOS (Y19) layout of three synthetic 854x480 JPEG videos of 8,
+   10 and 12 frames whose second object's mask arrives mid-video, with
+   meta.json (memory frames, per-object first frames, the zip); then
+   evaluation/eval_jf_torch.py scores the card's exact PNGs against the
+   CPU's. 13b: eval_vos_batched_torch.py --batch 4 on four copies of the
+   clip, each video also held to 13a's single-stream card run
+   (tests/test_batched.py: at most 2% flips). 13c:
+   eval_with_detections_torch.py --dataset vipseg on example/vipseg
+   (1280x720 at --size 480: the saver's need_resize branch), semi-online
+   and online, and eval_with_detections_batched_torch.py --batch 2 on the
+   clip and a copy. 13d: demo_automatic_torch.py --sam_variant mobile
+   (seeded SAM weights) at 9b's SAM_NUM_POINTS_PER_SIDE and IoU filter,
+   online (semi-online's vote admits none of the seeded SAM's masks on
+   this clip). 13e, in this process on each device (the card's machine
+   has transformers but no hub): demo_with_text_torch.drive and
+   demo_gradio_torch.track_video (main's command-line path: the clip as
+   an mp4 written by cv2, decoded by cv2, tracked.mp4 encoded with mp4v),
+   with ext/detectors.py's ReplayDetector on
+   tests/fixtures/replay_dets_vipseg.npz in Grounding DINO's and SAM's
+   place (NearestReplay for the decoded frames) and seeded object ids.
+   13f: eval_ref_davis_torch.py and eval_saliency_torch.py on example/vos's
+   frames with moving soft-mask boxes. Budgets, card against CPU: the same
+   file tree; PNG labels equal on at least 99% of each frame (under a
+   one-to-one id matching where ids are drawn per run), and in the --flip
+   --save_scores run differing only where the CPU's top two scores lie
+   within DET_TOL; score maps within 1/255; the bf16 run's score maps by
+   tests/test_amp.py's budget (random weights leave every pixel below its
+   0.25 margin, so labels alone say little); equal backward.npy, key.txt
+   and zip members; pred.json with the same segments under the matching,
+   equal categories, areas apart by no more than the differing pixels, and
+   at least one segment; J and F at least 0.99; tracked.mp4 with the same
+   frame count and size and a PSNR of at least CLI_PSNR_DB. A non-zero exit
+   code, a "Skipping" line (the fault barrier exits 0 after a skipped
+   video) or a missing file fails the phase. The commands of 13a and 13d
+   run again in this process on the card with the launch counts at 0:
+   each kernel of the method on every maskless frame (13d, 13e: the exact
+   pair at least once), none of the other pair's. Prints each command's
+   wall seconds, FPS line and peak memory, its twin's, and what held. 13g:
+   host ms per frame of data/video_reader.py's reader at 854x480 and
+   1280x720, and of ResultSaver per saved frame (need_resize branch and
+   device argmax branch apart), with the device drained.
 
 The second-to-last line of output is a JSON object with each kernel's
 launches (phase 3 for the exact pair, phase 4 for the approx pair), largest
@@ -1431,13 +1488,24 @@ def with_dtype(net, dtype: str):
     return out
 
 
+def check_device() -> torch.device:
+    """Where the phases compare kept probability maps: the card where there
+    is one (the host takes ~0.2 s a 480p frame for an argmax, a top-2 and a
+    difference, which made the comparisons of phases 3-5 and 7c cost about
+    200 s; on the card the same f32 arithmetic gives the same verdicts),
+    else the CPU (a rehearsal)."""
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
 def compare_dtypes(f32_probs, bf16_probs, label: str):
     """The bf16 480p run against the f32 run of the same frames and weights
     on the card, with tests/test_amp.py's whole-clip budget per frame:
     mean |dprob| < 0.03, argmax flips at confident pixels (f32 margin
     > 0.25) under 2%, and none where the f32 margin exceeds 0.6."""
     worst_mean = worst_conf = worst_margin = 0.0
+    cd = check_device()
     for ti, (pe, pa) in enumerate(zip(f32_probs, bf16_probs)):
+        pe, pa = pe.to(cd), pa.to(cd)
         mean = (pa - pe).abs().mean().item()
         flips = pa.argmax(0) != pe.argmax(0)
         top2 = pe.topk(2, dim=0).values
@@ -1585,7 +1653,9 @@ def compare_preencoded(per_frame, preencoded):
     round differently, so per frame at most 2% of the pixels may move by
     more than 5e-3 and at most 2% may change their argmax."""
     worst = moved = flips = 0.0
+    cd = check_device()
     for ti, (a, b) in enumerate(zip(per_frame, preencoded)):
+        a, b = a.to(cd), b.to(cd)
         diff = (a - b).abs()
         worst = max(worst, diff.max().item())
         m = (diff > 5e-3).any(0).float().mean().item()
@@ -1689,8 +1759,10 @@ def compare_single(batched, single, label: str) -> str:
     round differently from batch-1 ones)."""
     worst = moved = flips = 0.0
     assert len(batched) == len(single)
+    cd = check_device()
     for ti, (g, w) in enumerate(zip(batched, single), start=1):
         assert g.shape == w.shape, (label, ti, g.shape, w.shape)
+        g, w = g.to(cd), w.to(cd)
         diff = (g - w).abs()
         m = (diff > 5e-3).any(0).float().mean().item()
         f = (g.argmax(0) != w.argmax(0)).float().mean().item()
@@ -3207,8 +3279,10 @@ def phase_batched_midstream(ak, apx, net_cpu, dev, n_frames: int = 60,
                 if method == "exact":
                     notes.append(compare_single(g, s, f"video {v}"))
                 else:
-                    labels = max(float((a.argmax(0) != b.argmax(0)).float()
-                                       .mean()) for a, b in zip(g, s))
+                    cd = check_device()
+                    labels = max(float((a.to(cd).argmax(0) !=
+                                        b.to(cd).argmax(0)).float().mean())
+                                 for a, b in zip(g, s))
                     assert labels <= 0.05, (method, v, labels)
                     notes.append(f"video {v} labels differ on at most "
                                  f"{labels:.2%}")
@@ -4252,9 +4326,10 @@ class DemoReader:
 
 
 class DemoSaver:
-    """The demos' result saver for phases 9b and 9c: writes nothing (the
-    card's machine has no Pillow); checks each saved frame (finite, [1 +
-    objects, H, W] at the size the core processed the frame at: the
+    """The demos' result saver for phases 9b and 9c: writes nothing (phase
+    13 runs the demos with their own savers); checks each saved frame
+    (finite, [1 + objects, H, W] at the size the core processed the frame
+    at: the
     frame's, or its --size resize), keeps the frame order and the objects
     as each frame was saved, and calls after(ti)."""
 
@@ -5695,6 +5770,1031 @@ def phase12(ak, net_cpu, dev, history_b) -> None:
           f"{t2 - t1:.1f}", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 13: the command lines (the drivers and demos from argv, with files)
+# --------------------------------------------------------------------------
+
+# 13's budgets, the card's outputs against the CPU twin's: the share of a
+# PNG's pixels whose labels agree (tests/test_torch_driver.py's budget); a
+# score map's largest step (prob * 255 truncated: 1/255); J and F of the
+# card's masks scored against the CPU's; the PSNR of the two decoded
+# tracked.mp4 (blends of the same decoded frames, so only the pixels whose
+# label differs, and the mp4v encoder's response to them, set it)
+CLI_LABEL_SHARE = 0.99
+CLI_SCORE_STEP = 1
+CLI_JF_FLOOR = 0.99
+CLI_PSNR_DB = 30.0
+# 13b: a batched video's PNGs against the single-stream card run's
+# (tests/test_batched.py: at most 2% argmax flips a frame)
+CLI_BATCH_FLIPS = 0.02
+# a command's time limit (s); the CPU twins, which run while the card's
+# commands run: two at a time (the twins' queue, not the card's commands,
+# sets the phase's length), at 3 threads each, on the card's 8-core host
+CLI_TIMEOUT = 900
+CLI_CPU_THREADS = 3
+CLI_CPU_WORKERS = 2
+# a rehearsal's runs at a time (about 0.75 GiB of host memory each at
+# --size 120)
+CLI_REHEARSAL_RUNS = 14
+# 13a's YouTube-VOS layout: each video's frames and the frame on which its
+# second object's mask arrives
+CLI_YT = ((8, 3), (10, 5), (12, 6))
+# 13c-13e: example/vipseg's clip (4 frames of 1280x720 with PNG and JSON
+# detections), the recorded text detections of its frames and their prompt
+VIPSEG = os.path.join(ROOT, "example", "vipseg")
+VIPSEG_CLIP = "12_1mWNahzcsAc"
+REPLAY_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                              "replay_dets_vipseg.npz")
+REPLAY_PROMPT = "person.bench.tree"
+# 13g: timed rounds of a reader's frames, saved frames a saver branch, and
+# the channels of the saved probabilities (background and 10 objects)
+IO_ROUNDS = 5
+IO_SAVES = 20
+IO_CHANNELS = 11
+
+
+def cli_number(text: str, key: str):
+    """The number on a driver's last `<key>: <number>` line, or None."""
+    found = re.findall(rf"^{re.escape(key)}: (\S+)$", text, re.M)
+    return float(found[-1]) if found else None
+
+
+def check_cli(label: str, rc: int, text: str) -> None:
+    """A command's run: exit code 0 and no "Skipping" line (the per-video
+    fault barrier logs a failed video and exits 0)."""
+    assert rc == 0, f"{label}: exit code {rc}\n{text[-4000:]}"
+    skipped = [ln for ln in text.splitlines() if ln.startswith("Skipping ")]
+    assert not skipped, f"{label}: a skipped video {skipped}\n{text[-4000:]}"
+
+
+def cli(script: str, args, threads=None) -> dict:
+    """`python <script> <args>` from the repo root, as a user types it (a
+    CPU twin at `threads` threads). The hub stays offline: no command of
+    phase 13 loads a model by its hub id. Fails as check_cli says. -> the
+    wall seconds, the FPS and peak-memory lines' numbers (None where the
+    command prints none) and its standard output."""
+    env = dict(os.environ, HF_HUB_OFFLINE="1", TRANSFORMERS_OFFLINE="1")
+    if threads:
+        env["OMP_NUM_THREADS"] = str(threads)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, script),
+                           *args], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=CLI_TIMEOUT)
+    wall = time.perf_counter() - t0
+    check_cli(f"{script} {' '.join(args)}", proc.returncode,
+              proc.stdout + proc.stderr)
+    return {"wall_s": wall, "fps": cli_number(proc.stdout, "FPS"),
+            "peak_mb": cli_number(proc.stdout, "Max allocated memory (MB)"),
+            "stdout": proc.stdout}
+
+
+class CliPairs:
+    """Phase 13's commands: each runs on the card in the caller's thread,
+    as a user runs it (--device defaults to cuda), while its CPU twin, the
+    same command with --device cpu on the same files, runs on one of
+    CLI_CPU_WORKERS threads at CLI_CPU_THREADS threads. A rehearsal names
+    another device as `card`; then both sides of every command run on
+    CLI_REHEARSAL_RUNS threads, one thread each. The two write under
+    <tmp>/out/card/<name> and <tmp>/out/cpu/<name> (one name: the
+    YouTube-VOS zip takes the output directory's)."""
+
+    def __init__(self, tmp: str, card: str, commands: int):
+        from concurrent.futures import ThreadPoolExecutor
+        self.tmp, self.card = tmp, card
+        rehearsal = card != "cuda"
+        self.threads = 1 if rehearsal else CLI_CPU_THREADS
+        self.pool = ThreadPoolExecutor(min(2 * commands, CLI_REHEARSAL_RUNS)
+                                       if rehearsal else CLI_CPU_WORKERS)
+        self.runs = {}
+
+    def out(self, name: str, side: str) -> str:
+        return os.path.join(self.tmp, "out", side, name)
+
+    def run(self, name: str, script: str, args, twin: bool = True) -> None:
+        """Starts the command (and its twin, unless twin is False);
+        result(name, side) waits for a side's run."""
+        def argv(side, device):
+            extra = [] if device == "cuda" else ["--device", device]
+            return [*args, "--output", self.out(name, side), *extra]
+
+        cpu = self.pool.submit(cli, script, argv("cpu", "cpu"),
+                               self.threads) if twin else None
+        card = cli(script, argv("card", self.card)) if self.card == "cuda" \
+            else self.pool.submit(cli, script, argv("card", self.card),
+                                  self.threads)
+        self.runs[name] = {"card": card, "cpu": cpu}
+
+    def result(self, name: str, side: str) -> dict:
+        """cli's result, and the output directory as "out"."""
+        run = self.runs[name][side]
+        return dict(run if isinstance(run, dict) else run.result(),
+                    out=self.out(name, side))
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+def file_tree(root: str) -> list:
+    """The files under root, as sorted relative paths."""
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, files in os.walk(root) for f in files)
+
+
+def same_tree(ref: str, got: str, label: str) -> list:
+    """The same files, and at least one, under both roots. -> their paths."""
+    a, b = file_tree(ref), file_tree(got)
+    assert a and a == b, (f"{label}: the file trees differ: only the CPU's "
+                          f"{sorted(set(a) - set(b))[:8]}, only the card's "
+                          f"{sorted(set(b) - set(a))[:8]}")
+    return a
+
+
+def read_labels(p: str) -> np.ndarray:
+    """A PNG's labels: RGB id PNGs (the long-id layouts) as ids, palette
+    and grey PNGs as their values."""
+    from PIL import Image
+    from deva_tpu_torch.utils.pano_utils import rgb_to_id
+    with Image.open(p) as im:
+        a = np.asarray(im)
+    return rgb_to_id(a) if a.ndim == 3 else a.astype(np.int64)
+
+
+def id_matching(ref_frames, got_frames) -> dict:
+    """The one-to-one matching of two runs' ids over a video's frames that
+    maximises the pixels they share (the long-id layouts draw ids per run):
+    {got id: ref id}; a got id left over maps to -1."""
+    from scipy.optimize import linear_sum_assignment
+    ua = np.unique(np.concatenate([f.ravel() for f in ref_frames]))
+    ub = np.unique(np.concatenate([f.ravel() for f in got_frames]))
+    shared = np.zeros(len(ua) * len(ub), np.int64)
+    for a, b in zip(ref_frames, got_frames):
+        shared += np.bincount(np.searchsorted(ua, a.ravel()) * len(ub) +
+                              np.searchsorted(ub, b.ravel()),
+                              minlength=len(shared))
+    rows, cols = linear_sum_assignment(-shared.reshape(len(ua), len(ub)))
+    pairs = {int(ub[c]): int(ua[r]) for r, c in zip(rows, cols)}
+    return {int(u): pairs.get(int(u), -1) for u in ub}
+
+
+def compare_labels(ref: str, got: str, names, label: str,
+                   matched: bool = False, share: float = CLI_LABEL_SHARE,
+                   near_tie=None, got_name=None) -> dict:
+    """The label PNGs among `names` under two roots (got_name(name) names
+    the got run's file, by default the same path), frame by frame: the same
+    shape and at least `share` of the pixels equal; matched: the got run's
+    ids first mapped to the ref run's (id_matching, per directory).
+    near_tie(name, differing) checks the pixels that differ. -> the worst
+    share, each frame's differing pixels ("differ"), each directory's
+    matching ("matchings") and the PNGs ("frames")."""
+    pngs = [n for n in names if n.endswith(".png")]
+    assert pngs, f"{label}: no PNG"
+    by_dir = {}
+    for n in pngs:
+        by_dir.setdefault(os.path.dirname(n), []).append(n)
+    worst, differ, matchings = 1.0, {}, {}
+    for d, group in by_dir.items():
+        a = [read_labels(os.path.join(ref, n)) for n in group]
+        b = [read_labels(os.path.join(got, got_name(n) if got_name else n))
+             for n in group]
+        if matched:
+            m = matchings[d] = id_matching(a, b)
+            keys = np.array(sorted(m))
+            lut = np.array([m[k] for k in keys])
+            b = [lut[np.searchsorted(keys, x)] for x in b]
+        for n, x, y in zip(group, a, b):
+            assert x.shape == y.shape, (label, n, x.shape, y.shape)
+            off = x != y
+            agree = 1.0 - off.mean()
+            assert agree >= share, \
+                f"{label}: {n} labels agree on {agree:.4%} < {share:.0%}"
+            if near_tie is not None and off.any():
+                near_tie(n, off)
+            worst = min(worst, agree)
+            differ[n] = int(off.sum())
+    return {"worst": worst, "differ": differ, "matchings": matchings,
+            "frames": len(pngs)}
+
+
+def compare_scores(ref: str, got: str, names, label: str) -> int:
+    """Scores/<video>/<frame>.npy (uint8 prob * 255, truncated) within
+    CLI_SCORE_STEP everywhere; backward.npy equal. -> the score maps."""
+    maps = 0
+    for n in names:
+        if not n.endswith(".npy"):
+            continue
+        a = np.load(os.path.join(ref, n), allow_pickle=True)
+        b = np.load(os.path.join(got, n), allow_pickle=True)
+        if n.endswith("backward.npy"):
+            assert a.item() == b.item(), (label, n, a.item(), b.item())
+            continue
+        assert a.dtype == b.dtype == np.uint8 and a.shape == b.shape, \
+            (label, n, a.dtype, b.dtype, a.shape, b.shape)
+        step = int(np.abs(a.astype(np.int16) - b).max())
+        assert step <= CLI_SCORE_STEP, f"{label}: {n} scores apart by {step}"
+        maps += 1
+    assert maps, f"{label}: no score map"
+    return maps
+
+
+def compare_amp_scores(ref: str, got: str, names, label: str) -> str:
+    """A bf16 run's score maps (uint8 prob * 255) against its CPU twin's, by
+    tests/test_amp.py's whole-clip budget per frame (compare_dtypes'): mean
+    |dprob| < 0.03, label flips where the CPU's top two lie more than 0.25
+    apart under 2% of the frame, none where they lie more than 0.6 apart.
+    (The two sum bf16 products in other orders, and with random weights
+    every pixel lies below the 0.25 margin: labels alone say little.)
+    backward.npy equal. -> what held."""
+    worst_mean = worst_conf = worst_margin = 0.0
+    for n in names:
+        if not n.endswith(".npy"):
+            continue
+        a = np.load(os.path.join(ref, n), allow_pickle=True)
+        b = np.load(os.path.join(got, n), allow_pickle=True)
+        if n.endswith("backward.npy"):
+            assert a.item() == b.item(), (label, n, a.item(), b.item())
+            continue
+        pa, pb = a / 255.0, b / 255.0
+        top = np.sort(pa, axis=0)
+        margin = top[-1] - top[-2]
+        flips = pa.argmax(0) != pb.argmax(0)
+        mean = float(np.abs(pa - pb).mean())
+        conf = float((flips & (margin > 0.25)).mean())
+        flipped = float(margin[flips].max()) if flips.any() else 0.0
+        assert mean < 0.03 and conf < 0.02 and flipped <= 0.6, \
+            (label, n, mean, conf, flipped)
+        worst_mean, worst_conf = max(worst_mean, mean), max(worst_conf, conf)
+        worst_margin = max(worst_margin, flipped)
+    return (f"score maps by tests/test_amp.py's budget: mean |dprob| at "
+            f"most {worst_mean:.4g} (0.03), confident flips at most "
+            f"{worst_conf:.3%} (2%), largest flipped margin "
+            f"{worst_margin:.3g} (0.6); backward.npy equal")
+
+
+def score_near_tie(scores_root: str, label: str,
+                   max_gap: float = DET_TOL * 255 + 1):
+    """near_tie for a --save_scores run: a pixel whose label differs must
+    lie where the top two channels of the score map under scores_root
+    (Scores/<video>/<frame>.npy, uint8 prob * 255 truncated) are at most
+    max_gap apart; by default the CPU run's within DET_TOL (DET_TOL * 255
+    + 1 in the truncated maps)."""
+    def check(name, differ):
+        rel = name[len("Annotations/"):] if name.startswith("Annotations/") \
+            else name
+        scores = np.load(os.path.join(scores_root, "Scores", rel[:-4] +
+                                      ".npy"))
+        top = np.sort(scores.astype(np.int16), axis=0)
+        gap = int((top[-1] - top[-2])[differ].max())
+        assert gap <= max_gap, f"{label}: {name} differs where the top " \
+            f"two scores are {gap} / 255 apart"
+    return check
+
+
+def compare_pred_json(ref: str, got: str, png_of, labels: dict,
+                      label: str) -> int:
+    """pred.json (VIPSeg's or the demo's): the same videos and frames, each
+    frame's segments one to one under the id matching with the same fields,
+    each but the id and the area equal (a float score within DET_TOL), and
+    each area (where the file has one) apart by no more than the frame's
+    differing pixels. png_of(video_id,
+    file_name) names the frame's PNG among compare_labels' ("differ",
+    "matchings"). -> the segments compared."""
+    def videos(root):
+        with open(os.path.join(root, "pred.json")) as f:
+            anns = json.load(f)["annotations"]
+        if anns and "video_id" in anns[0]:
+            return [(v["video_id"], v["annotations"]) for v in anns]
+        return [(None, anns)]
+
+    a, b = videos(ref), videos(got)
+    assert [v for v, _ in a] == [v for v, _ in b], label
+    segments = 0
+    assert any(s["segments_info"] for _, frames in a for s in frames), \
+        f"{label}: pred.json holds no segment"
+    for (vid, fa), (_, fb) in zip(a, b):
+        assert [f["file_name"] for f in fa] == [f["file_name"] for f in fb], \
+            (label, vid)
+        for x, y in zip(fa, fb):
+            png = png_of(vid, x["file_name"])
+            match = labels["matchings"][os.path.dirname(png)]
+            mine = {match.get(s["id"], -1): s for s in y["segments_info"]}
+            theirs = {s["id"]: s for s in x["segments_info"]}
+            assert sorted(mine) == sorted(theirs), \
+                f"{label}: {png} segments {sorted(theirs)} vs {sorted(mine)}"
+            for sid, s in theirs.items():
+                t = mine[sid]
+                assert sorted(s) == sorted(t), (label, png, s, t)
+                for k in set(s) - {"id", "area"}:
+                    # a detector's float score within DET_TOL, else equal
+                    assert abs(s[k] - t[k]) <= DET_TOL \
+                        if isinstance(s[k], float) else s[k] == t[k], \
+                        (label, png, k, s, t)
+                assert abs(s.get("area", 0) - t.get("area", 0)) <= \
+                    labels["differ"][png], (label, png, s, t)
+                segments += 1
+    return segments
+
+
+def video_frames(p: str) -> list:
+    """A video's frames, decoded by cv2."""
+    import cv2
+    cap = cv2.VideoCapture(p)
+    frames = []
+    try:
+        ok, frame = cap.read()
+        while ok:
+            frames.append(frame)
+            ok, frame = cap.read()
+    finally:
+        cap.release()
+    return frames
+
+
+def compare_videos(ref: str, got: str, label: str) -> float:
+    """Two tracked.mp4: the same frame count and size, and a PSNR between
+    their decoded frames of at least CLI_PSNR_DB. -> the PSNR in dB."""
+    a, b = video_frames(ref), video_frames(got)
+    assert a and len(a) == len(b), (label, len(a), len(b))
+    assert all(x.shape == y.shape for x, y in zip(a, b)), label
+    mse = np.mean([np.mean((x.astype(np.float64) - y) ** 2)
+                   for x, y in zip(a, b)])
+    psnr = float("inf") if mse == 0 else float(10 * np.log10(255.0 ** 2 /
+                                                              mse))
+    assert psnr >= CLI_PSNR_DB, f"{label}: PSNR {psnr:.2f} dB"
+    return psnr
+
+
+def save_image(p: str, array: np.ndarray, palette=None) -> None:
+    from PIL import Image
+    os.makedirs(os.path.dirname(p), exist_ok=True)
+    img = Image.fromarray(array)
+    if palette is not None:
+        img.putpalette(palette)
+    img.save(p)
+
+
+def cli_layouts(tmp: str, parts: str) -> dict:
+    """Phase 13's inputs under <tmp>/data, for the parts named: "yt" (a),
+    a YouTube-VOS layout (Y19) of synthetic 854x480 JPEG videos (CLI_YT:
+    object 1 from frame 0, object 2's own mask mid-video, meta.json listing
+    every other frame from each object's first); "g4" (b), four copies of
+    example/vos's clip; "vip2" (c), example/vipseg and a copy (images/,
+    source/); "mp4" (e), example/vipseg's frames ("rgb") as an mp4 (cv2,
+    mp4v); "ref" and "sal" (f), example/vos's frames with a soft-mask box
+    that moves down each frame (per object with scores.csv for the
+    referring driver, per video for saliency); "mask720" (g), a
+    first-frame palette mask for the 1280x720 frames."""
+    import shutil
+    from PIL import Image
+    from deva_tpu_torch.utils.palette import davis_palette
+    data = os.path.join(tmp, "data")
+    vos = os.path.join(ROOT, "example", "vos")
+    clip = os.path.join(VIPSEG, "images", VIPSEG_CLIP)
+    palette = davis_palette()
+    lay = {}
+    if "a" in parts:
+        yt = lay["yt"] = os.path.join(data, "yt")
+        rng, meta = np.random.default_rng(16), {}
+        for v, (t, second) in enumerate(CLI_YT):
+            vid = f"v{v}"
+            for i, f in enumerate(synthetic_video(rng, H480, W480, t)):
+                save_image(os.path.join(yt, "all_frames", "valid_all_frames",
+                                        "JPEGImages", vid, f"{i:05d}.jpg"),
+                           np.clip(128 + 48 * f, 0, 255).astype(np.uint8))
+            for obj, ti, rows, cols in (
+                    (1, 0, (60, 300), (100 + 40 * v, 400 + 40 * v)),
+                    (2, second, (260, 450), (480, 760))):
+                m = np.zeros((H480, W480), np.uint8)
+                m[slice(*rows), slice(*cols)] = obj
+                save_image(os.path.join(yt, "valid", "Annotations", vid,
+                                        f"{ti:05d}.png"), m, palette)
+            meta[vid] = {"objects": {
+                str(obj): {"category": "x", "frames": [
+                    f"{i:05d}" for i in range(start, t, 2)]}
+                for obj, start in ((1, 0), (2, second))}}
+        with open(os.path.join(yt, "valid", "meta.json"), "w") as f:
+            json.dump({"videos": meta}, f)
+    if "b" in parts:
+        lay["g4"] = os.path.join(data, "g4")
+        for k in range(B4):
+            for sub in ("JPEGImages", "Annotations"):
+                shutil.copytree(os.path.join(vos, sub, "bmx-trees"),
+                                os.path.join(lay["g4"], sub,
+                                             f"bmx-trees-{k}"))
+    if "c" in parts:
+        lay["vip2"] = os.path.join(data, "vip2")
+        for sub in ("images", "source"):
+            for name in (VIPSEG_CLIP, VIPSEG_CLIP + "-copy"):
+                shutil.copytree(os.path.join(VIPSEG, sub, VIPSEG_CLIP),
+                                os.path.join(lay["vip2"], sub, name))
+    if "e" in parts:
+        import cv2
+        lay["rgb"] = [np.asarray(Image.open(os.path.join(clip, n))
+                                 .convert("RGB"))
+                      for n in sorted(os.listdir(clip))]
+        h, w = lay["rgb"][0].shape[:2]
+        os.makedirs(data, exist_ok=True)
+        lay["mp4"] = os.path.join(data, "clip.mp4")
+        writer = cv2.VideoWriter(lay["mp4"], cv2.VideoWriter_fourcc(*"mp4v"),
+                                 6, (w, h))
+        for frame in lay["rgb"]:
+            writer.write(np.ascontiguousarray(frame[:, :, ::-1]))
+        writer.release()
+    if "f" in parts:
+        frames = sorted(os.listdir(os.path.join(vos, "JPEGImages",
+                                                "bmx-trees")))
+        for kind in ("ref", "sal"):
+            root = lay[kind] = os.path.join(data, kind)
+            shutil.copytree(os.path.join(vos, "JPEGImages", "bmx-trees"),
+                            os.path.join(root, "JPEGImages", "bmx-trees"))
+            mask_dir = os.path.join(root, "masks", "bmx-trees")
+            obj_dir = os.path.join(mask_dir, "1") if kind == "ref" \
+                else mask_dir
+            for i, n in enumerate(frames):
+                m = np.zeros((H480, W480), np.uint8)
+                m[120 + 12 * i:360 + 12 * i, 300:560] = 255
+                save_image(os.path.join(obj_dir, n[:-4] + ".png"), m)
+            if kind == "ref":
+                with open(os.path.join(mask_dir, "scores.csv"), "w") as f:
+                    f.write("\n".join(f"{n[:-4]}.png,1,{0.5 + 0.1 * i:.2f}"
+                                      for i, n in enumerate(frames)))
+    if "g" in parts:
+        m = np.zeros((720, 1280), np.uint8)
+        m[200:500, 300:700], m[100:300, 800:1100] = 1, 2
+        lay["mask720"] = os.path.join(data, "mask720")
+        save_image(os.path.join(lay["mask720"], sorted(os.listdir(clip))[0]
+                                [:-4] + ".png"), m, palette)
+    return lay
+
+
+def write_weights(tmp: str) -> str:
+    """The full-width propagation model (ModelConfig()) with the weights
+    the drivers init when they find none (init_weights seed 42), as an
+    upstream .pth (the state-dict layout --model takes), written once for
+    every command. With these the semi-online vote on example/vipseg admits
+    objects (with phase 3's seed 0 it admits none, and pred.json would
+    hold no segment to compare)."""
+    from deva_tpu_torch.models.network import DEVANetwork, init_weights
+    out = os.path.join(tmp, "weights.pth")
+    torch.save(init_weights(DEVANetwork(), seed=42).state_dict(), out)
+    return out
+
+
+def cli_commands(weights: str, lay: dict, size_args, parts: str) -> list:
+    """Phase 13's subprocess commands of the parts named, each as (name,
+    label, script, flags without --output and --device); the flags pass
+    --raise_on_error wherever the driver has it."""
+    common = ["--model", weights, "--raise_on_error", *size_args]
+    g = ["--dataset", "G", "--generic_path",
+         os.path.join(ROOT, "example", "vos"), *common]
+    vip = ["--dataset", "vipseg", "--no_metrics", *common]
+    one = ["--img_path", os.path.join(VIPSEG, "images"), "--mask_path",
+           os.path.join(VIPSEG, "source"), *vip]
+    vos, det = "evaluation/eval_vos_torch.py", \
+        "evaluation/eval_with_detections_torch.py"
+    cmds = []
+    if "a" in parts:
+        cmds += [
+            ("a-exact", "13a eval_vos_torch.py G exact", vos, g),
+            # --save_scores: bf16 is held to tests/test_amp.py's budget,
+            # which reads probabilities (compare_amp_scores)
+            ("a-approx", "13a eval_vos_torch.py G --chunk 5 --topk_method "
+             "approx --amp --save_scores", vos,
+             g + ["--chunk", "5", "--topk_method", "approx", "--amp",
+                  "--save_scores"]),
+            ("a-flip", "13a eval_vos_torch.py G --flip --save_scores", vos,
+             g + ["--flip", "--save_scores"]),
+            ("a-yt", "13a eval_vos_torch.py Y19", vos,
+             ["--dataset", "Y19", "--y19_path", lay["yt"], *common])]
+    if "b" in parts:
+        cmds.append(("b-batched", f"13b eval_vos_batched_torch.py --batch "
+                     f"{B4}", "evaluation/eval_vos_batched_torch.py",
+                     ["--dataset", "G", "--generic_path", lay["g4"],
+                      "--batch", str(B4), *common]))
+    if "c" in parts:
+        cmds += [
+            ("c-semi", "13c eval_with_detections_torch.py semi-online", det,
+             one),
+            ("c-online", "13c eval_with_detections_torch.py online", det,
+             one + ["--temporal_setting", "online"]),
+            ("c-batched", "13c eval_with_detections_batched_torch.py "
+             "--batch 2", "evaluation/eval_with_detections_batched_torch.py",
+             ["--img_path", os.path.join(lay["vip2"], "images"),
+              "--mask_path", os.path.join(lay["vip2"], "source"), *vip,
+              "--batch", "2"])]
+    if "d" in parts:
+        # online: semi-online's vote admits none of the seeded SAM's masks
+        # on this clip, and the outputs would hold no object
+        cmds.append(("d-auto", "13d demo_automatic_torch.py --sam_variant "
+                     f"mobile --SAM_NUM_POINTS_PER_SIDE {DEMO_POINTS} "
+                     "--SAM_PRED_IOU_THRESHOLD=-inf (9b's; defaults 64 and "
+                     "0.88) --temporal_setting online",
+                     "demo/demo_automatic_torch.py",
+                     ["--img_path", os.path.join(VIPSEG, "images",
+                                                 VIPSEG_CLIP),
+                      "--sam_variant", "mobile",
+                      "--MOBILE_SAM_CHECKPOINT_PATH", "",
+                      "--SAM_NUM_POINTS_PER_SIDE", str(DEMO_POINTS),
+                      "--SAM_PRED_IOU_THRESHOLD=-inf",
+                      "--temporal_setting", "online", *common]))
+    if "f" in parts:
+        for name, script, kind in (("f-ref", "eval_ref_davis_torch.py", "ref"),
+                                   ("f-sal", "eval_saliency_torch.py", "sal")):
+            cmds.append((name, f"13f {script}", f"evaluation/{script}",
+                         ["--img_path", os.path.join(lay[kind], "JPEGImages"),
+                          "--mask_path", os.path.join(lay[kind], "masks"),
+                          "--num_voting_frames", "3", *common]))
+    return cmds
+
+
+def cli_tools(pairs: CliPairs, names) -> dict:
+    """Phase 13's scoring commands over the runs' files, queued on the
+    twins' workers (each waits for the runs it reads): for 13a's --flip
+    --save_scores run, scripts/merge_multi_scale_torch.py over each side's
+    Scores/ ("merge card", "merge cpu"); for 13a's exact run,
+    evaluation/eval_jf_torch.py scoring a copy of the card's PNGs (it
+    writes its tables beside them) against the CPU's ("jf"). -> futures of
+    cli's results."""
+    import shutil
+
+    def merge(side):
+        out = pairs.result("a-flip", side)["out"]
+        return cli("scripts/merge_multi_scale_torch.py",
+                   ["--dataset", "D", "--list", out, "--output",
+                    pairs.out("a-merge", side), "--num_proc", "1"])
+
+    def jf():
+        ref = pairs.result("a-exact", "cpu")["out"]
+        got = pairs.out("a-jf", "card")
+        shutil.copytree(pairs.result("a-exact", "card")["out"], got)
+        return cli("evaluation/eval_jf_torch.py",
+                   ["--results_path", got, "--gt_path", ref])
+
+    tools = {}
+    if "a-flip" in names:
+        for side in ("card", "cpu"):
+            tools[f"merge {side}"] = pairs.pool.submit(merge, side)
+    if "a-exact" in names:
+        tools["jf"] = pairs.pool.submit(jf)
+    return tools
+
+
+def check_batched_vos(label: str, card: dict, pairs: CliPairs) -> str:
+    """13b, which has no CPU twin: four copies of example/vos's clip, so
+    each video's PNGs are the files of 13a's exact card run (itself held to
+    its CPU twin), with labels agreeing on at least 1 - CLI_BATCH_FLIPS of
+    each frame (tests/test_batched.py: batch-4 convolutions round
+    otherwise). -> what held."""
+    exact = pairs.out("a-exact", "card")
+    single = [n for n in file_tree(exact) if n.endswith(".png")]
+    names = file_tree(card["out"])
+    assert names == sorted(n.replace("bmx-trees", f"bmx-trees-{k}")
+                           for k in range(B4) for n in single), (label, names)
+    worst = min(compare_labels(
+        exact, card["out"], single, f"{label} video {k} against 13a",
+        share=1 - CLI_BATCH_FLIPS,
+        got_name=lambda n, k=k: n.replace("bmx-trees", f"bmx-trees-{k}"))
+        ["worst"] for k in range(B4))
+    return (f"{len(names)} PNGs, 13a's files for each video; each video's "
+            f"labels agree with 13a's single-stream card run on >= "
+            f"{worst:.4%}")
+
+
+def check_command(name: str, label: str, card: dict, twin: dict,
+                  pairs: CliPairs, tools: dict) -> str:
+    """The card's output tree of command `name` against its CPU twin's, by
+    phase 13's budgets (and, for 13a's --flip --save_scores, the merge of
+    each side's score maps; for 13a's exact run, J and F). -> what held."""
+    ref, got = twin["out"], card["out"]
+    names = same_tree(ref, got, label)
+    matched = name[0] in "cd"
+    near = score_near_tie(ref, label) if name == "a-flip" else None
+    amp = name == "a-approx"
+    labels = compare_labels(ref, got, names, label, matched=matched,
+                            near_tie=near, share=0.0 if amp else
+                            CLI_LABEL_SHARE)
+    held = [f"same {len(names)} files, {labels['frames']} PNGs with labels "
+            f"agreeing on >= {labels['worst']:.4%}"
+            + (" under a one-to-one id matching" if matched else "")]
+    if amp:
+        held.append(compare_amp_scores(ref, got, names, label))
+    if name == "a-flip":
+        held.append(f"{compare_scores(ref, got, names, label)} score maps "
+                    f"within {CLI_SCORE_STEP}/255, backward.npy equal, "
+                    f"differing labels only at near-ties")
+        merged = {}
+        for side in ("card", "cpu"):
+            tools[f"merge {side}"].result()
+            merged[side] = pairs.out("a-merge", side)
+        m_names = same_tree(merged["cpu"], merged["card"], "13a merge")
+        m = compare_labels(merged["cpu"], merged["card"], m_names,
+                           "13a merge")
+        # the merge's argmax of the truncated maps departs from the run's
+        # own labels only where two channels tie in the map
+        own = compare_labels(
+            merged["card"], got, m_names, "13a merge against the run's PNGs",
+            share=0.0, near_tie=score_near_tie(got, "13a merge", 0),
+            got_name=lambda n: os.path.join("Annotations", n))
+        held.append(f"merge_multi_scale_torch.py: {m['frames']} PNGs, card "
+                    f"vs CPU >= {m['worst']:.4%}; against the run's own "
+                    f"PNGs >= {own['worst']:.4%}, differing only where the "
+                    f"score map ties")
+    if name == "a-yt":
+        import zipfile
+        zips = []
+        for out in (ref, got):
+            with zipfile.ZipFile(os.path.join(
+                    out, os.path.basename(out) + ".zip")) as z:
+                zips.append(sorted(z.namelist()))
+        assert zips[0] == zips[1] and zips[1], (label, zips)
+        second = [n for n in names if n.endswith(".png") and
+                  2 in read_labels(os.path.join(got, n))]
+        assert second, f"{label}: object 2 never painted"
+        held.append(f"zip members equal ({len(zips[1])}), object 2 painted "
+                    f"on {len(second)} saved frames")
+    if name[0] == "c" or name == "d-auto":
+        def png_of(vid, file_name):
+            return os.path.join("pan_pred", vid, file_name[:-4] + ".png") \
+                if vid is not None else \
+                os.path.join("Annotations", file_name[:-4] + ".png")
+        segments = compare_pred_json(ref, got, png_of, labels, label)
+        held.append(f"pred.json: {segments} segments equal under the "
+                    f"matching")
+    if name[0] == "f":
+        from pathlib import Path
+        keys = [n for n in names if n.endswith("key.txt")]
+        texts = [[Path(r, n).read_text() for n in keys] for r in (ref, got)]
+        assert keys and texts[0] == texts[1], (label, texts)
+        held.append(f"key.txt equal ({texts[1][0]!r})")
+    if name == "a-exact":
+        scores = dict(kv.split("=") for kv in tools["jf"].result()
+                      ["stdout"].strip().splitlines()[-1].split())
+        j, f = float(scores["J_mean"]), float(scores["F_mean"])
+        assert min(j, f) >= CLI_JF_FLOOR, (label, scores)
+        held.append(f"eval_jf_torch.py, the card's PNGs against the CPU's: "
+                    f"J {j:.4f}, F {f:.4f}")
+    return "; ".join(held)
+
+
+def cli_line(label: str, card: dict, twin, held: str) -> None:
+    def fmt(x, spec):
+        return "none" if x is None else format(x, spec)
+    twin = "no CPU twin" if twin is None else \
+        f"CPU twin {twin['wall_s']:.2f} s wall, FPS {fmt(twin['fps'], '.3f')}"
+    print(f"phase {label}: card {card['wall_s']:.2f} s wall, FPS "
+          f"{fmt(card['fps'], '.3f')}, peak {fmt(card['peak_mb'], '.1f')} "
+          f"MiB; {twin}; {held} " + smi_line(), flush=True)
+
+
+class NearestReplay:
+    """The replay detector (ext/detectors.py:ReplayDetector, keyed by a
+    frame's exact bytes) for frames decoded from a lossy video of the
+    recorded frames: each frame takes the record of the recorded frame
+    nearest to it (mean absolute difference). `gaps` keeps, for each call,
+    the nearest and the second nearest distance."""
+
+    def __init__(self, replay, frames):
+        self.replay, self.frames, self.gaps = replay, frames, []
+
+    def _nearest(self, image_np):
+        d = sorted((float(np.abs(image_np.astype(np.int16) - f).mean()), i)
+                   for i, f in enumerate(self.frames))
+        self.gaps.append((d[0][0], d[1][0]))
+        return self.frames[d[0][1]]
+
+    def detect(self, image_np, *args):
+        return self.replay.detect(self._nearest(image_np), *args)
+
+    def masks_for_boxes(self, image_np, boxes):
+        return self.replay.masks_for_boxes(self._nearest(image_np), boxes)
+
+
+def run_in_process(fn, label: str) -> dict:
+    """fn() with its standard output and error kept, timed (the device
+    drained after it); -> cli's keys, checked as check_cli checks a
+    command."""
+    import contextlib
+    import io
+    out, err = io.StringIO(), io.StringIO()
+    cuda = torch.cuda.is_initialized()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        fn()
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_cli(label, 0, out.getvalue() + err.getvalue())
+    return {"wall_s": wall, "fps": cli_number(out.getvalue(), "FPS"),
+            "peak_mb": cli_number(out.getvalue(),
+                                  "Max allocated memory (MB)"),
+            "stdout": out.getvalue()}
+
+
+class SeededIds:
+    """The demo modules' InferenceCore, patched for a run so that each core
+    draws its object ids from a seeded generator (as phases 9 and 12 do):
+    then two runs that admit the same objects paint the same ids and blend
+    the same colours."""
+
+    def __init__(self, *modules):
+        self.modules = modules
+        self.real = modules[0].InferenceCore
+
+    def __enter__(self):
+        real = self.real
+
+        def seeded_core(*a, **kw):
+            core = real(*a, **kw)
+            core.object_manager._rng = np.random.default_rng(5)
+            return core
+
+        for mod in self.modules:
+            mod.InferenceCore = seeded_core
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self.modules:
+            mod.InferenceCore = self.real
+        return False
+
+
+def demo_flags(device: str, weights: str, size_args, *extra):
+    """The text demo's parsed flags with 13e's prompt and weights."""
+    return demo_driver("demo_with_text_torch").make_parser().parse_args([
+        "--prompt", REPLAY_PROMPT, "--model", weights, "--device", device,
+        "--raise_on_error", *size_args, *extra])
+
+
+def text_demo_run(device: str, weights: str, out: str, size_args) -> dict:
+    """13e's text demo on `device`, in this process:
+    demo_with_text_torch.drive on example/vipseg's clip, as main drives it
+    (its reader, a demo ResultSaver under out), with ReplayDetector in
+    Grounding DINO's and SAM's place (the hub is never reached), object ids
+    seeded (SeededIds). -> run_in_process's result."""
+    from deva_tpu_torch.ext.detectors import ReplayDetector
+    text = demo_driver("demo_with_text_torch")
+
+    def text_demo():
+        np.random.seed(42)
+        args = demo_flags(device, weights, size_args, "--img_path",
+                          os.path.join(VIPSEG, "images", VIPSEG_CLIP),
+                          "--output", out)
+        text.drive(args, ReplayDetector(REPLAY_FIXTURE), text.run_demo,
+                   text.setup_device(args))
+
+    with SeededIds(text):
+        return run_in_process(text_demo, "13e text demo")
+
+
+def video_demo_run(device: str, weights: str, lay: dict, out: str,
+                   size_args) -> dict:
+    """13e's video demo on `device`, in this process:
+    demo_gradio_torch.track_video as its main runs it without --serve (the
+    flags' Demo, cv2's decode of the clip's mp4, tracked.mp4 under out),
+    with NearestReplay in the detector's place, object ids seeded
+    (SeededIds). -> run_in_process's result, with the NearestReplay gaps
+    under "gaps"."""
+    from deva_tpu_torch.ext.detectors import ReplayDetector
+    text = demo_driver("demo_with_text_torch")
+    gd = demo_driver("demo_gradio_torch")
+    source = NearestReplay(ReplayDetector(REPLAY_FIXTURE), lay["rgb"])
+
+    def video_demo():
+        np.random.seed(42)
+        args = demo_flags(device, weights, size_args, "--output", out)
+        dev = text.setup_device(args)
+        demo = gd.Demo(text.load_model(args, dev), text.demo_config(args, 0),
+                       vars(args), args, dev)
+        gd.track_video(demo, demo.cfg, demo.ext_cfg, source, lay["mp4"],
+                       args.output)
+
+    with SeededIds(text, gd):
+        return dict(run_in_process(video_demo, "13e video demo"),
+                    gaps=source.gaps)
+
+
+def check_demos(card: dict, cpu: dict, card_out: str, cpu_out: str) -> None:
+    """13e's budgets: the text demo's tree, labels under the id matching
+    and pred.json; the two tracked.mp4 (compare_videos); each decoded frame
+    nearest its own recorded frame by a clear margin."""
+    label = "13e demo_with_text_torch.drive (ReplayDetector)"
+    ref, got = os.path.join(cpu_out, "text"), os.path.join(card_out, "text")
+    names = same_tree(ref, got, label)
+    labels = compare_labels(ref, got, names, label, matched=True)
+    match = labels["matchings"]["Annotations"]
+    assert all(k == v for k, v in match.items()), (label, match)
+    segs = compare_pred_json(
+        ref, got, lambda _, fn: os.path.join("Annotations", fn[:-4] + ".png"),
+        labels, label)
+    cli_line(label, card["text"], cpu["text"],
+             f"same {len(names)} files, {labels['frames']} PNGs with labels "
+             f"agreeing on >= {labels['worst']:.4%}, the same {len(match)} "
+             f"ids; pred.json: {segs} segments equal")
+    label = "13e demo_gradio_torch.track_video (mp4 in, tracked.mp4 out)"
+    gaps = card["video"]["gaps"]
+    for side in (gaps, cpu["video"]["gaps"]):
+        assert side and all(a < 0.5 * b for a, b in side), (label, side)
+    psnr = compare_videos(os.path.join(cpu_out, "video", "tracked.mp4"),
+                          os.path.join(card_out, "video", "tracked.mp4"),
+                          label)
+    n = len(video_frames(os.path.join(card_out, "video", "tracked.mp4")))
+    cli_line(label, card["video"], cpu["video"],
+             f"{n} frames of the decoded tracked.mp4 each, PSNR card vs CPU "
+             f"{psnr:.2f} dB; {len(gaps)} detector calls, each decoded frame "
+             f"nearest its recorded frame (mean |diff| at most "
+             f"{max(a for a, _ in gaps):.2f} against >= "
+             f"{min(b for _, b in gaps):.2f} to the next)")
+
+
+def phase13_host_io(dev, lay: dict, tmp: str) -> None:
+    """13g: host ms per frame of data/video_reader.py's reader (__getitem__:
+    the JPEG decode and resize to --size 480, and on frame 0 the mask's) at
+    854x480 (example/vos) and 1280x720 (example/vipseg's frames), the
+    median of IO_ROUNDS rounds of every frame; and host ms per saved frame
+    of ResultSaver in VIPSeg's layout (save_mask, then the drain in end(),
+    over IO_SAVES frames; the device drained first) on IO_CHANNELS
+    probabilities at 480x853 on the card: the need_resize branch (the f32
+    probabilities to the host, resized to 1280x720 there) and the device
+    argmax branch (uint8 ids to the host) apart."""
+    from deva_tpu_torch.data.video_reader import VideoReader
+    from deva_tpu_torch.inference.object_info import ObjectInfo
+    from deva_tpu_torch.inference.object_manager import ObjectManager
+    from deva_tpu_torch.inference.result_saver import ResultSaver
+    vos = os.path.join(ROOT, "example", "vos")
+    readers = {
+        "854x480": VideoReader("bmx-trees",
+                               os.path.join(vos, "JPEGImages", "bmx-trees"),
+                               os.path.join(vos, "Annotations", "bmx-trees"),
+                               size=480),
+        "1280x720": VideoReader(VIPSEG_CLIP, os.path.join(
+            VIPSEG, "images", VIPSEG_CLIP), lay["mask720"], size=480)}
+    read = {}
+    for key, reader in readers.items():
+        times = {}
+        for _ in range(IO_ROUNDS):
+            for i in range(len(reader)):
+                t0 = time.perf_counter()
+                data = reader[i]
+                times.setdefault(i, []).append(
+                    (time.perf_counter() - t0) * 1000)
+                assert data["rgb"].shape[0] == 480, data["rgb"].shape
+        read[key] = (statistics.median(t for i in times if i for t in
+                                       times[i]),
+                     statistics.median(times[0]))
+    objects = ObjectManager(np.random.default_rng(0))
+    objects.use_long_id = True
+    objects.add_new_objects([ObjectInfo(id=1000 + 7 * k, category_id=k,
+                                        isthing=True, score=0.5)
+                             for k in range(IO_CHANNELS - 1)])
+    gen = torch.Generator().manual_seed(17)
+    prob = torch.softmax(4 * torch.randn(IO_CHANNELS, 480, 853,
+                                         generator=gen), 0).to(dev)
+    saved = {}
+    for branch, kw in (("need_resize", dict(need_resize=True,
+                                            shape=(720, 1280))),
+                       ("device argmax", {})):
+        out = os.path.join(tmp, "io", branch.replace(" ", "_"))
+        saver = ResultSaver(out, VIPSEG_CLIP, dataset="vipseg",
+                            object_manager=objects)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        caller = 0.0
+        t0 = time.perf_counter()
+        for i in range(IO_SAVES):
+            t1 = time.perf_counter()
+            saver.save_mask(prob, f"{i:08d}.jpg", **kw)
+            caller += time.perf_counter() - t1
+        saver.end()
+        total = time.perf_counter() - t0
+        pngs = file_tree(os.path.join(out, "pan_pred"))
+        assert len(pngs) == IO_SAVES, (branch, pngs)
+        saved[branch] = (total * 1000 / IO_SAVES, caller * 1000 / IO_SAVES)
+    print("phase 13g host I/O on this machine: data/video_reader.py's "
+          "__getitem__ (decode, resize to --size 480), ms per frame, median "
+          f"of {IO_ROUNDS} rounds: " + ", ".join(
+              f"{k} {a:.3f} (frame 0 with its mask {b:.3f})"
+              for k, (a, b) in read.items())
+          + f"; ResultSaver (VIPSeg layout, {IO_CHANNELS} channels of "
+          f"480x853 on the {dev.type} device), ms per saved frame over "
+          f"{IO_SAVES} frames, save_mask plus end()'s drain (save_mask "
+          "alone): " + ", ".join(f"{k} {a:.3f} ({b:.3f})"
+                                 for k, (a, b) in saved.items())
+          + " " + smi_line(), flush=True)
+
+
+def maskless_frames(name: str) -> int:
+    """The frames of command `name` that propagate without a mask (each
+    reads the memory through the kernels of its method): example/vos's
+    frames after its first, the YouTube-VOS layout's frames but the two of
+    each video that bring a mask; 1 for the demo (a tracked frame)."""
+    if name == "a-yt":
+        return sum(t - 2 for t, _ in CLI_YT)
+    if name[0] == "a":
+        return len(os.listdir(os.path.join(ROOT, "example", "vos",
+                                           "JPEGImages", "bmx-trees"))) - 1
+    return 1
+
+
+def inproc_launches(ak, run, pair, at_least: int, label: str) -> dict:
+    """run() on the card in this process with the launch counts at 0: each
+    kernel of `pair` at least `at_least` times, none of the other pair's.
+    -> the counts."""
+    ak.reset_launch_counts()
+    run()
+    torch.cuda.synchronize()
+    counts = dict(ak.LAUNCHES)
+    assert all(counts[k] >= at_least for k in pair) and not any(
+        counts[k] for k in counts if k not in pair), (label, counts, at_least)
+    return counts
+
+
+def phase13(ak, dev, card: str = "cuda", parts: str = "abcdefg",
+            size_args=()) -> None:
+    """Phase 13, the command lines (see the header): the parts named (of
+    "abcdefg"), with write_weights' model. card: the device of the card
+    side ("cpu" rehearses the phase with two CPU runs of each command; then
+    no launch is counted); size_args: extra flags of every command (a
+    rehearsal's --size)."""
+    on_card = card == "cuda"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = write_weights(tmp)
+        lay = cli_layouts(tmp, parts)
+        cmds = cli_commands(weights, lay, list(size_args), parts)
+        pairs = CliPairs(tmp, card, len(cmds))
+        try:
+            for name, _, script, args in cmds:
+                pairs.run(name, script, args, twin=name != "b-batched")
+            tools = cli_tools(pairs, [name for name, *_ in cmds])
+            cards = {name: pairs.result(name, "card") for name, *_ in cmds}
+            launched = {}
+            if on_card:
+                vos = demo_driver("eval_vos_torch")
+                auto = demo_driver("demo_automatic_torch")
+                for name, label, script, args in cmds:
+                    if name[0] not in "ad":
+                        continue
+                    out = pairs.out(name, "inproc")
+                    main = vos.main if name[0] == "a" else auto.main
+                    pair = ("segmax", "denom_readout") if name == "a-approx" \
+                        else EXACT_PAIR
+                    names = file_tree(cards[name]["out"])
+                    launched[name] = inproc_launches(
+                        ak, lambda: run_in_process(
+                            lambda: main([*args, "--output", out]), label),
+                        pair, maskless_frames(name), label)
+                    same_tree(cards[name]["out"], out, label + " in process")
+                    compare_labels(cards[name]["out"], out, names,
+                                   label + " in process",
+                                   matched=name[0] == "d")
+            if "e" in parts:
+                demos = {}
+                for side, device in (("card", card), ("cpu", "cpu")):
+                    out = pairs.out("e", side)
+
+                    def run(side=side, device=device, out=out):
+                        demos[side] = {
+                            "text": text_demo_run(
+                                device, weights, os.path.join(out, "text"),
+                                size_args),
+                            "video": video_demo_run(device, weights, lay,
+                                                    os.path.join(out, "video"),
+                                                    size_args)}
+
+                    if side == "card" and on_card:
+                        launched["e"] = inproc_launches(ak, run, EXACT_PAIR, 1,
+                                                        "13e")
+                    else:
+                        run()
+            for name, label, script, args in cmds:
+                if name == "b-batched":
+                    twin = None
+                    held = check_batched_vos(label, cards[name], pairs)
+                else:
+                    twin = pairs.result(name, "cpu")
+                    held = check_command(name, label, cards[name], twin,
+                                         pairs, tools)
+                if name in launched:
+                    held += (f"; the same command in this process on the "
+                             f"card: the same files and labels, launches "
+                             f"{launched[name]}")
+                cli_line(label, cards[name], twin, held)
+            if "e" in parts:
+                check_demos(demos["card"], demos["cpu"],
+                            pairs.out("e", "card"), pairs.out("e", "cpu"))
+                if on_card:
+                    print(f"phase 13e launches on the card (both demos): "
+                          f"{launched['e']}", flush=True)
+        finally:
+            pairs.close()
+        commands = time.perf_counter() - t0
+        if "g" in parts:
+            phase13_host_io(dev, lay, tmp)
+    print(f"phase 13 took {time.perf_counter() - t0:.1f} s (the commands "
+          f"and their checks {commands:.1f})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5725,11 +6825,20 @@ def main() -> int:
           f"{os.path.relpath(lib, ROOT)}", flush=True)
 
     net_cpu = init_weights(DEVANetwork(), seed=0).eval()
+    laps = [time.perf_counter()]
+
+    def lap(phases: str) -> None:
+        """Prints the seconds since the last lap (what a later slice reads
+        to choose the depth it cuts)."""
+        laps.append(time.perf_counter())
+        print(f"phase {phases} took {laps[-1] - laps[-2]:.1f} s", flush=True)
+
     exact = phase_kernels(ak, apx, dev)
     approx = phase_approx_kernels(ak, apx, dev)
     bf16 = phase_kernels_bf16(ak, apx, dev)
     batched = phase_kernels_batched(ak, apx, dev)
     batched16 = phase_kernels_batched(ak, apx, dev, "bfloat16")
+    lap("1, 1b")
     net_cpu16 = with_dtype(net_cpu, "bfloat16")
     phase_slice_parity(ak, net_cpu, dev)
     phase_slice_parity_approx(ak, apx, net_cpu, dev)
@@ -5738,6 +6847,7 @@ def main() -> int:
                               BF16_SLICE_TOL)
     phase_batched_slice(ak, net_cpu, dev)
     phase_batched_slice(ak, net_cpu16, dev, "bfloat16", BF16_SLICE_TOL)
+    lap("2, 2b")
     launches, probs_exact, single_exact = phase_main_path(ak, net_cpu, dev)
     launches16, probs16, _ = phase_main_path(ak, net_cpu16, dev,
                                              ring_dtype="bfloat16")
@@ -5755,11 +6865,13 @@ def main() -> int:
         used = [name for name, count in runs.items() if count]
         assert all(runs[name] == 59 for name in used) and len(used) == 2, \
             f"bf16 run: not one launch per propagated frame: {runs}"
+    lap("3, 4")
     launches5 = phase_batched_main(
         ak, net_cpu, net_cpu16, dev,
         {"exact": (probs_exact, single_exact),
          "approx": (probs_approx, single_approx)})
     del probs_exact, probs_approx
+    lap("5")
     phase_detection_parity(ak, net_cpu, dev)
     launches6b, memory_calls = phase_detection_online(ak, net_cpu, dev)
     launches6c, aligned, align_calls = phase_detection_semionline(
@@ -5771,17 +6883,26 @@ def main() -> int:
     del memory_calls
     det_rows += det_kernel_rows(ak, apx, dev, ".det.align", align_calls,
                                 aligned, "6c's last spatial alignment")
+    lap("6")
     det_rows += phase7(ak, apx, net_cpu, dev)
+    lap("7")
     det_rows += phase8(ak, apx, net_cpu, dev)
+    lap("8")
     demo_rows, history_b = phase9(ak, apx, net_cpu, dev)
     det_rows += demo_rows
+    lap("9")
     phase10(ak, net_cpu, dev)
+    lap("10")
     del net_cpu16
     gc.collect()
     torch.cuda.empty_cache()
     det_rows += phase11()
+    lap("11")
     phase12(ak, net_cpu, dev, history_b)
+    lap("12")
     del net_cpu
+    phase13(ak, dev)
+    lap("13")
 
     rows = []
     for ring, res_exact, res_approx, run_exact, run_approx, suffix in (

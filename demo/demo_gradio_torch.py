@@ -126,9 +126,14 @@ def track_video(demo: Demo, cfg, ext_cfg, source, video_path: str,
                 progress=None) -> str:
     """Decode the video with cv2, track_frames, and encode the blended
     frames to out_dir/tracked.mp4 (mp4v, the input's rate), with a tqdm
-    bar or gradio's progress. Returns the output video's path."""
+    bar or gradio's progress. Returns the output video's path. Raises
+    where cv2 cannot open the input or the mp4v writer, or decodes no
+    frame (cv2 signals none of these itself: the run would end with no
+    output)."""
     import cv2
     cap = cv2.VideoCapture(video_path)
+    if not cap.isOpened():
+        raise FileNotFoundError(f"cv2 cannot open the video {video_path!r}")
     fps = cap.get(cv2.CAP_PROP_FPS) or 24
     n_total = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
     vid_length = n_total if max_frames <= 0 else min(n_total, max_frames)
@@ -151,13 +156,19 @@ def track_video(demo: Demo, cfg, ext_cfg, source, video_path: str,
                 h, w = frame.shape[:2]
                 self.video = cv2.VideoWriter(
                     out_video, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+                if not self.video.isOpened():
+                    raise RuntimeError(f"cv2 cannot write {out_video} with "
+                                       "the mp4v codec")
             self.video.write(np.ascontiguousarray(frame))
+
+    decoded = []
 
     def frames():
         while True:
             ok, frame_bgr = cap.read()
             if not ok:
                 return
+            decoded.append(None)
             yield cv2.cvtColor(frame_bgr, cv2.COLOR_BGR2RGB)
 
     writer = Writer()
@@ -168,6 +179,8 @@ def track_video(demo: Demo, cfg, ext_cfg, source, video_path: str,
         cap.release()
         if writer.video is not None:
             writer.video.release()
+    if not decoded:
+        raise ValueError(f"cv2 decoded no frame of {video_path!r}")
     return out_video
 
 

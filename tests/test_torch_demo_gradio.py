@@ -97,6 +97,9 @@ class _Recorder:
                 frames.append(np.array(frame))
                 video.write(np.ascontiguousarray(frame))
 
+            def isOpened(self):
+                return video.isOpened()
+
             def release(self):
                 video.release()
         return Writer()
