@@ -1,0 +1,7 @@
+"""Kernels: csrc/topk_readout.cu's share of its roofline over the window's launches
+(perfbench/rooflines/topk_readout.py), in percent."""
+from harness.readers import roofline_pct
+
+
+def read(record):
+    return roofline_pct(record, "topk_readout")
