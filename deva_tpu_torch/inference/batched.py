@@ -51,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from deva_tpu_torch.config import InferenceConfig
-from deva_tpu_torch.inference.core import InferenceCore
+from deva_tpu_torch.inference.core import InferenceCore, frames_to_device
 from deva_tpu_torch.inference.memory import (_round_up,
                                              consolidate_prototypes_batched)
 from deva_tpu_torch.models.network import DEVANetwork
@@ -60,6 +60,7 @@ from deva_tpu_torch.ops.attention_kernels import attend_topk
 from deva_tpu_torch.ops.pad import pad_amounts
 from deva_tpu_torch.parallel.mesh import (axis_group, check_even_share,
                                           group_max)
+from deva_tpu_torch.utils import tracing
 
 
 def _tokens(x: torch.Tensor) -> torch.Tensor:
@@ -106,20 +107,23 @@ class BatchedPropagator:
         """Consume each video's first frame and ground-truth mask through the
         single-video InferenceCore.step, then stack the resulting states.
         With a mesh, this process's videos."""
-        check_even_share(self._group, len(images0))
-        self.cores = []
-        o_cap = 0
-        for img, mask, objs in zip(images0, masks0, objects):
-            core = InferenceCore(self.model, self.cfg, device=self.device)
-            core.step(img, mask, objects=list(objs))
-            (_, bucket), = core.memory.buckets.items()
-            o_cap = max(o_cap, bucket.o_cap)
-            self.cores.append(core)
-        # _stack pads every video's rings and slots to the shared o_cap/cap
-        o_cap, = group_max(self._group, o_cap)
-        self._stack(o_cap)
-        self._token_hw = int(self.sizes[0])  # tokens written per frame
-        self.frame_idx = 0  # frames consumed after the first
+        with tracing.step():
+            check_even_share(self._group, len(images0))
+            self.cores = []
+            o_cap = 0
+            for img, mask, objs in zip(images0, masks0, objects):
+                core = InferenceCore(self.model, self.cfg,
+                                     device=self.device)
+                core.step(img, mask, objects=list(objs))
+                (_, bucket), = core.memory.buckets.items()
+                o_cap = max(o_cap, bucket.o_cap)
+                self.cores.append(core)
+            # _stack pads every video's rings and slots to the shared
+            # o_cap/cap
+            o_cap, = group_max(self._group, o_cap)
+            self._stack(o_cap)
+            self._token_hw = int(self.sizes[0])  # tokens written per frame
+            self.frame_idx = 0  # frames consumed after the first
 
     def _stack(self, o_cap: int) -> None:
         cfg = self.cfg
@@ -190,45 +194,49 @@ class BatchedPropagator:
         """Attention of every video's queries over its rings, one launch of
         each kernel of the method for all B (deva_tpu's _attend_rings under
         vmap), and the in-place usage counts. Returns rd [B, O, Q, Cv]."""
-        b, cap = self.key.shape[:2]
-        size = int(self.sizes[0])  # equal in every video (lockstep)
-        work_valid = (torch.arange(cap, device=qk.device) < size).repeat(b, 1)
-        top_k = self.cfg.top_k
-        if lt_on:
-            if self.approx:
-                rd, (lt_u, work_u) = attend_approx_multi(
-                    [(self.lt_key, self.lt_shr, self.lt_value, self.lt_valid),
-                     (self.key, self.shr, self.value, work_valid)],
-                    qk, qe, top_k, return_usage=True)
+        with tracing.span("deva.attention"):
+            b, cap = self.key.shape[:2]
+            size = int(self.sizes[0])  # equal in every video (lockstep)
+            work_valid = (torch.arange(cap, device=qk.device) <
+                          size).repeat(b, 1)
+            top_k = self.cfg.top_k
+            if lt_on:
+                if self.approx:
+                    rd, (lt_u, work_u) = attend_approx_multi(
+                        [(self.lt_key, self.lt_shr, self.lt_value,
+                          self.lt_valid),
+                         (self.key, self.shr, self.value, work_valid)],
+                        qk, qe, top_k, return_usage=True)
+                else:
+                    # the value rings are read in place (two segments);
+                    # the keys, shrinkage and validity are concatenated
+                    # for sim_topk
+                    lcap = self.lt_key.shape[1]
+                    rd, usage = attend_topk(
+                        torch.cat([self.lt_key, self.key], 1),
+                        torch.cat([self.lt_shr, self.shr], 1),
+                        (self.lt_value, self.value), qk, qe, top_k,
+                        torch.cat([self.lt_valid, work_valid], 1),
+                        return_usage=True)
+                    lt_u, work_u = usage[:, :lcap], usage[:, lcap:]
             else:
-                # the value rings are read in place (two segments); the
-                # keys, shrinkage and validity are concatenated for sim_topk
-                lcap = self.lt_key.shape[1]
-                rd, usage = attend_topk(
-                    torch.cat([self.lt_key, self.key], 1),
-                    torch.cat([self.lt_shr, self.shr], 1),
-                    (self.lt_value, self.value), qk, qe, top_k,
-                    torch.cat([self.lt_valid, work_valid], 1),
-                    return_usage=True)
-                lt_u, work_u = usage[:, :lcap], usage[:, lcap:]
-        else:
-            ring = (self.key, self.shr, self.value, work_valid)
-            if self.approx:
-                res = attend_approx_multi([ring], qk, qe, top_k,
-                                          return_usage=self.use_lt)
-                rd, work_u = (res[0], res[1][0]) if self.use_lt else \
-                    (res, None)
-            else:
-                res = attend_topk(*ring[:3], qk, qe, top_k, ring[3],
-                                  return_usage=self.use_lt)
-                rd, work_u = res if self.use_lt else (res, None)
-        if self.use_lt:  # working-memory usage whenever long-term is on
-            self.use_cnt += torch.where(work_valid, work_u, 0.0)
-            self.life_cnt += work_valid.float()
-        if lt_on and self.count_lt_usage:
-            self.lt_use += torch.where(self.lt_valid, lt_u, 0.0)
-            self.lt_life += self.lt_valid.float()
-        return rd
+                ring = (self.key, self.shr, self.value, work_valid)
+                if self.approx:
+                    res = attend_approx_multi([ring], qk, qe, top_k,
+                                              return_usage=self.use_lt)
+                    rd, work_u = (res[0], res[1][0]) if self.use_lt else \
+                        (res, None)
+                else:
+                    res = attend_topk(*ring[:3], qk, qe, top_k, ring[3],
+                                      return_usage=self.use_lt)
+                    rd, work_u = res if self.use_lt else (res, None)
+            if self.use_lt:  # working-memory usage whenever long-term is on
+                self.use_cnt += torch.where(work_valid, work_u, 0.0)
+                self.life_cnt += work_valid.float()
+            if lt_on and self.count_lt_usage:
+                self.lt_use += torch.where(self.lt_valid, lt_u, 0.0)
+                self.lt_life += self.lt_valid.float()
+            return rd
 
     def _write(self, padded, f16, key, shrinkage, selection) -> None:
         """A memory frame: encode every video's mask and write its tokens at
@@ -307,7 +315,12 @@ class BatchedPropagator:
         min_work = cfg.min_mid_term_frames * hw
         if size < max_work or size <= min_work + hw:
             return
+        with tracing.span("deva.consolidate"):
+            self._consolidate(size, hw, min_work)
 
+    def _consolidate(self, size: int, hw: int, min_work: int) -> None:
+        """_maybe_consolidate's work, once the working rings are full."""
+        cfg = self.cfg
         # usage-based eviction of least-used long-term tokens for the videos
         # at the cap
         limit = cfg.max_long_term_elements - cfg.num_prototypes
@@ -403,12 +416,7 @@ class BatchedPropagator:
     def _images(self, frames) -> torch.Tensor:
         """B frames (a sequence of arrays or tensors, or one stacked array or
         tensor) -> one f32 tensor on the propagator's device."""
-        if isinstance(frames, (list, tuple)):
-            return torch.stack([torch.as_tensor(f, dtype=torch.float32,
-                                                device=self.device)
-                                for f in frames])
-        return torch.as_tensor(frames, dtype=torch.float32,
-                               device=self.device)
+        return frames_to_device(frames, self.device)
 
     @staticmethod
     def _frame_tokens(h: int, w: int) -> int:
@@ -422,53 +430,58 @@ class BatchedPropagator:
         frame). frames: [B, K, H, W, 3] (or B arrays [K, H, W, 3]). The
         memory-write schedule must land only on the block's last frame;
         asserts otherwise. Returns probabilities [B, K, 1 + O_cap, H, W]."""
-        frames = self._images(frames)
-        k, h, w = frames.shape[1:4]
-        last_mem = self._last_mem_ti()
-        for i in range(1, k):
-            assert (self.frame_idx + i) - last_mem < self.cfg.mem_every, \
-                "a mid-block frame would be a memory frame; use a smaller K"
-        write_last = ((self.frame_idx + k) - last_mem
-                      >= self.cfg.mem_every) and not end
-        hw = self._frame_tokens(h, w)
-        if write_last and not self.use_lt and \
-                group_max(self._group, int(self.sizes.max()))[0] + hw > \
-                self.key.shape[1]:
-            self.reserve(4)
-        lt_on = self._lt_engaged
-        probs = [self._body(frames[:, i],
-                            mem_write=write_last and i == k - 1,
-                            update_sensory=True, lt_on=lt_on)
-                 for i in range(k)]
-        self.frame_idx += k
-        if write_last:
-            self.sizes = self.sizes + hw
-            self._mem_ti = self.frame_idx
-            self._maybe_consolidate()
-        return torch.stack(probs, 1)
+        with tracing.step():
+            frames = self._images(frames)
+            k, h, w = frames.shape[1:4]
+            last_mem = self._last_mem_ti()
+            for i in range(1, k):
+                assert (self.frame_idx + i) - last_mem < \
+                    self.cfg.mem_every, \
+                    "a mid-block frame would be a memory frame; use a " \
+                    "smaller K"
+            write_last = ((self.frame_idx + k) - last_mem
+                          >= self.cfg.mem_every) and not end
+            hw = self._frame_tokens(h, w)
+            if write_last and not self.use_lt and \
+                    group_max(self._group, int(self.sizes.max()))[0] + hw > \
+                    self.key.shape[1]:
+                self.reserve(4)
+            lt_on = self._lt_engaged
+            probs = [self._body(frames[:, i],
+                                mem_write=write_last and i == k - 1,
+                                update_sensory=True, lt_on=lt_on)
+                     for i in range(k)]
+            self.frame_idx += k
+            if write_last:
+                self.sizes = self.sizes + hw
+                self._mem_ti = self.frame_idx
+                self._maybe_consolidate()
+            return torch.stack(probs, 1)
 
     @torch.no_grad()
     def step_all(self, frames, end: bool = False) -> torch.Tensor:
         """One lockstep frame for every video. frames: B arrays [H, W, 3]
         (or one [B, H, W, 3]). Returns probabilities [B, 1 + O_cap, H, W]
         (video i's live channels are the first 1 + num_obj[i])."""
-        self.frame_idx += 1
-        curr_ti = self.frame_idx
-        is_mem = (curr_ti - self._last_mem_ti() >= self.cfg.mem_every) \
-            and not end
-        images = self._images(frames)
-        hw = self._frame_tokens(*images.shape[1:3])
-        if is_mem and not self.use_lt and \
-                group_max(self._group, int(self.sizes.max()))[0] + hw > \
-                self.key.shape[1]:
-            self._grow_rings(hw * 4)
-        probs = self._body(images, mem_write=is_mem, update_sensory=not end,
-                           lt_on=self._lt_engaged)
-        if is_mem:
-            self.sizes = self.sizes + hw
-            self._mem_ti = curr_ti
-            self._maybe_consolidate()
-        return probs
+        with tracing.step():
+            self.frame_idx += 1
+            curr_ti = self.frame_idx
+            is_mem = (curr_ti - self._last_mem_ti() >= self.cfg.mem_every) \
+                and not end
+            images = self._images(frames)
+            hw = self._frame_tokens(*images.shape[1:3])
+            if is_mem and not self.use_lt and \
+                    group_max(self._group, int(self.sizes.max()))[0] + hw > \
+                    self.key.shape[1]:
+                self._grow_rings(hw * 4)
+            probs = self._body(images, mem_write=is_mem,
+                               update_sensory=not end,
+                               lt_on=self._lt_engaged)
+            if is_mem:
+                self.sizes = self.sizes + hw
+                self._mem_ti = curr_ti
+                self._maybe_consolidate()
+            return probs
 
     def _last_mem_ti(self) -> int:
         return getattr(self, "_mem_ti", 0)

@@ -68,7 +68,7 @@ import torch.nn.functional as F
 
 from deva_tpu_torch.config import InferenceConfig
 from deva_tpu_torch.inference.batched import BatchedPropagator, _tokens
-from deva_tpu_torch.inference.core import InferenceCore
+from deva_tpu_torch.inference.core import InferenceCore, frames_to_device
 from deva_tpu_torch.inference.memory import (LongTermBucket, _round_up,
                                              consolidate_prototypes_batched)
 from deva_tpu_torch.models.network import DEVANetwork
@@ -79,6 +79,7 @@ from deva_tpu_torch.ops.attention_kernels import attend_topk
 from deva_tpu_torch.ops.pad import pad_amounts
 from deva_tpu_torch.parallel.mesh import (axis_group, check_even_share,
                                           group_max)
+from deva_tpu_torch.utils import tracing
 
 # ring dtypes as the group agrees on them
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -359,53 +360,55 @@ class BatchedDetectionPropagator:
         one launch of each kernel of the method for all B*S pairs, and the
         usage counts in place. qk/qe [B, Q, Ck]. Returns the readout added
         into the object rows, [B, o_cap, Q, Cv] f32."""
-        b, s, cap, ck = self.key.shape
-        p, o_slot, cv = b * s, self.o_slot, self._cv
-        q = qk.shape[1]
-        floor, work, lt_valid = self._validity()
-        # the pairs' queries, materialised: the kernels take contiguous
-        # operands, and a video's slots share its queries
-        qk_p = qk.repeat_interleave(s, 0)
-        qe_p = qe.repeat_interleave(s, 0)
-        key = self.key.view(p, cap, ck)
-        shr = self.shr.view(p, cap)
-        value = self.value.view(p, cap, o_slot, cv)
-        top_k = self.cfg.top_k
-        if self.use_lt:
-            lcap = self.lt_key.shape[2]
-            mk = torch.cat([self.lt_key.view(p, lcap, ck), key], 1)
-            ms = torch.cat([self.lt_shr.view(p, lcap), shr], 1)
-            valid = torch.cat([lt_valid, floor], 1)
-            lt_value = self.lt_value.view(p, lcap, o_slot, cv)
-            if self.approx:
-                # deva_tpu's batched body attends the concatenated ring
-                # with the single-ring attend_pallas_approx
-                rd, usage = attend_approx(mk, ms, torch.cat(
-                    [lt_value, value], 1), qk_p, qe_p, top_k, valid,
-                    return_usage=True)
-            else:
-                # the value rings are read in place as two segments
-                rd, usage = attend_topk(mk, ms, (lt_value, value), qk_p,
-                                        qe_p, top_k, valid, return_usage=True)
-            shape = (b, s, cap)
-            self.use_cnt += torch.where(work, usage[:, lcap:], 0.0) \
-                .view(shape)
-            self.life_cnt += work.float().view(shape)
-            if self.count_lt_usage:
-                shape = (b, s, lcap)
-                self.lt_use += torch.where(lt_valid, usage[:, :lcap], 0.0) \
+        with tracing.span("deva.attention"):
+            b, s, cap, ck = self.key.shape
+            p, o_slot, cv = b * s, self.o_slot, self._cv
+            q = qk.shape[1]
+            floor, work, lt_valid = self._validity()
+            # the pairs' queries, materialised: the kernels take contiguous
+            # operands, and a video's slots share its queries
+            qk_p = qk.repeat_interleave(s, 0)
+            qe_p = qe.repeat_interleave(s, 0)
+            key = self.key.view(p, cap, ck)
+            shr = self.shr.view(p, cap)
+            value = self.value.view(p, cap, o_slot, cv)
+            top_k = self.cfg.top_k
+            if self.use_lt:
+                lcap = self.lt_key.shape[2]
+                mk = torch.cat([self.lt_key.view(p, lcap, ck), key], 1)
+                ms = torch.cat([self.lt_shr.view(p, lcap), shr], 1)
+                valid = torch.cat([lt_valid, floor], 1)
+                lt_value = self.lt_value.view(p, lcap, o_slot, cv)
+                if self.approx:
+                    # deva_tpu's batched body attends the concatenated ring
+                    # with the single-ring attend_pallas_approx
+                    rd, usage = attend_approx(mk, ms, torch.cat(
+                        [lt_value, value], 1), qk_p, qe_p, top_k, valid,
+                        return_usage=True)
+                else:
+                    # the value rings are read in place as two segments
+                    rd, usage = attend_topk(mk, ms, (lt_value, value), qk_p,
+                                            qe_p, top_k, valid,
+                                            return_usage=True)
+                shape = (b, s, cap)
+                self.use_cnt += torch.where(work, usage[:, lcap:], 0.0) \
                     .view(shape)
-                self.lt_life += lt_valid.float().view(shape)
-        else:
-            attend = attend_approx if self.approx else attend_topk
-            rd = attend(key, shr, value, qk_p, qe_p, top_k, floor)
-        # each pair's real rows into its video's object rows; padded rowmap
-        # entries carry zero rows
-        rd = rd.masked_fill_(~self._row_ok.view(p, o_slot, 1, 1), 0.0)
-        out = torch.zeros((b * self.o_cap, q, cv), dtype=torch.float32,
-                          device=qk.device)
-        out.index_add_(0, self._flat_rows, rd.reshape(p * o_slot, q, cv))
-        return out.view(b, self.o_cap, q, cv)
+                self.life_cnt += work.float().view(shape)
+                if self.count_lt_usage:
+                    shape = (b, s, lcap)
+                    self.lt_use += torch.where(lt_valid, usage[:, :lcap],
+                                               0.0).view(shape)
+                    self.lt_life += lt_valid.float().view(shape)
+            else:
+                attend = attend_approx if self.approx else attend_topk
+                rd = attend(key, shr, value, qk_p, qe_p, top_k, floor)
+            # each pair's real rows into its video's object rows; padded rowmap
+            # entries carry zero rows
+            rd = rd.masked_fill_(~self._row_ok.view(p, o_slot, 1, 1), 0.0)
+            out = torch.zeros((b * self.o_cap, q, cv), dtype=torch.float32,
+                              device=qk.device)
+            out.index_add_(0, self._flat_rows, rd.reshape(p * o_slot, q, cv))
+            return out.view(b, self.o_cap, q, cv)
 
     def _write(self, key, shrinkage, qe, value) -> None:
         """A memory frame: every pair writes one frame of tokens at its own
@@ -485,12 +488,7 @@ class BatchedDetectionPropagator:
     def _images(self, frames) -> torch.Tensor:
         """B frames (a sequence of arrays or tensors, or one stacked array
         or tensor) -> one f32 tensor on the propagator's device."""
-        if isinstance(frames, (list, tuple)):
-            return torch.stack([torch.as_tensor(f, dtype=torch.float32,
-                                                device=self.device)
-                                for f in frames])
-        return torch.as_tensor(frames, dtype=torch.float32,
-                               device=self.device)
+        return frames_to_device(frames, self.device)
 
     def _advance(self, writers: np.ndarray, hw: int) -> None:
         """Every real slot of every writing video received one frame."""
@@ -557,35 +555,36 @@ class BatchedDetectionPropagator:
         [B, K, H, W, 3] (or B arrays [K, H, W, 3]). end=True freezes sensory
         on the last frame, as step_all(end=True) does. Returns probabilities
         [B, K, 1 + o_cap, H, W]."""
-        frames = self._images(frames)
-        k, h, w = frames.shape[1:4]
-        for i in range(1, k):
-            due = self.curr_ti + i - self.last_mem_ti >= self.cfg.mem_every
-            assert not due.any(), \
-                "a mid-block frame would be a memory frame; use plan_block"
-        self.curr_ti = self.curr_ti + k
-        is_mem = ((self.curr_ti - self.last_mem_ti >= self.cfg.mem_every)
-                  & (not end))
-        write_last = bool(is_mem.any())
-        masked = write_last and not is_mem.all()
-        hw = BatchedPropagator._frame_tokens(h, w)
-        any_write = self._any_write(is_mem, frames[:, 0])
-        do_write = torch.as_tensor(is_mem, device=self.device) if masked \
-            else None
-        probs = []
-        for i in range(k):
-            last = i == k - 1
-            prob, self.sensory, self.last_mask = self._body(
-                frames[:, i], mem_write=write_last and last,
-                update_sensory=not (end and last), do_write=do_write)
-            probs.append(prob)
-        if write_last:
-            self._advance(is_mem, hw)
-            self.last_mem_ti = np.where(is_mem, self.curr_ti,
-                                        self.last_mem_ti)
-        if any_write:
-            self._maybe_consolidate()
-        return torch.stack(probs, 1)
+        with tracing.step():
+            frames = self._images(frames)
+            k, h, w = frames.shape[1:4]
+            for i in range(1, k):
+                due = self.curr_ti + i - self.last_mem_ti >= self.cfg.mem_every
+                assert not due.any(), \
+                    "a mid-block frame would be a memory frame; use plan_block"
+            self.curr_ti = self.curr_ti + k
+            is_mem = ((self.curr_ti - self.last_mem_ti >= self.cfg.mem_every)
+                      & (not end))
+            write_last = bool(is_mem.any())
+            masked = write_last and not is_mem.all()
+            hw = BatchedPropagator._frame_tokens(h, w)
+            any_write = self._any_write(is_mem, frames[:, 0])
+            do_write = torch.as_tensor(is_mem, device=self.device) if masked \
+                else None
+            probs = []
+            for i in range(k):
+                last = i == k - 1
+                prob, self.sensory, self.last_mask = self._body(
+                    frames[:, i], mem_write=write_last and last,
+                    update_sensory=not (end and last), do_write=do_write)
+                probs.append(prob)
+            if write_last:
+                self._advance(is_mem, hw)
+                self.last_mem_ti = np.where(is_mem, self.curr_ti,
+                                            self.last_mem_ti)
+            if any_write:
+                self._maybe_consolidate()
+            return torch.stack(probs, 1)
 
     @torch.no_grad()
     def forward_probs(self, frames) -> np.ndarray:

@@ -49,6 +49,7 @@ last_mask are f32, the rings in InferenceConfig.ring_dtype.
 """
 from __future__ import annotations
 
+import math
 import warnings
 from typing import List, Optional, Tuple
 
@@ -69,11 +70,35 @@ from deva_tpu_torch.models.network import DEVANetwork
 from deva_tpu_torch.ops.aggregate import aggregate_logits, argmax_ids
 from deva_tpu_torch.ops.pad import pad_divide_by, unpad
 from deva_tpu_torch.parallel.object_sharding import ObjectShards
+from deva_tpu_torch.utils import tracing
 
 
 def _tokens(x: torch.Tensor) -> torch.Tensor:
     """[1, C, h, w] -> token-major [h*w, C]."""
     return x[0].flatten(1).T.contiguous()
+
+
+def frames_to_device(frames, device) -> torch.Tensor:
+    """Frames (an array or tensor, or a sequence of them, which are
+    stacked) -> one f32 tensor on `device`, inside span deva.upload.
+    Counters: upload.bytes, the f32 bytes taken from host frames, and
+    upload.pageable_bytes, those of them not in pinned memory; a frame
+    already on an accelerator counts nothing."""
+    with tracing.span("deva.upload"):
+        many = isinstance(frames, (list, tuple))
+        if tracing.enabled():
+            for f in frames if many else [frames]:
+                if torch.is_tensor(f) and f.device.type != "cpu":
+                    continue
+                n = math.prod(np.shape(f)) * 4  # as f32
+                tracing.count("upload.bytes", n)
+                if not (torch.is_tensor(f) and f.is_pinned()):
+                    tracing.count("upload.pageable_bytes", n)
+        if many:
+            return torch.stack([torch.as_tensor(f, dtype=torch.float32,
+                                                device=device)
+                                for f in frames])
+        return torch.as_tensor(frames, dtype=torch.float32, device=device)
 
 
 class InferenceCore:
@@ -253,60 +278,61 @@ class InferenceCore:
         Returns probabilities [1 + num_obj, H, W] (background first) on the
         core's device, unpadded.
         """
-        if objects is None and mask is not None:
-            if hard_mask:
-                raise ValueError("a hard mask needs its object ids")
-            objects = list(range(1, mask.shape[0] + 1))
+        with tracing.step():
+            if objects is None and mask is not None:
+                if hard_mask:
+                    raise ValueError("a hard mask needs its object ids")
+                objects = list(range(1, mask.shape[0] + 1))
 
-        self.curr_ti += 1
-        image_ti = self.curr_ti if image_ti_override is None else \
-            image_ti_override
-        is_mem_frame = ((self.curr_ti - self.last_mem_ti >= self.mem_every)
-                        or (mask is not None)) and (not end)
+            self.curr_ti += 1
+            image_ti = self.curr_ti if image_ti_override is None else \
+                image_ti_override
+            is_mem_frame = ((self.curr_ti - self.last_mem_ti >= self.mem_every)
+                            or (mask is not None)) and (not end)
 
-        image = torch.as_tensor(image, dtype=torch.float32,
-                                device=self.device)
-        fused = self._try_fused_step(image, mask, is_mem_frame, end,
-                                     image_ti_override, delete_buffer)
-        if fused is not None:
-            return fused
+            image = frames_to_device(image, self.device)
+            fused = self._try_fused_step(image, mask, is_mem_frame, end,
+                                         image_ti_override, delete_buffer)
+            if fused is not None:
+                return fused
 
-        image, self.pad = self._image_nchw(image)
+            image, self.pad = self._image_nchw(image)
 
-        need_segment = (mask is None) or (
-            self.object_manager.num_obj > 0
-            and not self.object_manager.has_all(list(objects or [])))
+            need_segment = (mask is None) or (
+                self.object_manager.num_obj > 0
+                and not self.object_manager.has_all(list(objects or [])))
 
-        ms_features, key, shrinkage, selection = \
-            self.image_feature_store.get_features(image_ti, image)
+            ms_features, key, shrinkage, selection = \
+                self.image_feature_store.get_features(image_ti, image)
 
-        if self.memory is None:
-            self._ensure_capacity()
+            if self.memory is None:
+                self._ensure_capacity()
 
-        pred_prob_with_bg = None
-        if need_segment:
-            pred_prob_with_bg = self._segment(key, shrinkage, selection,
-                                              ms_features,
-                                              update_sensory=not end)
+            pred_prob_with_bg = None
+            if need_segment:
+                pred_prob_with_bg = self._segment(key, shrinkage, selection,
+                                                  ms_features,
+                                                  update_sensory=not end)
 
-        if mask is not None:
-            mask = torch.as_tensor(mask, device=self.device)
-            mask, _ = pad_divide_by(mask, 16, -2, -1)
-            pred_prob_with_bg = self._merge_input_mask(
-                mask, objects, hard_mask, need_segment, pred_prob_with_bg)
+            if mask is not None:
+                mask = torch.as_tensor(mask, device=self.device)
+                mask, _ = pad_divide_by(mask, 16, -2, -1)
+                pred_prob_with_bg = self._merge_input_mask(
+                    mask, objects, hard_mask, need_segment, pred_prob_with_bg)
 
-        # keep all padded slots in last_mask (fixed shape)
-        n = self.object_manager.num_obj
-        self.last_mask = self._mine(self._pad_objects(pred_prob_with_bg[1:]))
+            # keep all padded slots in last_mask (fixed shape)
+            n = self.object_manager.num_obj
+            self.last_mask = self._mine(
+                self._pad_objects(pred_prob_with_bg[1:]))
 
-        if is_mem_frame:
-            self._add_memory(image, ms_features, self.last_mask, key,
-                             shrinkage, selection)
+            if is_mem_frame:
+                self._add_memory(image, ms_features, self.last_mask, key,
+                                 shrinkage, selection)
 
-        if delete_buffer:
-            self.image_feature_store.delete(image_ti)
+            if delete_buffer:
+                self.image_feature_store.delete(image_ti)
 
-        return unpad(pred_prob_with_bg[:n + 1], self.pad, -2, -1)
+            return unpad(pred_prob_with_bg[:n + 1], self.pad, -2, -1)
 
     def _fused_bucket(self):
         """(bucket, long-term bucket | None) when the fused path applies to

@@ -47,6 +47,7 @@ from deva_tpu_torch.ops.approx_kernels import (attend_approx,
 from deva_tpu_torch.ops.attention_kernels import attend_topk
 from deva_tpu_torch.ops.pad import pad_amounts
 from deva_tpu_torch.parallel.object_sharding import ObjectShards
+from deva_tpu_torch.utils import tracing
 
 
 def _tokens(x: torch.Tensor) -> torch.Tensor:
@@ -86,31 +87,34 @@ class FusedStepper:
         frame's Q, or K frames' K*Q: the rings do not change within a
         block). Returns (rd [O, Q, Cv], work usage | None, lt usage |
         None)."""
-        dev = qk.device
-        work_valid = valid_mask(bucket.cap, bucket.size, dev)
-        if use_lt:
-            lt_valid = valid_mask(lt.cap, lt.size, dev)
-            if self.approx:
-                rd, (lt_usage, work_u) = attend_approx_multi(
-                    [(lt.key, lt.shrinkage, lt.value, lt_valid),
-                     (bucket.key, bucket.shrinkage, bucket.value,
-                      work_valid)], qk, qe, self.top_k, return_usage=True)
-            else:
-                # the value rings are read in place (two segments); the
-                # keys, shrinkage and validity are concatenated for sim_topk
-                rd, usage = attend_topk(
-                    torch.cat([lt.key, bucket.key]),
-                    torch.cat([lt.shrinkage, bucket.shrinkage]),
-                    (lt.value, bucket.value), qk, qe, self.top_k,
-                    torch.cat([lt_valid, work_valid]), return_usage=True)
-                lt_usage, work_u = usage[:lt.cap], usage[lt.cap:]
-            return rd, work_u, lt_usage
-        if work_usage:
-            rd, work_u = self._attend(bucket.key, bucket.shrinkage,
-                                      bucket.value, work_valid, qk, qe, True)
-            return rd, work_u, None
-        return self._attend(bucket.key, bucket.shrinkage, bucket.value,
-                            work_valid, qk, qe, False), None, None
+        with tracing.span("deva.attention"):
+            dev = qk.device
+            work_valid = valid_mask(bucket.cap, bucket.size, dev)
+            if use_lt:
+                lt_valid = valid_mask(lt.cap, lt.size, dev)
+                if self.approx:
+                    rd, (lt_usage, work_u) = attend_approx_multi(
+                        [(lt.key, lt.shrinkage, lt.value, lt_valid),
+                         (bucket.key, bucket.shrinkage, bucket.value,
+                          work_valid)], qk, qe, self.top_k, return_usage=True)
+                else:
+                    # the value rings are read in place (two segments);
+                    # the keys, shrinkage and validity are concatenated
+                    # for sim_topk
+                    rd, usage = attend_topk(
+                        torch.cat([lt.key, bucket.key]),
+                        torch.cat([lt.shrinkage, bucket.shrinkage]),
+                        (lt.value, bucket.value), qk, qe, self.top_k,
+                        torch.cat([lt_valid, work_valid]), return_usage=True)
+                    lt_usage, work_u = usage[:lt.cap], usage[lt.cap:]
+                return rd, work_u, lt_usage
+            if work_usage:
+                rd, work_u = self._attend(bucket.key, bucket.shrinkage,
+                                          bucket.value, work_valid, qk, qe,
+                                          True)
+                return rd, work_u, None
+            return self._attend(bucket.key, bucket.shrinkage, bucket.value,
+                                work_valid, qk, qe, False), None, None
 
     def _attend_and_count(self, qk, qe, bucket, lt, use_lt: bool,
                           work_usage: bool, count_lt_usage: bool,

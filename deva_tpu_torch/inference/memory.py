@@ -53,6 +53,7 @@ from deva_tpu_torch.config import InferenceConfig
 from deva_tpu_torch.ops import memory_attention as ma
 from deva_tpu_torch.ops.attention_kernels import attend_topk
 from deva_tpu_torch.parallel.object_sharding import ObjectShards
+from deva_tpu_torch.utils import tracing
 
 
 def _round_up(x: int, q: int) -> int:
@@ -364,7 +365,9 @@ class MemoryEngine:
             return
         for bid in list(self.buckets.keys()):
             b = self.buckets[bid]
-            if b.size >= self.max_work_tokens:
+            if b.size < self.max_work_tokens:
+                continue
+            with tracing.span("deva.consolidate"):
                 lt = self.long_buckets.get(bid)
                 max_lt = (self.cfg.max_long_term_elements -
                           self.cfg.num_prototypes)
@@ -447,35 +450,36 @@ class MemoryEngine:
         """qk/qe: [HW, Ck]. obj_rows: obj id -> global tmp row.
         Returns the readout [O_cap, HW, Cv] (f32), rows in tmp order (this
         process's slots under sharding)."""
-        out = torch.zeros((self._slots(), qk.shape[0], self.cv),
-                          dtype=torch.float32, device=self.device)
-        for bid, b in self.buckets.items():
-            valid = valid_mask(b.cap, b.size, self.device)
-            lt = self.long_buckets.get(bid)
-            if self.use_long_term and lt is not None and lt.size > 0:
-                lt_valid = valid_mask(lt.cap, lt.size, self.device)
-                rd, usage = attend(
-                    self.approx, torch.cat([lt.key, b.key]),
-                    torch.cat([lt.shrinkage, b.shrinkage]),
-                    (lt.value, b.value), qk, qe, self.top_k,
-                    valid=torch.cat([lt_valid, valid]), return_usage=True)
-                count_usage(b, usage[lt.cap:], valid)
-                if self.count_long_term_usage:
-                    count_usage(lt, usage[:lt.cap], lt_valid)
-            elif self.use_long_term:
-                rd, usage = attend(self.approx, b.key, b.shrinkage, b.value,
-                                   qk, qe, self.top_k, valid=valid,
-                                   return_usage=True)
-                count_usage(b, usage, valid)
-            else:
-                rd = attend(self.approx, b.key, b.shrinkage, b.value, qk, qe,
-                            self.top_k, valid=valid)
-            rows = [obj_rows[o] for o in b.obj_ids]
-            if self.shards is None:
-                out[rows] = rd[:len(rows)]
-            else:
-                self._scatter_sharded(out, b, rows, rd)
-        return out
+        with tracing.span("deva.attention"):
+            out = torch.zeros((self._slots(), qk.shape[0], self.cv),
+                              dtype=torch.float32, device=self.device)
+            for bid, b in self.buckets.items():
+                valid = valid_mask(b.cap, b.size, self.device)
+                lt = self.long_buckets.get(bid)
+                if self.use_long_term and lt is not None and lt.size > 0:
+                    lt_valid = valid_mask(lt.cap, lt.size, self.device)
+                    rd, usage = attend(
+                        self.approx, torch.cat([lt.key, b.key]),
+                        torch.cat([lt.shrinkage, b.shrinkage]),
+                        (lt.value, b.value), qk, qe, self.top_k,
+                        valid=torch.cat([lt_valid, valid]), return_usage=True)
+                    count_usage(b, usage[lt.cap:], valid)
+                    if self.count_long_term_usage:
+                        count_usage(lt, usage[:lt.cap], lt_valid)
+                elif self.use_long_term:
+                    rd, usage = attend(self.approx, b.key, b.shrinkage,
+                                       b.value, qk, qe, self.top_k,
+                                       valid=valid, return_usage=True)
+                    count_usage(b, usage, valid)
+                else:
+                    rd = attend(self.approx, b.key, b.shrinkage, b.value, qk,
+                                qe, self.top_k, valid=valid)
+                rows = [obj_rows[o] for o in b.obj_ids]
+                if self.shards is None:
+                    out[rows] = rd[:len(rows)]
+                else:
+                    self._scatter_sharded(out, b, rows, rd)
+            return out
 
     def _scatter_sharded(self, out, b: Bucket, rows: List[int], rd) -> None:
         """out[rows] = the bucket's readout rd [o_b(/D), Q, Cv], where out

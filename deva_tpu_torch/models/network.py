@@ -35,6 +35,7 @@ from deva_tpu_torch.ops.memory_attention import (full_softmax, get_similarity,
                                                  readout)
 from deva_tpu_torch.ops.resize import downsample_area, upsample_bilinear
 from deva_tpu_torch.parallel.object_sharding import object_softmax
+from deva_tpu_torch.utils import tracing
 
 
 class DEVANetwork(nn.Module):
@@ -51,19 +52,22 @@ class DEVANetwork(nn.Module):
 
     def encode_image(self, image: torch.Tensor):
         """image [B, 3, H, W] -> ((f16, f8, f4), key_feat [B, Cp, h, w])"""
-        return self.pixel_encoder(image)
+        with tracing.span("deva.encode_image"):
+            return self.pixel_encoder(image)
 
     def transform_key(self, feat: torch.Tensor, need_sk: bool = True,
                       need_ek: bool = True):
         """feat [B, Cp, h, w] -> (key [B, Ck, h, w], shrinkage [B, 1, h, w],
         selection [B, Ck, h, w])"""
-        return self.key_proj(feat, need_s=need_sk, need_e=need_ek)
+        with tracing.span("deva.transform_key"):
+            return self.key_proj(feat, need_s=need_sk, need_e=need_ek)
 
     def encode_mask(self, image, pix_f16, sensory, masks,
                     deep_update: bool = True):
         """-> (value [B, O, Cv, h, w], new_sensory [B, O, Cs, h, w])"""
-        return self.mask_encoder(image, pix_f16, sensory, masks,
-                                 deep_update=deep_update)
+        with tracing.span("deva.encode_mask"):
+            return self.mask_encoder(image, pix_f16, sensory, masks,
+                                     deep_update=deep_update)
 
     def read_memory(self, query_key: torch.Tensor,
                     query_selection: torch.Tensor, memory_key: torch.Tensor,
@@ -100,15 +104,16 @@ class DEVANetwork(nn.Module):
         background product and the softmax then run over every process's
         objects, and the result holds the background and this process's
         objects."""
-        lm = downsample_area(last_mask, 16)[:, :, None]  # [B, O, 1, h, w]
-        out = self.mask_decoder(multi_scale_features, memory_readout,
-                                sensory, lm, need_aux=need_aux,
-                                update_sensory=update_sensory)
-        lg, prob = _aggregate(out[1], selector, 4, group)
-        if need_aux:
-            return (out[0], lg, prob) + _aggregate(out[2], selector, 16,
-                                                   group)
-        return out[0], lg, prob
+        with tracing.span("deva.segment"):
+            lm = downsample_area(last_mask, 16)[:, :, None]  # [B, O, 1, h, w]
+            out = self.mask_decoder(multi_scale_features, memory_readout,
+                                    sensory, lm, need_aux=need_aux,
+                                    update_sensory=update_sensory)
+            lg, prob = _aggregate(out[1], selector, 4, group)
+            if need_aux:
+                return (out[0], lg, prob) + _aggregate(out[2], selector, 16,
+                                                       group)
+            return out[0], lg, prob
 
 
 def _aggregate(logits: torch.Tensor, selector: Optional[torch.Tensor],

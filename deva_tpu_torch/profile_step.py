@@ -25,10 +25,13 @@ every frame's wall time (a chunk's time shared by its frames; with
 --batch, the time of one lockstep step of all B videos; with --detections
 --batch, the driver's StepTimer's device time of each step per lockstep
 frame), and
-traces the last --window frames (whole chunks) with torch.profiler: device
-time per layer (the model's four modes and the memory attention, as
-profiler ranges), device time per kernel, the device's busy share of the
-window's wall time, and the peak allocated device memory of the run.
+traces the last --window frames (whole chunks) with torch.profiler and the
+port's own spans (utils/tracing.py, on for the window only): device time
+per layer (the spans' profiler ranges: the step, the frame upload, the
+model's four modes, the memory attention, long-term consolidation), each
+span's calls and total and self host ms, the upload counters, device time
+per kernel, the device's busy share of the window's wall time, and the
+peak allocated device memory of the run.
 
     python -m deva_tpu_torch.profile_step --frames 60 --window 10 \
         --topk_method approx --chunk 5 --trace step_trace.json
@@ -40,7 +43,6 @@ window's wall time, and the peak allocated device memory of the run.
 from __future__ import annotations
 
 import argparse
-import functools
 import os
 import statistics
 import sys
@@ -49,19 +51,15 @@ import types
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from deva_tpu_torch.config import InferenceConfig, ModelConfig
 from deva_tpu_torch.detection_clips import detections
 from deva_tpu_torch.inference.batched import BatchedPropagator
-from deva_tpu_torch.inference.batched_detection import \
-    BatchedDetectionPropagator
 from deva_tpu_torch.inference.core import InferenceCore
 from deva_tpu_torch.models.network import DEVANetwork, init_weights
+from deva_tpu_torch.utils import tracing
 
-
-LAYERS = ("encode_image", "transform_key", "encode_mask", "segment",
-          "attention")
 # kernels summed by kind, by substrings of their names (first match wins):
 # the port's four attention kernels, layout transposes around cuDNN's
 # convolutions, the convolutions and GEMMs, dtype casts
@@ -74,12 +72,10 @@ KERNEL_GROUPS = (
     ("casts", ("copy_kernel", "to_copy")))
 
 
-def _labeled(fn, name):
-    @functools.wraps(fn)
-    def run(*args, **kwargs):
-        with record_function(name):
-            return fn(*args, **kwargs)
-    return run
+def _start_window(prof) -> None:
+    """The window begins: the profiler, then the port's spans."""
+    prof.start()
+    tracing.enable()
 
 
 def _device_us(evt) -> float:
@@ -117,7 +113,7 @@ class _WindowSaver:
     def save_mask(self, prob, frame, **kwargs):
         if self.prof is not None and self.started is None and \
                 int(frame[:5]) >= self.start - 1:
-            self.prof.start()
+            _start_window(self.prof)
             self.started = (time.perf_counter(), self.timer.frames)
 
 
@@ -217,24 +213,14 @@ def main():
 
     net = init_weights(DEVANetwork(ModelConfig(
         dtype="bfloat16" if args.amp else "auto")), seed=0).to(dev).eval()
-    for mode in LAYERS[:4]:
-        setattr(net, mode, _labeled(getattr(net, mode), mode))
     cfg = InferenceConfig(
         topk_method=args.topk_method, max_missed_detection_count=5,
         preencode_blocks=args.preencode_blocks,
         ring_dtype=args.ring_dtype or ("bfloat16" if args.amp else "auto"))
-    if args.detections and args.batch > 1:
-        BatchedDetectionPropagator._attend = _labeled(
-            BatchedDetectionPropagator._attend, "attention")
-    elif args.batch > 1:
+    if args.batch > 1 and not args.detections:
         core = BatchedPropagator(net, cfg)
-        core._attend_and_count = _labeled(core._attend_and_count,
-                                          "attention")
-    else:
+    elif args.batch == 1:
         core = InferenceCore(net, cfg)
-        # the fused step's attention, and the composed path's
-        core._fused._attend_rings = _labeled(core._fused._attend_rings,
-                                             "attention")
     frames0 = frames[0]
     if args.detections:
         from deva_tpu_torch.inference.object_utils import \
@@ -256,11 +242,8 @@ def main():
         step_ms = []
         for i, n in runs:
             if i == start_window:
-                prof.start()
+                _start_window(prof)
                 window_t0 = time.perf_counter()
-            if i == 1 and args.batch == 1:
-                core.memory.match_memory = _labeled(core.memory.match_memory,
-                                                    "attention")
             t0 = time.perf_counter()
             if args.detections and i % 5 == 0:
                 core.incorporate_detection(
@@ -287,7 +270,9 @@ def main():
             step_ms += [(time.perf_counter() - t0) * 1000 / n] * n
         window_s = time.perf_counter() - window_t0
         window = args.frames - start_window
+    tracing.disable()
     prof.stop()
+    records, counters = tracing.drain()
 
     step = f"lockstep step of {args.batch} videos" if args.batch > 1 \
         else "frame"
@@ -298,11 +283,12 @@ def main():
     print(f"median frames 10+: {statistics.median(step_ms[10:]):.3f} ms "
           f"per {step}")
     events = prof.key_averages()
-    # on the device timeline, the layer ranges appear as annotations
+    # on the device timeline, the spans' ranges appear as annotations
     # spanning their kernels; keep them apart from the kernels themselves
     on_device = [e for e in events if e.device_type.name == "CUDA"]
-    layers = {e.key: _device_us(e) for e in on_device if e.key in LAYERS}
-    kernels = [e for e in on_device if e.key not in LAYERS]
+    layers = {e.key: _device_us(e) for e in on_device
+              if e.key.startswith("deva.")}
+    kernels = [e for e in on_device if e.key not in layers]
     busy_us = sum(_device_us(e) for e in kernels)
     print(f"window: {window} {unit}s, wall {window_s * 1000:.1f} ms, "
           f"device busy {busy_us / 1000:.1f} ms "
@@ -316,6 +302,13 @@ def main():
     for name, us in sorted(layers.items(), key=lambda kv: -kv[1]):
         print(f"layer {name}: {us / 1000 / window:.3f} ms/{unit} on the "
               f"device timeline ({us / (window_s * 1e6):.1%} of the wall)")
+    for name, row in sorted(tracing.summary(records).items(),
+                            key=lambda kv: -kv[1]["host_ms"]):
+        print(f"span {name}: {row['calls']} calls, host "
+              f"{row['host_ms'] / window:.3f} ms/{unit}, self "
+              f"{row['self_ms'] / window:.3f} ms/{unit}")
+    for name, n in sorted(counters.items()):
+        print(f"counter {name}: {n} ({n / window:.0f}/{unit})")
     groups = {}
     for e in kernels:
         group = next((g for g, keys in KERNEL_GROUPS
