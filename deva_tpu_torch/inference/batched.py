@@ -22,6 +22,11 @@ potentiation batched over the videos), and prototypes append at each
 video's own long-term offset. Eviction of obsolete long-term tokens is per
 video, on the host, as in deva_tpu.
 
+segment and encode_mask run on the live object slots only (each video's
+first num_obj of its O_cap), packed, whenever some slots are padding;
+padded slots keep their sensory state and get value 0 and probability 0
+before the aggregate, as the selector gives them unpacked.
+
 Ring sizes are host integers (numpy) and the long-term validity is a device
 mask updated where the long-term sizes change, so a lockstep step makes no
 host synchronisation; eviction frames read the usage counts, as deva_tpu's
@@ -54,7 +59,7 @@ from deva_tpu_torch.config import InferenceConfig
 from deva_tpu_torch.inference.core import InferenceCore, frames_to_device
 from deva_tpu_torch.inference.memory import (_round_up,
                                              consolidate_prototypes_batched)
-from deva_tpu_torch.models.network import DEVANetwork
+from deva_tpu_torch.models.network import DEVANetwork, live_slots
 from deva_tpu_torch.ops.approx_kernels import attend_approx_multi
 from deva_tpu_torch.ops.attention_kernels import attend_topk
 from deva_tpu_torch.ops.pad import pad_amounts
@@ -161,12 +166,13 @@ class BatchedPropagator:
             for c in self.cores])
         self.num_obj = np.asarray([c.object_manager.num_obj
                                    for c in self.cores])
-        # the per-video object selector of segment(): [B, O_cap]
-        self.selector = (torch.arange(o_cap)[None, :] <
-                         torch.as_tensor(self.num_obj)[:, None]).float() \
-            .to(self.device)
-        self.o_cap = o_cap
         b = len(self.cores)
+        # the live object slots, which segment() and encode_mask() run on,
+        # and the per-video object selector of segment(): [B, O_cap]
+        self.live = live_slots(self.num_obj, o_cap, self.device)
+        self.selector = torch.zeros(b * o_cap, device=self.device) \
+            .index_fill_(0, self.live.index, 1.0).view(b, o_cap)
+        self.o_cap = o_cap
         self.lt_sizes = np.zeros((b,), np.int64)
         if self.use_lt:
             # lazy long-term capacity, doubled on demand in
@@ -243,7 +249,8 @@ class BatchedPropagator:
         the shared working size, in place (rounded to the ring dtype)."""
         value, deep = self.model.encode_mask(padded, f16, self.sensory,
                                              self.last_mask,
-                                             deep_update=True)
+                                             deep_update=True,
+                                             live=self.live)
         self.sensory = deep
         b, o, cv = value.shape[:3]
         size = int(self.sizes[0])
@@ -271,7 +278,7 @@ class BatchedPropagator:
         readout = rd.transpose(2, 3).reshape(b, self.o_cap, -1, hq, wq)
         new_sensory, _, prob = self.model.segment(
             ms, readout, self.sensory, self.last_mask, selector=self.selector,
-            update_sensory=update_sensory)
+            update_sensory=update_sensory, live=self.live)
         if update_sensory:
             self.sensory = new_sensory
         self.last_mask = prob[:, 1:]

@@ -19,7 +19,7 @@ promotion (deva_tpu/models/blocks.py:301-307).
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -29,12 +29,22 @@ from deva_tpu_torch.models.layers import Conv2d, Linear
 from deva_tpu_torch.ops.resize import upsample_bilinear
 
 
-def distribute_cat(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def per_object(x: torch.Tensor, o: int,
+               video: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Frame features x [B, ...] as grouped [B, O, ...]: broadcast over the
+    O objects, or, for packed slots (`video` [L], O = 1), gathered by each
+    slot's frame."""
+    if video is None:
+        return x[:, None].expand(-1, o, *x.shape[1:])
+    return x.index_select(0, video)[:, None]
+
+
+def distribute_cat(x: torch.Tensor, g: torch.Tensor,
+                   video: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Broadcast frame features x [B, C, H, W] over the objects of
-    g [B, O, Cg, H, W] and concatenate on channels, x first."""
-    o = g.shape[1]
-    x = x[:, None].expand(-1, o, -1, -1, -1)
-    return torch.cat([x, g], dim=2)
+    g [B, O, Cg, H, W] (or gather them, `per_object`) and concatenate on
+    channels, x first."""
+    return torch.cat([per_object(x, g.shape[1], video), g], dim=2)
 
 
 class GConv2D(Conv2d):
@@ -128,9 +138,10 @@ class GroupFeatureFusionBlock(nn.Module):
         self.attention = CBAM(mid_dim)
         self.block2 = GroupResBlock(mid_dim, out_dim)
 
-    def forward(self, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, g: torch.Tensor,
+                video: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, o = g.shape[:2]
-        g = self.block1(distribute_cat(x, g))
+        g = self.block1(distribute_cat(x, g, video))
         r = self.attention(g.flatten(0, 1))
         g = g + r.view(b, o, *r.shape[1:])
         return self.block2(g)
@@ -163,10 +174,11 @@ class MaskUpsampleBlock(nn.Module):
         self.out_conv = GroupResBlock(up_dim, out_dim)
         self.scale_factor = scale_factor
 
-    def forward(self, skip_f: torch.Tensor, up_g: torch.Tensor):
+    def forward(self, skip_f: torch.Tensor, up_g: torch.Tensor,
+                video: Optional[torch.Tensor] = None):
         dt = self.compute_dtype
         g = upsample_bilinear(up_g.to(dt), self.scale_factor)
-        return self.out_conv(skip_f.to(dt)[:, None] + g)
+        return self.out_conv(per_object(skip_f.to(dt), g.shape[1], video) + g)
 
 
 class DecoderFeatureProcessor(nn.Module):

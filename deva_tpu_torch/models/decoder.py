@@ -10,6 +10,8 @@ join the sensory update.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -40,24 +42,30 @@ class MaskDecoder(nn.Module):
 
     def forward(self, multi_scale_features, memory_readout: torch.Tensor,
                 sensory: torch.Tensor, last_mask: torch.Tensor,
-                need_aux: bool = False, update_sensory: bool = True):
+                need_aux: bool = False, update_sensory: bool = True,
+                video: Optional[torch.Tensor] = None):
         """multi_scale_features: (f16 [B,512,h,w], f8, f4);
         memory_readout/sensory: [B, O, C, h, w]; last_mask [B, O, 1, h, w]
         (already area-downsampled to stride 16)
         -> (new_sensory, logits [B, O, 4h, 4w]) and, with need_aux, the
         training aux logits [B, O, h, w] of the sensory state as it came in
-        (deva_tpu/models/decoder.py:43-47)."""
+        (deva_tpu/models/decoder.py:43-47).
+        video: packed slots, [L] int64: the grouped inputs are [L, 1, ...]
+        and slot i reads frame video[i]'s features, gathered where they
+        are used (the skip projections still run once a frame)."""
         f16, f8, f4 = multi_scale_features
         aux_logits = None
         if need_aux:
-            aux_logits = self.sensory_linear_pred(f16, sensory)[:, :, 0]
+            aux_logits = self.sensory_linear_pred(
+                f16 if video is None else f16.index_select(0, video),
+                sensory)[:, :, 0]
         skip8, skip4 = self.decoder_feat_proc([f8, f4])
 
         p16 = memory_readout.to(self.compute_dtype) + self.sensory_compress(
             torch.cat([sensory, last_mask], dim=2))
-        p16 = self.fuser(f16, p16)
-        p8 = self.up_16_8(skip8, p16)
-        p4 = self.up_8_4(skip4, p8)
+        p16 = self.fuser(f16, p16, video)
+        p8 = self.up_16_8(skip8, p16, video)
+        p4 = self.up_8_4(skip4, p8, video)
 
         b, o = p4.shape[:2]
         logits = self.pred(F.relu(p4.flatten(0, 1)).float())

@@ -13,13 +13,13 @@ the first conv casts them to the compute dtype, as in deva_tpu.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from deva_tpu_torch.models.blocks import (GroupFeatureFusionBlock,
-                                          SensoryDeepUpdater)
+                                          SensoryDeepUpdater, per_object)
 from deva_tpu_torch.models.layers import Conv2d
 from deva_tpu_torch.models.resnet import (BasicBlock, Bottleneck, make_stage,
                                           stem, stem_forward)
@@ -58,17 +58,20 @@ class MaskEncoder(nn.Module):
 
     def forward(self, image: torch.Tensor, pix_f16: torch.Tensor,
                 sensory: torch.Tensor, masks: torch.Tensor,
-                deep_update: bool = True
+                deep_update: bool = True,
+                video: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """image [B, 3, H, W]; pix_f16 [B, Cp, h, w]; sensory
         [B, O, Cs, h, w]; masks [B, O, H, W] in [0, 1]
-        -> (value [B, O, Cv, h, w], new_sensory)."""
+        -> (value [B, O, Cv, h, w], new_sensory).
+        video: packed slots, [L] int64: sensory and masks are [L, 1, ...]
+        and slot i encodes with frame video[i]."""
         b, o = masks.shape[:2]
-        g = torch.cat([image[:, None].expand(-1, o, -1, -1, -1),
-                       masks[:, :, None]], dim=2).flatten(0, 1)
+        g = torch.cat([per_object(image, o, video), masks[:, :, None]],
+                      dim=2).flatten(0, 1)
         g = stem_forward(self.conv1, self.bn1, g)
         g16 = self.layer3(self.layer2(self.layer1(g)))
-        g16 = self.fuser(pix_f16, g16.view(b, o, *g16.shape[1:]))
+        g16 = self.fuser(pix_f16, g16.view(b, o, *g16.shape[1:]), video)
         new_sensory = self.sensory_update(g16, sensory) if deep_update \
             else sensory
         return g16, new_sensory

@@ -9,8 +9,11 @@ Port of deva_tpu/models/network.py with its five modes:
                  (and, for training, the aux head's)
 
 Grouped tensors are [B, O, C, H, W]. `selector` [B, O] masks padded object
-slots. Submodule names are upstream DEVA's, so an upstream state dict (or
-deva_tpu variables through models/convert.py) loads with strict=True.
+slots. `segment` and `encode_mask` take the live slots (`LiveSlots`) when
+some slots are padding: the per-object work then runs on the live slots
+alone, packed along the folded batch axis, and is scattered back to
+[B, O, ...]. Submodule names are upstream DEVA's, so an upstream state dict
+(or deva_tpu variables through models/convert.py) loads with strict=True.
 The convolutions and dense layers compute in config.compute_dtype (flax's
 `dtype=`, models/layers.py); the parameters stay f32, so the state dict is
 the same in every dtype. Logit aggregation, the sigmoid, the selector and
@@ -20,8 +23,9 @@ the final x4 upsample run in float32 (deva_tpu/models/network.py:106-140):
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -36,6 +40,52 @@ from deva_tpu_torch.ops.memory_attention import (full_softmax, get_similarity,
 from deva_tpu_torch.ops.resize import downsample_area, upsample_bilinear
 from deva_tpu_torch.parallel.object_sharding import object_softmax
 from deva_tpu_torch.utils import tracing
+
+
+class LiveSlots(NamedTuple):
+    """The live (video, object) slots of a [B, O] group: `index` [L], the
+    folded slot v*O + o of each, and `video` [L], its v; int64 on the
+    model's device, ascending."""
+    index: torch.Tensor
+    video: torch.Tensor
+
+
+def live_slots(num_obj, o_cap: int, device) -> LiveSlots:
+    """The slots o < num_obj[v] of each video v (host integers) at o_cap
+    slots a video, moved to `device` in one copy."""
+    video = np.repeat(np.arange(len(num_obj)), num_obj)
+    obj = np.concatenate([np.arange(n) for n in num_obj])
+    both = torch.as_tensor(np.stack([video * o_cap + obj, video]),
+                           dtype=torch.int64).to(device)
+    return LiveSlots(both[0], both[1])
+
+
+def _packed(live: Optional[LiveSlots], slots: int,
+            name: str) -> Optional[LiveSlots]:
+    """`live`, or None where it covers every one of the `slots` slots
+    (decided from its host length), after counting the mode's slots."""
+    n = slots if live is None else len(live.index)
+    tracing.count(name + ".slots", slots)
+    tracing.count(name + ".live_slots", n)
+    return None if n == slots else live
+
+
+def _pack(g: torch.Tensor, live: LiveSlots) -> torch.Tensor:
+    """[B, O, ...] -> the live slots' [L, 1, ...]."""
+    return g.flatten(0, 1).index_select(0, live.index)[:, None]
+
+
+def _unpack(x: torch.Tensor, live: LiveSlots,
+            base: torch.Tensor) -> torch.Tensor:
+    """The live slots' [L, 1, ...] written over `base` [B, O, ...]."""
+    return base.flatten(0, 1).index_copy(
+        0, live.index, x[:, 0].to(base.dtype)).view(base.shape)
+
+
+def _unpack_zeros(x: torch.Tensor, live: LiveSlots, b: int,
+                  o: int) -> torch.Tensor:
+    """The live slots' [L, 1, ...] in [B, O, ...], zero elsewhere."""
+    return _unpack(x, live, x.new_zeros((b, o, *x.shape[2:])))
 
 
 class DEVANetwork(nn.Module):
@@ -63,11 +113,24 @@ class DEVANetwork(nn.Module):
             return self.key_proj(feat, need_s=need_sk, need_e=need_ek)
 
     def encode_mask(self, image, pix_f16, sensory, masks,
-                    deep_update: bool = True):
-        """-> (value [B, O, Cv, h, w], new_sensory [B, O, Cs, h, w])"""
+                    deep_update: bool = True,
+                    live: Optional[LiveSlots] = None):
+        """-> (value [B, O, Cv, h, w], new_sensory [B, O, Cs, h, w]).
+        live: the slots to encode; the others get value 0 and keep their
+        sensory state. Counters: encode_mask.slots, encode_mask.live_slots.
+        """
         with tracing.span("deva.encode_mask"):
-            return self.mask_encoder(image, pix_f16, sensory, masks,
-                                     deep_update=deep_update)
+            b, o = masks.shape[:2]
+            live = _packed(live, b * o, "encode_mask")
+            if live is None:
+                return self.mask_encoder(image, pix_f16, sensory, masks,
+                                         deep_update=deep_update)
+            value, new_sensory = self.mask_encoder(
+                image, pix_f16, _pack(sensory, live), _pack(masks, live),
+                deep_update=deep_update, video=live.video)
+            return (_unpack_zeros(value, live, b, o),
+                    _unpack(new_sensory, live, sensory) if deep_update
+                    else sensory)
 
     def read_memory(self, query_key: torch.Tensor,
                     query_selection: torch.Tensor, memory_key: torch.Tensor,
@@ -93,7 +156,7 @@ class DEVANetwork(nn.Module):
                 sensory: torch.Tensor, last_mask: torch.Tensor,
                 selector: Optional[torch.Tensor] = None,
                 need_aux: bool = False, update_sensory: bool = True,
-                group=None):
+                group=None, live: Optional[LiveSlots] = None):
         """memory_readout/sensory [B, O, C, h, w]; last_mask [B, O, H, W]
         -> (new_sensory, logits [B, O+1, H, W], prob [B, O+1, H, W]) and,
         with need_aux, the aux head's (logits, prob) [B, O+1, H, W]: the
@@ -103,12 +166,31 @@ class DEVANetwork(nn.Module):
         process's share of them (parallel/object_sharding.py): the
         background product and the softmax then run over every process's
         objects, and the result holds the background and this process's
-        objects."""
+        objects.
+        live: the slots to decode (not with `group`); the others, which
+        `selector` must zero, get logits 0 and keep their sensory state.
+        Counters: segment.slots, segment.live_slots."""
+        if live is not None and (group is not None or selector is None):
+            raise ValueError("live slots need a selector and no "
+                             "object-sharding group")
         with tracing.span("deva.segment"):
-            lm = downsample_area(last_mask, 16)[:, :, None]  # [B, O, 1, h, w]
-            out = self.mask_decoder(multi_scale_features, memory_readout,
-                                    sensory, lm, need_aux=need_aux,
-                                    update_sensory=update_sensory)
+            b, o = sensory.shape[:2]
+            live = _packed(live, b * o, "segment")
+            if live is None:
+                # [B, O, 1, h, w]
+                lm = downsample_area(last_mask, 16)[:, :, None]
+                out = self.mask_decoder(multi_scale_features, memory_readout,
+                                        sensory, lm, need_aux=need_aux,
+                                        update_sensory=update_sensory)
+            else:
+                lm = downsample_area(_pack(last_mask, live), 16)[:, :, None]
+                out = self.mask_decoder(
+                    multi_scale_features, _pack(memory_readout, live),
+                    _pack(sensory, live), lm, need_aux=need_aux,
+                    update_sensory=update_sensory, video=live.video)
+                out = ((_unpack(out[0], live, sensory) if update_sensory
+                        else sensory),) + tuple(
+                    _unpack_zeros(x, live, b, o) for x in out[1:])
             lg, prob = _aggregate(out[1], selector, 4, group)
             if need_aux:
                 return (out[0], lg, prob) + _aggregate(out[2], selector, 16,

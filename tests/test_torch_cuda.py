@@ -1173,3 +1173,36 @@ def test_object_sharded_step_on_the_card_matches_unsharded(dev, tmp_path):
             np.testing.assert_array_equal(a, b)
     for ti, (a, b) in enumerate(zip(ranks[0]["ref"], ranks[0]["probs"])):
         np.testing.assert_allclose(b, a, atol=1e-4, err_msg=f"frame {ti}")
+
+
+def test_packed_segment_on_the_card(dev):
+    """segment on the live slots only (models/network.py:LiveSlots) at the
+    shape of the benchmark's padded group: 2 videos of 5 objects at o_cap 8,
+    480x854 padded to 480x864, f32. The probabilities within 1e-5 of the
+    call on every slot, and the packed call's peak memory below it."""
+    from deva_tpu_torch.models.network import (DEVANetwork, init_weights,
+                                               live_slots)
+    net = init_weights(DEVANetwork(), seed=0).to(dev).eval()
+    b, o_cap, num = 2, 8, [5, 5]
+    g = torch.Generator(device=dev).manual_seed(0)
+    image = torch.randn((b, 3, 480, 864), device=dev, generator=g)
+    live = live_slots(num, o_cap, dev)
+    selector = torch.zeros(b * o_cap, device=dev).index_fill_(
+        0, live.index, 1.0).view(b, o_cap)
+    probs, peaks = {}, {}
+    with torch.no_grad():
+        ms, _ = net.encode_image(image)
+        readout, sensory = (torch.randn((b, o_cap, 512, 30, 54), device=dev,
+                                        generator=g) for _ in range(2))
+        masks = torch.rand((b, o_cap, 480, 864), device=dev, generator=g)
+        for name, lv in (("unpacked", None), ("packed", live)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            probs[name] = net.segment(ms, readout, sensory, masks,
+                                      selector=selector, live=lv)[2]
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated(dev) - base
+    torch.testing.assert_close(probs["packed"], probs["unpacked"], rtol=0,
+                               atol=1e-5)
+    assert peaks["packed"] < peaks["unpacked"], peaks

@@ -4,7 +4,8 @@ A BatchedPropagator group (initialize, step_all, step_block, a long-term
 consolidation) runs under torch.profiler with tracing off and on: off, no
 `deva.` range and no record; on, the spans nest as the step path places
 them, share their deva.step's id, sit on the profiler's clock, count the
-frames' bytes, and leave the outputs bitwise as they were.
+frames' bytes and the model modes' object slots, and leave the outputs
+bitwise as they were.
 """
 import functools
 from collections import Counter
@@ -200,8 +201,22 @@ def test_upload_counts_the_frames_bytes(runs):
     nbytes = sum(sum(f.nbytes for f in c) if isinstance(c, list)
                  else c.nbytes for c in calls)
     assert nbytes == B * T * H * W * 3 * 4
-    assert counters == {"upload.bytes": nbytes,
-                        "upload.pageable_bytes": nbytes}
+    assert {k: v for k, v in counters.items() if k.startswith("upload.")} \
+        == {"upload.bytes": nbytes, "upload.pageable_bytes": nbytes}
+
+
+def test_mode_counters_count_the_live_slots(runs):
+    """segment and encode_mask count their object slots and the live ones.
+    The videos hold 2 objects and 1 at o_cap 2: every lockstep frame
+    decodes, and every memory write encodes, 3 of 4 slots; initialize's
+    cores encode their own o_cap (2 and 1), every slot live."""
+    _, _, records, counters, _, _ = runs["on"]
+    writes = sum(r.name == "deva.encode_mask" for r in records) - B
+    assert writes == 6
+    assert counters["segment.slots"] == 4 * (T - 1)
+    assert counters["segment.live_slots"] == 3 * (T - 1)
+    assert counters["encode_mask.slots"] == 3 + 4 * writes
+    assert counters["encode_mask.live_slots"] == 3 + 3 * writes
 
 
 @pytest.mark.parametrize("kind", ["array", "tensor", "list", "float64"])
